@@ -1,0 +1,403 @@
+#!/usr/bin/env python3
+"""Smoke run of tomobar_tpu_torch on one NVIDIA GPU: builds the CUDA
+kernels, checks each against its plain PyTorch version, and drives the
+main path (``RecToolsIRCuPy.FISTA``, PWLS, ordered subsets, PD-TV) at the
+flagship shape.
+
+Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and exits non-zero:
+
+1. device: CUDA must be available; prints the device and the
+   ``nvidia-smi`` name and power limit.
+2. build: compiles ``tomobar_tpu_torch/csrc/*.cu`` with nvcc (sm_90a).
+3. kernels: K1-K4 at N=512, nz=8, 180 angles (scalar CoR 3.5 and a
+   per-angle CoR vector, both driven groups) and PD-TV (iso/aniso x
+   nonneg, nz 1 and 8, plus bf16 duals), each against its plain version on
+   the same inputs.
+4. adjointness of the kernel pair.
+5. the slice on the CPU (plain versions) and on the GPU (kernels),
+   256^2 x 4 slices x 90 angles, OS5, PWLS, nonneg, PD-TV 20.
+6. the flagship: 1801 angles x 8 slices x 2560, OS10, PWLS, nonneg,
+   PD-TV (lambda 5e-4, 20 iterations), Lipschitz constant from the power
+   method, 1, 2 and 3 outer iterations; launch counts, times, RMSE
+   against the phantom, peak memory, then each kernel's time beside its
+   plain version's at that shape (K1-K4 on both driven groups of OS
+   subset 0, PD-TV for one iteration on the whole volume).
+
+The last three lines are the nvidia-smi line, a JSON object with one
+entry per kernel, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+TOL_KERNEL = 1e-5  # max|kernel - plain| / max|plain|, fp32 sums in another order
+TOL_PD_BF16 = 1e-3  # bf16 duals: a one-ulp fp32 difference can flip a rounding
+TOL_ADJOINT = 1e-5  # |<Ax,y> - <x,A^T y>| / |<Ax,y>|
+TOL_SLICE = 1e-4  # rel L2 between the CPU and the GPU reconstruction
+
+KERNELS = {
+    "K1": ("shear_fp", "tomobar_tpu_torch/csrc/projector.cu",
+           "tomobar_tpu/ops/projector_pallas.py:289"),
+    "K2": ("resample_fp", "tomobar_tpu_torch/csrc/projector.cu",
+           "tomobar_tpu/ops/projector_pallas.py:415"),
+    "K3": ("resample_bp", "tomobar_tpu_torch/csrc/projector.cu",
+           "tomobar_tpu/ops/projector_pallas.py:452"),
+    "K4": ("unshear_bp", "tomobar_tpu_torch/csrc/projector.cu",
+           "tomobar_tpu/ops/projector_pallas.py:511"),
+    "PD": ("pd_tv_iter", "tomobar_tpu_torch/csrc/pd_tv.cu",
+           "tomobar_tpu/ops/pd_tv_pallas.py:144"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def shepp_logan(n: int) -> np.ndarray:
+    """Shepp-Logan-like slice (the ellipses of tests/conftest.py)."""
+    ellipses = [
+        (1.0, 0.69, 0.92, 0.0, 0.0, 0.0),
+        (-0.8, 0.6624, 0.874, 0.0, -0.0184, 0.0),
+        (-0.2, 0.11, 0.31, 0.22, 0.0, -18.0),
+        (-0.2, 0.16, 0.41, -0.22, 0.0, 18.0),
+        (0.1, 0.21, 0.25, 0.0, 0.35, 0.0),
+        (0.1, 0.046, 0.046, 0.0, 0.1, 0.0),
+        (0.1, 0.046, 0.023, -0.08, -0.605, 0.0),
+        (0.1, 0.023, 0.046, 0.06, -0.605, 0.0),
+    ]
+    y, x = np.mgrid[-1 : 1 : n * 1j, -1 : 1 : n * 1j]
+    img = np.zeros((n, n), dtype=np.float32)
+    for val, a, b, x0, y0, phi in ellipses:
+        phi = np.deg2rad(phi)
+        xr = (x - x0) * np.cos(phi) + (y - y0) * np.sin(phi)
+        yr = -(x - x0) * np.sin(phi) + (y - y0) * np.cos(phi)
+        img[(xr / a) ** 2 + (yr / b) ** 2 <= 1.0] += val
+    return img
+
+
+def phantom(n: int, nz: int) -> np.ndarray:
+    scale = np.linspace(0.8, 1.2, nz, dtype=np.float32)
+    return shepp_logan(n)[None] * scale[:, None, None]
+
+
+class Errors:
+    """Worst kernel-vs-plain error per kernel over every comparison."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.abs = {k: 0.0 for k in KERNELS}
+
+    def compare(self, key: str, label: str, got, ref, tol: float = TOL_KERNEL):
+        self.torch.cuda.synchronize()
+        require(got.shape == ref.shape, f"{label}: shape {got.shape} != {ref.shape}")
+        require(bool(self.torch.isfinite(got).all()), f"{label}: non-finite output")
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        rel = err / scale if scale > 0 else err
+        print(f"  {key} {label}: max|kernel-plain| {err:.3e}, relative {rel:.3e} (tol {tol:g})")
+        require(rel <= tol, f"{key} {label}: kernel disagrees with plain ({rel:.3e} > {tol:g})")
+        self.abs[key] = max(self.abs[key], err)
+
+
+def check_projector_kernels(torch, K, errs, geom, dev, seed: int) -> None:
+    from tomobar_tpu_torch.ops.projector import Projector
+
+    n, nz, det = geom.recon_size, geom.detectors_y, geom.detectors_x_total
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vol = torch.randn((nz, n, n), generator=gen, device=dev)
+    for g in Projector(geom)._plan.groups(n, n, dev):
+        U0, LU, A = g.prm.U0, g.prm.LU, g.prm.A
+        tag = f"{'y' if g.swap else 'x'}-driven, {A} angles"
+        s_p = K.shear_fp_plain(vol, g.beta, U0, LU, g.swap)
+        errs.compare("K1", tag, K.shear_fp(vol, g.beta, U0, LU, g.swap), s_p)
+        errs.compare(
+            "K2", tag, K.resample_fp(s_p, g.alpha, g.gamma, U0, det),
+            K.resample_fp_plain(s_p, g.alpha, g.gamma, U0, det),
+        )
+        p = torch.randn((nz, A, det), generator=gen, device=dev)
+        q_p = K.resample_bp_plain(p, g.alpha, g.gamma, U0, LU)
+        errs.compare("K3", tag, K.resample_bp(p, g.alpha, g.gamma, U0, LU), q_p)
+        errs.compare(
+            "K4", tag, K.unshear_bp(q_p, g.beta, U0, n, n, g.swap),
+            K.unshear_bp_plain(q_p, g.beta, U0, n, n, g.swap),
+        )
+        base = torch.randn((nz, n, n), generator=gen, device=dev)
+        errs.compare(
+            "K4", tag + ", accumulate",
+            K.unshear_bp(q_p, g.beta, U0, n, n, g.swap, out=base.clone()),
+            K.unshear_bp_plain(q_p, g.beta, U0, n, n, g.swap, out=base.clone()),
+        )
+
+
+def time_cuda(torch, fn, reps: int) -> float:
+    """Mean milliseconds of fn() over reps calls, after one warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    pkg = os.path.join(REPO, "tomobar_tpu_torch")
+    require(os.path.isdir(pkg), f"{pkg} not found: run chip_smoke.py from a checkout")
+    sys.path.insert(0, REPO)
+    import torch
+
+    # ---- 1. device ---------------------------------------------------------
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(os.cpu_count() or 1)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"[1] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"[1] nvidia-smi name, power.limit: {smi}")
+
+    import tomobar_tpu_torch
+    from tomobar_tpu_torch import RecToolsIRCuPy, _build
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops import pd_tv as PDT
+    from tomobar_tpu_torch.ops import projector_kernels as K
+    from tomobar_tpu_torch.ops.projector import Projector, radon_bp, radon_fp
+
+    require(
+        os.path.dirname(os.path.abspath(tomobar_tpu_torch.__file__)) == pkg,
+        "tomobar_tpu_torch was not imported from this checkout",
+    )
+    require("jax" not in sys.modules, "jax was imported")
+
+    # ---- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"[2] nvcc build + load of the kernel library: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 3. kernels against their plain versions (N=512, nz=8, 180 angles)
+    errs = Errors(torch)
+    angles180 = np.linspace(0.0, np.pi, 180, endpoint=False)
+    geoms = {
+        "cor 3.5": Geometry(512, 8, angles180, 3.5, 512),
+        "per-angle cor": Geometry(
+            512, 8, angles180, 3.5 + 2.0 * np.sin(3.0 * angles180), 512
+        ),
+    }
+    for i, (label, geom) in enumerate(geoms.items()):
+        print(f"[3] projector kernels, {label}:")
+        check_projector_kernels(torch, K, errs, geom, dev, seed=10 + i)
+    print("[3] PD-TV kernel, 20 iterations, lambda 0.05, L 12:")
+    rng = np.random.default_rng(3)
+    for nz in (1, 8):
+        clean = phantom(512, nz)
+        data = torch.as_tensor(
+            clean + 0.1 * rng.standard_normal(clean.shape).astype(np.float32),
+            device=dev,
+        )
+        for mtv in (0, 1):
+            for nn in (0, 1):
+                args = (data, 0.05, 20, mtv, nn, 12.0)
+                errs.compare(
+                    "PD", f"nz={nz} methodTV={mtv} nonneg={nn}",
+                    PDT.pd_tv(*args), PDT.pd_tv_plain(*args),
+                )
+        if nz == 8:
+            args = (data, 0.05, 20, 0, 1, 12.0, True)
+            errs.compare(
+                "PD", "nz=8 iso nonneg, bf16 duals",
+                PDT.pd_tv(*args), PDT.pd_tv_plain(*args), tol=TOL_PD_BF16,
+            )
+
+    # ---- 4. adjointness on the card ----------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for label, geom in geoms.items():
+        x = torch.randn((8, 512, 512), generator=gen, device=dev)
+        y = torch.randn((8, 180, 512), generator=gen, device=dev)
+        lhs = float(torch.sum(radon_fp(x, geom).double() * y.double()))
+        rhs = float(torch.sum(x.double() * radon_bp(y, geom).double()))
+        rel = abs(lhs - rhs) / abs(lhs)
+        print(f"[4] adjointness, {label}: |<Ax,y>-<x,A^T y>|/|<Ax,y>| = {rel:.3e} (tol {TOL_ADJOINT:g})")
+        require(rel <= TOL_ADJOINT, f"adjointness {rel:.3e} > {TOL_ADJOINT:g}")
+
+    # ---- 5. the slice on the CPU and on the card ---------------------------
+    angles90 = np.linspace(0.0, np.pi, 90, endpoint=False)
+    ph = torch.as_tensor(phantom(256, 4), device=dev)
+    sino = radon_fp(ph, Geometry(256, 4, angles90, 0.0, 256))
+    rt_gpu = RecToolsIRCuPy(256, 0, 4, 0.0, angles90, 256, OS_number=5)
+    lc = rt_gpu.powermethod({"projection_data": sino})
+    alg = {"iterations": 3, "nonnegativity": True, "lipschitz_const": lc}
+    reg = {"method": "PD_TV", "regul_param": 5e-4, "iterations": 20}
+    rec = {}
+    for name, rt, data in (
+        ("cpu", RecToolsIRCuPy(256, 0, 4, 0.0, angles90, 256, OS_number=5, device="cpu"),
+         sino.cpu()),
+        ("gpu", rt_gpu, sino),
+    ):
+        t0 = time.perf_counter()
+        rec[name] = rt.FISTA(
+            {"projection_data": data, "data_fidelity": "PWLS"}, dict(alg), dict(reg)
+        ).cpu()
+        print(f"[5] slice on {name}: {time.perf_counter() - t0:.2f} s wall")
+    require(bool(torch.isfinite(rec["gpu"]).all()), "slice: non-finite GPU result")
+    rel = float(
+        torch.linalg.vector_norm(rec["gpu"] - rec["cpu"])
+        / torch.linalg.vector_norm(rec["cpu"])
+    )
+    print(f"[5] slice 256^2x4x90 OS5 PWLS PD-TV20, L={lc:.6g}: rel L2 GPU vs CPU = {rel:.3e} (tol {TOL_SLICE:g})")
+    require(rel <= TOL_SLICE, f"slice: GPU vs CPU {rel:.3e} > {TOL_SLICE:g}")
+
+    # ---- 6. the flagship: 1801 x 8 x 2560, OS10 ----------------------------
+    N, NZ, NA, OS = 2560, 8, 1801, 10
+    angles = np.linspace(0.0, np.pi, NA, endpoint=False)
+    t0 = time.perf_counter()
+    truth = torch.as_tensor(phantom(N, NZ), device=dev)
+    clean = radon_fp(truth, Geometry(N, NZ, angles, 0.0, N))
+    # Poisson noise at 1e4 incident photons, pixel size 2/N on a unit-radius
+    # field of view, then back to post-log pixel units
+    px = 2.0 / N
+    i0 = 1.0e4
+    gen = torch.Generator(device=dev).manual_seed(6)
+    counts = torch.poisson(i0 * torch.exp(-clean * px), generator=gen)
+    data = -torch.log(torch.clamp(counts, min=1.0) / i0) / px
+    del counts, clean
+    torch.cuda.synchronize()
+    print(f"[6] data: phantom, FP and Poisson noise in {time.perf_counter() - t0:.2f} s")
+
+    rt = RecToolsIRCuPy(N, 0, NZ, 0.0, angles, N, OS_number=OS)
+    reg = {"method": "PD_TV", "regul_param": 5e-4, "iterations": 20}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    lc = rt.powermethod({"projection_data": data, "data_fidelity": "PWLS"})
+    torch.cuda.synchronize()
+    t_power = time.perf_counter() - t0
+    recs, ms = [], []
+    for iters in (1, 2, 3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = rt.FISTA(
+            {"projection_data": data, "data_fidelity": "PWLS"},
+            {"iterations": iters, "nonnegativity": True, "lipschitz_const": lc},
+            dict(reg),
+        )
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        recs.append(out)
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[6] power method: L = {lc:.6g} in {t_power:.2f} s wall")
+    print(f"[6] launch counts during the main path: {json.dumps(launches)}")
+    for k in KERNELS:
+        require(launches[k] > 0, f"kernel {k} was not launched by the main path")
+    rmse = []
+    for iters, out, t in zip((1, 2, 3), recs, ms):
+        require(tuple(out.shape) == (NZ, N, N), f"recon shape {tuple(out.shape)}")
+        require(bool(torch.isfinite(out).all()), f"non-finite recon after {iters} iterations")
+        rmse.append(float(torch.sqrt(torch.mean((out - truth) ** 2))))
+        print(f"[6] FISTA {iters} outer iteration(s): {t:.1f} ms, RMSE vs phantom {rmse[-1]:.6f}")
+    per_iter = [ms[0], ms[1] - ms[0], ms[2] - ms[1]]
+    print(
+        "[6] per-outer-iteration ms (call 1, then differences of calls): "
+        + ", ".join(f"{t:.1f}" for t in per_iter)
+    )
+    print(f"[6] peak device memory: {peak / 2**20:.1f} MiB")
+    require(rmse[0] > rmse[1] > rmse[2], f"RMSE does not fall: {rmse}")
+
+    # ---- 6b. kernel vs plain times at the flagship shape --------------------
+    # K1-K4 on both driven groups of OS subset 0, the shapes fp_sub/bp_sub
+    # give them; "ms" is the sum over the two groups (one fp_sub or bp_sub
+    # call), PD is one iteration (one launch) on the full volume
+    x = recs[-1].contiguous()
+    times = {k: [0.0, 0.0] for k in KERNELS}
+
+    def measure(key, label, kern, plain):
+        errs.compare(key, f"flagship, {label}", kern(), plain())
+        t_kern, t_plain = time_cuda(torch, kern, 10), time_cuda(torch, plain, 2)
+        times[key][0] += t_kern
+        times[key][1] += t_plain
+        print(f"[6] {key} {KERNELS[key][0]}, {label}: kernel {t_kern:.3f} ms, plain {t_plain:.3f} ms")
+
+    sub0 = Projector(rt.Atools._sub_geoms[0])
+    for g in sub0._plan.groups(N, N, dev):
+        U0, LU, A = g.prm.U0, g.prm.LU, g.prm.A
+        label = f"{'y' if g.swap else 'x'}-driven {A} angles x {NZ} x LU {LU}"
+        s = K.shear_fp_plain(x, g.beta, U0, LU, g.swap)
+        p = K.resample_fp_plain(s, g.alpha, g.gamma, U0, N)
+        q = K.resample_bp_plain(p, g.alpha, g.gamma, U0, LU)
+        measure("K1", label, lambda: K.shear_fp(x, g.beta, U0, LU, g.swap),
+                lambda: K.shear_fp_plain(x, g.beta, U0, LU, g.swap))
+        measure("K2", label, lambda: K.resample_fp(s, g.alpha, g.gamma, U0, N),
+                lambda: K.resample_fp_plain(s, g.alpha, g.gamma, U0, N))
+        measure("K3", label, lambda: K.resample_bp(p, g.alpha, g.gamma, U0, LU),
+                lambda: K.resample_bp_plain(p, g.alpha, g.gamma, U0, LU))
+        measure("K4", label, lambda: K.unshear_bp(q, g.beta, U0, N, N, g.swap),
+                lambda: K.unshear_bp_plain(q, g.beta, U0, N, N, g.swap))
+    pd_args = (x, 5e-4, 20, 0, 1, 12.0)
+    errs.compare("PD", "flagship, 20 iterations", PDT.pd_tv(*pd_args), PDT.pd_tv_plain(*pd_args))
+    measure("PD", f"one iteration on {NZ}x{N}x{N}",
+            lambda: PDT.pd_tv(*pd_args[:2], 1, *pd_args[3:]),
+            lambda: PDT.pd_tv_plain(*pd_args[:2], 1, *pd_args[3:]))
+
+    summary = {
+        "kernels": [
+            {
+                "name": f"{k} {KERNELS[k][0]}",
+                "route": "cuda",
+                "source": KERNELS[k][1],
+                "replaces": KERNELS[k][2],
+                "launches": launches[k],
+                "max_abs_err": errs.abs[k],
+                "ms": times[k][0],
+                "plain_ms": times[k][1],
+            }
+            for k in KERNELS
+        ]
+    }
+    print(smi)
+    print(json.dumps(summary))
+    print(
+        json.dumps(
+            {
+                "ok": True,
+                "device": {
+                    "platform": "gpu",
+                    "kind": kind,
+                    "count": torch.cuda.device_count(),
+                },
+            }
+        )
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,116 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+All ``csrc/*.cu`` files are compiled by one ``nvcc`` call into a shared
+library with a plain C interface, which is loaded with :mod:`ctypes`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/libtomobar_kernels_<hash>.so csrc/*.cu
+
+The library is built at first use into ``_build/`` beside this file (listed
+in ``.gitignore``), keyed by a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is reused.  Nothing is built when the
+module is imported: CPU-only installs import every module of the package.
+
+Every C entry point returns the ``cudaError_t`` of its launch
+(``cudaGetLastError()``); :func:`check` turns a non-zero code into an
+exception.  Each kernel wrapper counts its launches in :data:`launch_counts`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = [
+    "library",
+    "check",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of csrc/*.cu (pointers and the stream as void*, ints as int)
+_SIGNATURES = {
+    "tt_shear_fp": [_P] * 3 + [_I] * 9 + [_P],
+    "tt_resample_fp": [_P] * 4 + [_I] * 5 + [_P],
+    "tt_resample_bp": [_P] * 4 + [_I] * 5 + [_P],
+    "tt_unshear_bp": [_P] * 3 + [_I] * 8 + [_P],
+    "tt_pd_tv_iter": [_P] * 9 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_P],
+}
+
+# launches per kernel since the last reset; each wrapper adds one where it
+# launches its kernel and nowhere else
+launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "PD": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "tomobar_tpu_torch cannot be built"
+    )
+
+
+def _source_hash(sources) -> str:
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; cached per process."""
+    sources = sorted(_CSRC.glob("*.cu"))
+    headers = sorted(_CSRC.glob("*.cuh"))
+    so = _BUILD_DIR / f"libtomobar_kernels_{_source_hash(sources + headers)}.so"
+    if not so.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tt_error_string.argtypes = [ctypes.c_int]
+    lib.tt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if err != 0:
+        msg = library().tt_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed: error {err} ({msg})")

@@ -1,0 +1,327 @@
+"""Host side of the projector kernels K1-K4, their plain PyTorch versions
+and the wrappers that launch the CUDA kernels of ``csrc/projector.cu``.
+
+Counterpart of the host side of ``tomobar_tpu/ops/projector_pallas.py``.
+Per driven-angle group (x-driven when |cos| >= |sin|, y-driven otherwise,
+with the volume's y and x axes swapped) the forward projector is
+
+    K1  shear_fp     vol (nz, ny, nx)    -> s (A, nz, LU)
+    K2  resample_fp  s (A, nz, LU)       -> p (nz, A, det_x)
+    K3  resample_bp  p (nz, A, det_x)    -> q (A, nz, LU)
+    K4  unshear_bp   q (A, nz, LU)       -> vol (nz, ny, nx)
+
+and K3/K4 are the exact transposes of K2/K1.  ``U0`` and ``LU`` are the JAX
+package's own, so ``s`` and ``q`` line up index for index with the Pallas
+stages; the TPU-only glue (angle padding to block multiples, z-chunking,
+128-lane row rounding, the packed nz == 1 kernels) has no counterpart.
+
+Each ``*_plain`` function is the plain PyTorch version of its kernel.  A
+wrapper runs the plain version only for a tensor on the CPU; for a CUDA
+tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from tomobar_tpu_torch import _build
+
+__all__ = [
+    "DrivenParams",
+    "driven_params",
+    "shear_fp",
+    "resample_fp",
+    "resample_bp",
+    "unshear_bp",
+    "shear_fp_plain",
+    "resample_fp_plain",
+    "resample_bp_plain",
+    "unshear_bp_plain",
+]
+
+_INT32_MAX = 2**31 - 1
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+class DrivenParams(NamedTuple):
+    """Per-angle parameters of one driven-axis group (A real angles)."""
+
+    alpha: np.ndarray  # 1/cos for x-driven (signed), float32
+    beta: np.ndarray  # -tan, float32
+    gamma: np.ndarray  # alpha*(cor - (det_x-1)/2) + (row_len-1)/2, float32
+    A: int
+    det_x: int
+    U0: int  # u of the row centre: headroom for the largest row shift
+    NXP: int  # row width with the Pallas roll headroom; sizes LU
+    LU: int  # length of the u-lines s and q
+
+
+def driven_params(
+    cos_v: np.ndarray,
+    sin_v: np.ndarray,
+    cor_v: np.ndarray,
+    det_x: int,
+    n_rows: int,
+    row_len: int,
+) -> DrivenParams:
+    """Port of ``projector_pallas._driven_params`` without angle padding:
+    float64 math, float32 results, the same U0/NXP/LU."""
+    alpha = 1.0 / cos_v
+    beta = -sin_v / cos_v
+    gamma = alpha * (cor_v - (det_x - 1) / 2.0) + (row_len - 1) / 2.0
+    NXP = _round_up(row_len + 2, 128) + 128
+    U0 = _round_up(n_rows // 2 + 2, 128)
+    LU = _round_up(U0 + n_rows // 2 + 2 + NXP, 128) + 128
+    return DrivenParams(
+        alpha.astype(np.float32),
+        beta.astype(np.float32),
+        gamma.astype(np.float32),
+        int(alpha.shape[0]),
+        int(det_x),
+        U0,
+        NXP,
+        LU,
+    )
+
+
+def _partition(angles: np.ndarray):
+    from tomobar_tpu_torch.ops.projector import _angle_partition
+
+    idx_x, idx_y = _angle_partition(angles)
+    return np.cos(angles), np.sin(angles), idx_x, idx_y
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (CPU path, and the reference the kernels are held to)
+# ---------------------------------------------------------------------------
+
+
+def _row_shifts(beta: torch.Tensor, n_rows: int, U0: int):
+    """o[a, r] = U0 - floor(beta_a (r - cy)) and its fraction f, in fp32
+    exactly as the kernels compute them."""
+    rc = torch.arange(n_rows, dtype=torch.float32, device=beta.device) - (
+        n_rows - 1
+    ) / 2.0
+    shift = beta[:, None] * rc[None, :]
+    kf = torch.floor(shift)
+    return U0 - kf.to(torch.int64), shift - kf
+
+
+def _det_taps(alpha: torch.Tensor, gamma: torch.Tensor, U0: int, det_x: int):
+    """Detector sample positions pos[a, t] = (U0 + gamma) + alpha t, the
+    lower tap i = floor(pos) and the |alpha|-scaled hat weights of taps i
+    and i + 1."""
+    t = torch.arange(det_x, dtype=torch.float32, device=alpha.device)
+    pos = (U0 + gamma)[:, None] + alpha[:, None] * t[None, :]
+    i = torch.floor(pos)
+    aa = torch.abs(alpha)[:, None]
+    w0 = aa * torch.clamp(1.0 - torch.abs(pos - i), min=0.0)
+    w1 = aa * torch.clamp(1.0 - torch.abs(pos - (i + 1.0)), min=0.0)
+    return i.to(torch.int64), w0, w1
+
+
+def shear_fp_plain(vol, beta, U0: int, LU: int, swap: bool = False):
+    """K1: s[a, z, u] = sum_r (1-f) row_r[u-o] + f row_r[u-o+1]."""
+    rows = vol.transpose(1, 2) if swap else vol  # (nz, n_rows, row_len)
+    nz, n_rows, row_len = rows.shape
+    A = beta.shape[0]
+    o, f = _row_shifts(beta, n_rows, U0)
+    rowp = torch.nn.functional.pad(rows, (1, 1))  # rowp[.., 1 + j] = row[j]
+    u = torch.arange(LU, device=vol.device)
+    s = torch.zeros((nz, A, LU), dtype=torch.float32, device=vol.device)
+    for r in range(n_rows):
+        j = u[None, :] - o[:, r : r + 1]  # (A, LU)
+        i0 = torch.clamp(j + 1, 0, row_len + 1).reshape(-1)
+        i1 = torch.clamp(j + 2, 0, row_len + 1).reshape(-1)
+        row = rowp[:, r, :]
+        fr = f[:, r : r + 1]
+        s += (1.0 - fr) * row[:, i0].view(nz, A, LU) + fr * row[:, i1].view(
+            nz, A, LU
+        )
+    return s.transpose(0, 1).contiguous()
+
+
+def resample_fp_plain(s, alpha, gamma, U0: int, det_x: int):
+    """K2: p[z, a, t] = |alpha| sum_u s[a, z, u] hat(pos_t - u)."""
+    A, nz, LU = s.shape
+    i, w0, w1 = _det_taps(alpha, gamma, U0, det_x)
+    sp = torch.nn.functional.pad(s, (1, 1))  # sp[.., 1 + u] = s[u]
+    i0 = torch.clamp(i + 1, 0, LU + 1)
+    i1 = torch.clamp(i + 2, 0, LU + 1)
+    g0 = torch.gather(sp, 2, i0[:, None, :].expand(A, nz, det_x))
+    g1 = torch.gather(sp, 2, i1[:, None, :].expand(A, nz, det_x))
+    p = w0[:, None, :] * g0 + w1[:, None, :] * g1
+    return p.transpose(0, 1).contiguous()
+
+
+def resample_bp_plain(p, alpha, gamma, U0: int, LU: int):
+    """K3, as the scatter that is plainly the transpose of K2:
+    q[a, z, i] += w0 p[z, a, t] and q[a, z, i + 1] += w1 p[z, a, t]."""
+    nz, A, det_x = p.shape
+    i, w0, w1 = _det_taps(alpha, gamma, U0, det_x)
+    q = torch.zeros((A, nz, LU + 2), dtype=torch.float32, device=p.device)
+    pa = p.transpose(0, 1)  # (A, nz, det_x)
+    for tap, w in ((i, w0), (i + 1, w1)):
+        valid = (tap >= 0) & (tap < LU)
+        idx = torch.where(valid, tap + 1, 0)[:, None, :].expand(A, nz, det_x)
+        q.scatter_add_(2, idx, torch.where(valid, w, 0.0)[:, None, :] * pa)
+    return q[:, :, 1 : LU + 1].contiguous()
+
+
+def unshear_bp_plain(q, beta, U0: int, ny: int, nx: int, swap: bool = False,
+                     out: Optional[torch.Tensor] = None):
+    """K4: vol_row[j] = sum_a (1-f) q[a, o+j] + f q[a, o+j-1]; adds into
+    ``out`` when given, else returns a new volume."""
+    A, nz, LU = q.shape
+    n_rows, row_len = (nx, ny) if swap else (ny, nx)
+    o, f = _row_shifts(beta, n_rows, U0)
+    qp = torch.nn.functional.pad(q, (1, 1))  # qp[.., 1 + u] = q[u]
+    j = torch.arange(row_len, device=q.device)
+    acc = torch.zeros((nz, n_rows, row_len), dtype=torch.float32, device=q.device)
+    for a in range(A):
+        u = o[a][:, None] + j[None, :]  # (n_rows, row_len)
+        i0 = torch.clamp(u + 1, 0, LU + 1).reshape(-1)
+        i1 = torch.clamp(u, 0, LU + 1).reshape(-1)
+        fa = f[a][:, None]
+        acc += (1.0 - fa) * qp[a][:, i0].view(nz, n_rows, row_len) + fa * qp[
+            a
+        ][:, i1].view(nz, n_rows, row_len)
+    vol = acc.transpose(1, 2) if swap else acc
+    if out is None:
+        return vol.contiguous()
+    out += vol
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors on {dev}; the kernel takes CUDA tensors")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")
+        if t.numel() > _INT32_MAX:
+            raise ValueError(f"{name}: {t.numel()} elements exceed int32")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _params_ok(name: str, A: int, *vecs: torch.Tensor) -> None:
+    for v in vecs:
+        if v.dim() != 1 or v.shape[0] != A:
+            raise ValueError(f"{name}: per-angle vectors must have shape ({A},)")
+
+
+def shear_fp(vol, beta, U0: int, LU: int, swap: bool = False):
+    """K1 (see :func:`shear_fp_plain`).  vol (nz, ny, nx) float32."""
+    if vol.device.type == "cpu":
+        return shear_fp_plain(vol, beta, U0, LU, swap)
+    _check_cuda("K1", vol, beta)
+    if vol.dim() != 3:
+        raise ValueError("K1: vol must be (nz, ny, nx)")
+    nz, ny, nx = vol.shape
+    A = beta.shape[0]
+    _params_ok("K1", A, beta)
+    n_rows, row_len = (nx, ny) if swap else (ny, nx)
+    strides = (ny * nx, 1, nx) if swap else (ny * nx, nx, 1)
+    s = torch.empty((A, nz, LU), dtype=torch.float32, device=vol.device)
+    _check_cuda("K1", s)
+    lib = _build.library()
+    with torch.cuda.device(vol.device):
+        err = lib.tt_shear_fp(
+            vol.data_ptr(), beta.data_ptr(), s.data_ptr(), A, nz, n_rows,
+            row_len, *strides, U0, LU, _stream(vol),
+        )
+    _build.check("K1", err)
+    _build.launch_counts["K1"] += 1
+    return s
+
+
+def resample_fp(s, alpha, gamma, U0: int, det_x: int):
+    """K2 (see :func:`resample_fp_plain`).  s (A, nz, LU) -> (nz, A, det_x)."""
+    if s.device.type == "cpu":
+        return resample_fp_plain(s, alpha, gamma, U0, det_x)
+    _check_cuda("K2", s, alpha, gamma)
+    if s.dim() != 3:
+        raise ValueError("K2: s must be (A, nz, LU)")
+    A, nz, LU = s.shape
+    _params_ok("K2", A, alpha, gamma)
+    p = torch.empty((nz, A, det_x), dtype=torch.float32, device=s.device)
+    _check_cuda("K2", p)
+    lib = _build.library()
+    with torch.cuda.device(s.device):
+        err = lib.tt_resample_fp(
+            s.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), p.data_ptr(),
+            A, nz, LU, det_x, U0, _stream(s),
+        )
+    _build.check("K2", err)
+    _build.launch_counts["K2"] += 1
+    return p
+
+
+def resample_bp(p, alpha, gamma, U0: int, LU: int):
+    """K3 (see :func:`resample_bp_plain`).  p (nz, A, det_x) -> (A, nz, LU)."""
+    if p.device.type == "cpu":
+        return resample_bp_plain(p, alpha, gamma, U0, LU)
+    _check_cuda("K3", p, alpha, gamma)
+    if p.dim() != 3:
+        raise ValueError("K3: p must be (nz, A, det_x)")
+    nz, A, det_x = p.shape
+    _params_ok("K3", A, alpha, gamma)
+    q = torch.empty((A, nz, LU), dtype=torch.float32, device=p.device)
+    _check_cuda("K3", q)
+    lib = _build.library()
+    with torch.cuda.device(p.device):
+        err = lib.tt_resample_bp(
+            p.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), q.data_ptr(),
+            A, nz, LU, det_x, U0, _stream(p),
+        )
+    _build.check("K3", err)
+    _build.launch_counts["K3"] += 1
+    return q
+
+
+def unshear_bp(q, beta, U0: int, ny: int, nx: int, swap: bool = False,
+               out: Optional[torch.Tensor] = None):
+    """K4 (see :func:`unshear_bp_plain`).  q (A, nz, LU) -> vol (nz, ny, nx),
+    added into ``out`` when given."""
+    if q.device.type == "cpu":
+        return unshear_bp_plain(q, beta, U0, ny, nx, swap, out)
+    _check_cuda("K4", q, beta)
+    if q.dim() != 3:
+        raise ValueError("K4: q must be (A, nz, LU)")
+    A, nz, LU = q.shape
+    _params_ok("K4", A, beta)
+    if out is None:
+        vol = torch.empty((nz, ny, nx), dtype=torch.float32, device=q.device)
+    else:
+        vol = out
+        if tuple(vol.shape) != (nz, ny, nx):
+            raise ValueError(f"K4: out must have shape {(nz, ny, nx)}")
+    _check_cuda("K4", q, vol)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.tt_unshear_bp(
+            q.data_ptr(), beta.data_ptr(), vol.data_ptr(), A, nz, ny, nx, LU,
+            U0, int(swap), int(out is not None), _stream(q),
+        )
+    _build.check("K4", err)
+    _build.launch_counts["K4"] += 1
+    return vol
