@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of tomobar_tpu_torch on one NVIDIA GPU: builds the CUDA
 kernels, checks each against its plain PyTorch version, and drives the
-main path (``RecToolsIRCuPy.FISTA``, PWLS, ordered subsets, PD-TV) at the
-flagship shape.
+ported paths at the flagship shape: the iterative main path
+(``RecToolsIRCuPy.FISTA``, PWLS, ordered subsets, PD-TV) and the direct
+path (``RecToolsDIRCuPy.FOURIER_INV`` and 3D ``FBP``).
 
 Run from the repository root with no arguments::
 
@@ -12,7 +13,8 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. device: CUDA must be available; prints the device and the
    ``nvidia-smi`` name and power limit.
-2. build: compiles ``tomobar_tpu_torch/csrc/*.cu`` with nvcc (sm_90a).
+2. build: compiles ``tomobar_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
+   one process per source, all started together.
 3. kernels: K1-K4 at N=512, nz=8, 180 angles (scalar CoR 3.5 and a
    per-angle CoR vector, both driven groups) and PD-TV (iso/aniso x
    nonneg, nz 1 and 8, plus bf16 duals), each against its plain version on
@@ -26,6 +28,14 @@ Phases, in order; any failure raises and exits non-zero:
    against the phantom, peak memory, then each kernel's time beside its
    plain version's at that shape (K1-K4 on both driven groups of OS
    subset 0, PD-TV for one iteration on the whole volume).
+7. the direct path: G (USFFT gridding) against its plain version at
+   n=512, 2 z-pairs, 360 angles with 0 and pi/2 (both driven groups), F
+   (axis-(-2) FFT) at n = 2560, 5120, 8192 and both signs; FOURIER_INV and
+   3D FBP at 256^2 x 4 x 90 on the CPU and on the GPU; then on phase 6's
+   clean 1801 x 8 x 2560 sinogram: FOURIER_INV and FBP times after a
+   warm-up call, G/F launch counts per path, both paths' time by stage,
+   its correlation with a Ram-Lak FBP inside the inscribed circle, peak
+   memory, and G and F beside their plain versions at the flagship shapes.
 
 The last three lines are the nvidia-smi line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.
@@ -47,6 +57,7 @@ TOL_KERNEL = 1e-5  # max|kernel - plain| / max|plain|, fp32 sums in another orde
 TOL_PD_BF16 = 1e-3  # bf16 duals: a one-ulp fp32 difference can flip a rounding
 TOL_ADJOINT = 1e-5  # |<Ax,y> - <x,A^T y>| / |<Ax,y>|
 TOL_SLICE = 1e-4  # rel L2 between the CPU and the GPU reconstruction
+MIN_CORR = 0.99  # FOURIER_INV vs Ram-Lak FBP inside the inscribed circle
 
 KERNELS = {
     "K1": ("shear_fp", "tomobar_tpu_torch/csrc/projector.cu",
@@ -59,7 +70,13 @@ KERNELS = {
            "tomobar_tpu/ops/projector_pallas.py:511"),
     "PD": ("pd_tv_iter", "tomobar_tpu_torch/csrc/pd_tv.cu",
            "tomobar_tpu/ops/pd_tv_pallas.py:144"),
+    "G": ("usfft_grid", "tomobar_tpu_torch/csrc/usfft_grid.cu",
+          "tomobar_tpu/ops/usfft_pallas.py:236 (G1 _grid_kernel_astack) "
+          "and tomobar_tpu/ops/usfft_pallas.py:91 (G0 _grid_kernel)"),
+    "F": ("fft_axis2", "tomobar_tpu_torch/csrc/fft_axis2.cu",
+          "tomobar_tpu/ops/fft_real.py:208"),
 }
+ITERATIVE = ("K1", "K2", "K3", "K4", "PD")  # the kernels of phase 6's path
 
 
 class SmokeFailure(RuntimeError):
@@ -106,7 +123,10 @@ class Errors:
         self.abs = {k: 0.0 for k in KERNELS}
 
     def compare(self, key: str, label: str, got, ref, tol: float = TOL_KERNEL):
+        """got/ref are tensors, or (re, im) pairs of tensors."""
         self.torch.cuda.synchronize()
+        if isinstance(got, tuple):
+            got, ref = self.torch.stack(got), self.torch.stack(ref)
         require(got.shape == ref.shape, f"{label}: shape {got.shape} != {ref.shape}")
         require(bool(self.torch.isfinite(got).all()), f"{label}: non-finite output")
         err = float((got.float() - ref.float()).abs().max())
@@ -159,6 +179,202 @@ def time_cuda(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def rel_l2(torch, got, ref) -> float:
+    return float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+
+
+def check_direct_kernels(torch, errs, dev) -> None:
+    """7a: G and F against their plain versions on random inputs."""
+    from tomobar_tpu_torch.ops import fft_kernels as FK
+    from tomobar_tpu_torch.ops import usfft_kernels as UK
+
+    gen = torch.Generator(device=dev).manual_seed(70)
+    # angles 0 .. -pi in 360 steps: 0 and -pi/2 included, both driven groups
+    theta = -np.linspace(0.0, np.pi, 360, endpoint=False)
+    g_re = torch.randn((2, 360, 512), generator=gen, device=dev)
+    g_im = torch.randn((2, 360, 512), generator=gen, device=dev)
+    errs.compare(
+        "G", "n=512, 2 z-pairs, 360 angles",
+        UK.grid(g_re, g_im, 512, theta), UK.grid_plain(g_re, g_im, 512, theta),
+    )
+    for n in (2560, 5120, 8192):
+        B, C = FK.best_split(n)
+        re = torch.randn((2, n, 300), generator=gen, device=dev)
+        im = torch.randn((2, n, 300), generator=gen, device=dev)
+        for sign in (-1, 1):
+            errs.compare(
+                "F", f"n={n} (B={B}, C={C}), 2 x {n} x 300, sign {sign:+d}",
+                FK.fft_axis2(re, im, sign), FK.fft_axis2_plain(re, im, sign),
+            )
+
+
+def fourier_inv_by_stage(torch, rt, data):
+    """FOURIER_INV on 3D data with no odd axis and default kwargs, stage by
+    stage with CUDA events around each stage; returns the ms per stage, the
+    recon and the gridding input (the spectra the path gives G)."""
+    from tomobar_tpu_torch.ops import fft_real as FR
+    from tomobar_tpu_torch.ops import usfft as US
+    from tomobar_tpu_torch.ops import usfft_kernels as UK
+
+    nz, nproj, n = data.shape
+    theta = -np.asarray(rt.geom.angles, dtype=np.float64)
+    rot = float(np.mean(rt.geom.cor_horizontal)) + 0.5
+    mu = -np.log(1e-4) / (2 * n * n)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    events[0].record()
+    filtered = US._fbp_filter_stage(data, n, n, "shepp", 1.0, rot)
+    events[1].record()
+    dre, dim = US._pack_pairs(filtered)
+    sre, sim = FR.fft_pairs(dre, dim)
+    scale = US._sign_vector(n, data.device) * (4.0 / n)
+    sre, sim = sre * scale, sim * scale
+    events[2].record()
+    fre, fim = UK.grid(sre, sim, n, theta)
+    events[3].record()
+    fre, fim = US._ifft2_centered(fre, fim, n)
+    events[4].record()
+    rec = US._unpad_mul_phi(fre, fim, n, nproj, nz, False, False, rt.recon_size, mu)
+    events[5].record()
+    torch.cuda.synchronize()
+    names = ("filter (F n=8192 x2)", "pack + STEP1 FFT", "G gridding",
+             "ifft2 (F n=5120 x2)", "unpad x phi")
+    ms = {k: events[i].elapsed_time(events[i + 1]) for i, k in enumerate(names)}
+    return ms, rec, (sre, sim)
+
+
+def fbp_by_stage(torch, rt, by_angle):
+    """3D FBP with the default sinc filter, with CUDA events around the
+    filter and the back-projection; returns (ms per stage, recon)."""
+    from tomobar_tpu_torch.ops.filters import filter_sino_sinc
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    filtered = filter_sino_sinc(by_angle.transpose(0, 1), 0.35)
+    events[1].record()
+    rec = rt.Atools.bp(filtered)
+    events[2].record()
+    torch.cuda.synchronize()
+    names = ("sinc filter (F n=2560 x2)", "back-projection (K3/K4)")
+    return {k: events[i].elapsed_time(events[i + 1]) for i, k in enumerate(names)}, rec
+
+
+def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
+    """7: the direct path; returns the G and F launches of its main run."""
+    from tomobar_tpu_torch import RecToolsDIRCuPy, _build
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops import fft_kernels as FK
+    from tomobar_tpu_torch.ops import usfft_kernels as UK
+    from tomobar_tpu_torch.ops.projector import radon_fp
+
+    print("[7] G and F kernels against their plain versions:")
+    check_direct_kernels(torch, errs, dev)
+
+    # ---- 7b. FOURIER_INV and 3D FBP on the CPU and on the card -------------
+    angles90 = np.linspace(0.0, np.pi, 90, endpoint=False)
+    sino = radon_fp(torch.as_tensor(phantom(256, 4), device=dev),
+                    Geometry(256, 4, angles90, 0.0, 256))
+    out = {}
+    for name, device, data in (("cpu", "cpu", sino.cpu()), ("gpu", dev, sino)):
+        rt = RecToolsDIRCuPy(256, 0, 4, 0.0, angles90, 256, device=device)
+        out[name] = (rt.FOURIER_INV(data).cpu(), rt.FBP(data.transpose(0, 1)).cpu())
+    for i, label in enumerate(("FOURIER_INV", "FBP (sinc)")):
+        got, ref = out["gpu"][i], out["cpu"][i]
+        require(bool(torch.isfinite(got).all()), f"{label} 256^2: non-finite GPU result")
+        rel = rel_l2(torch, got, ref)
+        print(f"[7] {label} 256^2x4x90: rel L2 GPU vs CPU = {rel:.3e} (tol {TOL_SLICE:g})")
+        require(rel <= TOL_SLICE, f"{label}: GPU vs CPU {rel:.3e} > {TOL_SLICE:g}")
+
+    # ---- 7c. the flagship direct path: 1801 x 8 x 2560 ---------------------
+    NZ, NA, N = clean.shape
+    rt = RecToolsDIRCuPy(N, 0, NZ, 0.0, angles, N, device=dev)
+    by_angle = clean.transpose(0, 1)  # FBP takes [angles, detY, detX]
+    rt.FOURIER_INV(clean)  # warm-up: the G/F tables, the cuFFT plans
+    rt.FBP(by_angle)
+    torch.cuda.synchronize()
+    launches = {}
+
+    def timed(label, fn, reps=3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launch_counts()
+        ms = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        counts = {k: v // reps for k, v in _build.launch_counts.items() if v}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        print(f"[7] {label} {NA}x{NZ}x{N}: " + ", ".join(f"{t:.1f}" for t in ms)
+              + f" ms; launches per call {json.dumps(counts)}; peak {peak:.1f} MiB")
+        require(tuple(res.shape) == (NZ, N, N), f"{label}: shape {tuple(res.shape)}")
+        require(bool(torch.isfinite(res).all()), f"{label}: non-finite result")
+        launches[label] = counts
+        return res, float(np.mean(ms))
+
+    fi, ms_fi = timed("FOURIER_INV", lambda: rt.FOURIER_INV(clean))
+    require(launches["FOURIER_INV"].get("G", 0) > 0, "FOURIER_INV did not launch G")
+    require(launches["FOURIER_INV"].get("F", 0) > 0, "FOURIER_INV did not launch F")
+    fbp, ms_fbp = timed("FBP (sinc)", lambda: rt.FBP(by_angle))
+    require(launches["FBP (sinc)"].get("F", 0) > 0, "FBP did not launch F")
+    print(f"[7] FBP / FOURIER_INV time ratio: {ms_fbp / ms_fi:.3f}")
+
+    stages, fi_staged, spectra = fourier_inv_by_stage(torch, rt, clean)
+    print("[7] FOURIER_INV by stage (ms): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    rel = rel_l2(torch, fi_staged, fi)
+    require(rel <= TOL_KERNEL, f"staged FOURIER_INV differs from the call: {rel:.3e}")
+    stages, fbp_staged = fbp_by_stage(torch, rt, by_angle)
+    print("[7] FBP (sinc) by stage (ms): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    rel = rel_l2(torch, fbp_staged, fbp)
+    require(rel <= TOL_KERNEL, f"staged FBP differs from the call: {rel:.3e}")
+    del fbp, fbp_staged
+
+    ramlak = rt.FBP(by_angle, filter_type="ram-lak")
+    yy, xx = np.mgrid[0:N, 0:N]
+    inside = torch.as_tensor(np.hypot(yy - (N - 1) / 2, xx - (N - 1) / 2) < N / 2 - 2, device=dev)
+    corr = [float(torch.corrcoef(torch.stack([fi[z][inside], ramlak[z][inside]]))[0, 1])
+            for z in range(NZ)]
+    print(f"[7] FOURIER_INV vs FBP(ram-lak) correlation inside the inscribed circle, "
+          f"per slice: min {min(corr):.6f}, max {max(corr):.6f} (min {MIN_CORR})")
+    require(min(corr) >= MIN_CORR, f"FOURIER_INV vs FBP correlation {min(corr):.4f} < {MIN_CORR}")
+    del fi, ramlak, fi_staged
+
+    # ---- 7d. G and F beside their plain versions at the flagship shapes -----
+    # G: one call on the spectra FOURIER_INV gives it.  About 1e4 polar
+    # samples reach one grid cell near the centre; G sums them in float64,
+    # but the plain version's float32 index_add_ loses ~1e-5 of the max
+    # there in run-dependent order, so here G is held against the plain
+    # version accumulating in float64, and timed against it in float32.
+    # F: one pass at each of its three flagship shapes ("ms" sums them): the
+    # ifft2 pass (4 x 5120 x 5120), the FOURIER_INV filter stage (8192 x
+    # 7208 rows) and the FBP sinc filter (2560 x 7208 rows)
+    theta = -np.asarray(angles, dtype=np.float64)
+    sre, sim = spectra
+    del spectra
+    errs.compare("G", f"flagship, {NZ // 2} z-pairs x {NA} x {N}, float64 plain",
+                 UK.grid(sre, sim, N, theta),
+                 tuple(g.float() for g in UK.grid_plain(sre.double(), sim.double(), N, theta)))
+    measure("G", f"{NZ // 2} z-pairs x {NA} x {N}", lambda: UK.grid(sre, sim, N, theta),
+            lambda: UK.grid_plain(sre, sim, N, theta), reps=3, plain_reps=1, check=False)
+    del sre, sim
+    gen = torch.Generator(device=dev).manual_seed(71)
+    rows = NZ * (NA + 1) // 2
+    for shape, sign in (((4, 2 * N, 2 * N), 1), ((8192, rows), -1), ((N, rows), -1)):
+        re = torch.randn(shape, generator=gen, device=dev)
+        im = torch.randn(shape, generator=gen, device=dev)
+        measure("F", f"{'x'.join(map(str, shape))}, sign {sign:+d}",
+                lambda: FK.fft_axis2(re, im, sign),
+                lambda: FK.fft_axis2_plain(re, im, sign), reps=5, plain_reps=5)
+        del re, im
+    return {
+        "G": launches["FOURIER_INV"].get("G", 0),
+        "F": launches["FOURIER_INV"].get("F", 0) + launches["FBP (sinc)"].get("F", 0),
+    }
 
 
 def main() -> int:
@@ -285,7 +501,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(6)
     counts = torch.poisson(i0 * torch.exp(-clean * px), generator=gen)
     data = -torch.log(torch.clamp(counts, min=1.0) / i0) / px
-    del counts, clean
+    del counts
     torch.cuda.synchronize()
     print(f"[6] data: phantom, FP and Poisson noise in {time.perf_counter() - t0:.2f} s")
 
@@ -316,7 +532,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[6] power method: L = {lc:.6g} in {t_power:.2f} s wall")
     print(f"[6] launch counts during the main path: {json.dumps(launches)}")
-    for k in KERNELS:
+    for k in ITERATIVE:
         require(launches[k] > 0, f"kernel {k} was not launched by the main path")
     rmse = []
     for iters, out, t in zip((1, 2, 3), recs, ms):
@@ -339,12 +555,15 @@ def main() -> int:
     x = recs[-1].contiguous()
     times = {k: [0.0, 0.0] for k in KERNELS}
 
-    def measure(key, label, kern, plain):
-        errs.compare(key, f"flagship, {label}", kern(), plain())
-        t_kern, t_plain = time_cuda(torch, kern, 10), time_cuda(torch, plain, 2)
+    def measure(key, label, kern, plain, reps=10, plain_reps=2, check=True):
+        phase = "6" if key in ITERATIVE else "7"
+        if check:
+            errs.compare(key, f"flagship, {label}", kern(), plain())
+        t_kern = time_cuda(torch, kern, reps)
+        t_plain = time_cuda(torch, plain, plain_reps)
         times[key][0] += t_kern
         times[key][1] += t_plain
-        print(f"[6] {key} {KERNELS[key][0]}, {label}: kernel {t_kern:.3f} ms, plain {t_plain:.3f} ms")
+        print(f"[{phase}] {key} {KERNELS[key][0]}, {label}: kernel {t_kern:.3f} ms, plain {t_plain:.3f} ms")
 
     sub0 = Projector(rt.Atools._sub_geoms[0])
     for g in sub0._plan.groups(N, N, dev):
@@ -366,6 +585,10 @@ def main() -> int:
     measure("PD", f"one iteration on {NZ}x{N}x{N}",
             lambda: PDT.pd_tv(*pd_args[:2], 1, *pd_args[3:]),
             lambda: PDT.pd_tv_plain(*pd_args[:2], 1, *pd_args[3:]))
+    del x, recs, data, truth
+
+    # ---- 7. the direct path ------------------------------------------------
+    launches.update(direct_path(torch, errs, measure, dev, clean, angles))
 
     summary = {
         "kernels": [

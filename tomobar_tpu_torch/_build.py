@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` files are compiled by one ``nvcc`` call into a shared
-library with a plain C interface, which is loaded with :mod:`ctypes`:
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, which is loaded with :mod:`ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libtomobar_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <source>.o csrc/<source>.cu   (one per source)
+    nvcc -shared -o _build/libtomobar_kernels_<hash>.so *.o
 
 The library is built at first use into ``_build/`` beside this file (listed
 in ``.gitignore``), keyed by a hash of the sources and flags, so an edited
@@ -24,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 __all__ = [
@@ -37,7 +40,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -48,11 +51,13 @@ _SIGNATURES = {
     "tt_resample_bp": [_P] * 4 + [_I] * 5 + [_P],
     "tt_unshear_bp": [_P] * 3 + [_I] * 8 + [_P],
     "tt_pd_tv_iter": [_P] * 9 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_P],
+    "tt_usfft_grid": [_P] * 8 + [_I] * 5 + [_F] * 3 + [_P],
+    "tt_fft_axis2": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 # launches per kernel since the last reset; each wrapper adds one where it
 # launches its kernel and nowhere else
-launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "PD": 0}
+launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "PD": 0, "G": 0, "F": 0}
 
 
 def reset_launch_counts() -> None:
@@ -74,6 +79,21 @@ def _nvcc() -> str:
     )
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel, wait for every one of them, then raise
+    with the output of the first that failed."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}"
+            )
+
+
 def _source_hash(sources) -> str:
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for src in sources:
@@ -90,15 +110,16 @@ def library() -> ctypes.CDLL:
     so = _BUILD_DIR / f"libtomobar_kernels_{_source_hash(sources + headers)}.so"
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, so)
+        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as work:
+            nvcc = _nvcc()
+            objs = [Path(work) / f"{src.stem}.o" for src in sources]
+            _run_all([
+                [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)
+            ])
+            tmp = Path(work) / so.name
+            _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+            os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
