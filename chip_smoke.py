@@ -2,8 +2,9 @@
 """Smoke run of tomobar_tpu_torch on one NVIDIA GPU: builds the CUDA
 kernels, checks each against its plain PyTorch version, and drives the
 ported paths at the flagship shape: the iterative main path
-(``RecToolsIRCuPy.FISTA``, PWLS, ordered subsets, PD-TV) and the direct
-path (``RecToolsDIRCuPy.FOURIER_INV`` and 3D ``FBP``).
+(``RecToolsIRCuPy.FISTA``, PWLS, ordered subsets, PD-TV), the direct
+path (``RecToolsDIRCuPy.FOURIER_INV`` and 3D ``FBP``) and the 2D path
+(2D ``FORWPROJ``/``FBP`` and every solver on one slice).
 
 Run from the repository root with no arguments::
 
@@ -36,6 +37,15 @@ Phases, in order; any failure raises and exits non-zero:
    warm-up call, G/F launch counts per path, both paths' time by stage,
    its correlation with a Ram-Lak FBP inside the inscribed circle, peak
    memory, and G and F beside their plain versions at the flagship shapes.
+8. the 2D path: K1p/K4p (the packed nz = 1 pair) against their plain
+   versions at N=512, 2D, 180 angles (scalar CoR 3.5 and a per-angle CoR
+   vector, both driven groups) and the pair's adjointness; 2D FBP and 2D
+   FISTA (OS5, LS, PD-TV 20) at 256^2 x 90 on the CPU and on the GPU; then
+   one 2560^2 slice x 1801 angles: 2D FORWPROJ and FBP times, FISTA (OS10,
+   LS, nonneg, PD-TV) for 1, 2 and 3 outer iterations with RMSE against
+   the phantom, ADMM, SIRT, CGLS, Landweber and OSEM (residuals must
+   fall), launch counts per path, peak memory, and K1p/K4p beside their
+   plain versions and beside K1/K4 on the same input.
 
 The last three lines are the nvidia-smi line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.
@@ -62,12 +72,16 @@ MIN_CORR = 0.99  # FOURIER_INV vs Ram-Lak FBP inside the inscribed circle
 KERNELS = {
     "K1": ("shear_fp", "tomobar_tpu_torch/csrc/projector.cu",
            "tomobar_tpu/ops/projector_pallas.py:289"),
+    "K1p": ("shear_fp_packed", "tomobar_tpu_torch/csrc/projector.cu",
+            "tomobar_tpu/ops/projector_pallas.py:347"),
     "K2": ("resample_fp", "tomobar_tpu_torch/csrc/projector.cu",
            "tomobar_tpu/ops/projector_pallas.py:415"),
     "K3": ("resample_bp", "tomobar_tpu_torch/csrc/projector.cu",
            "tomobar_tpu/ops/projector_pallas.py:452"),
     "K4": ("unshear_bp", "tomobar_tpu_torch/csrc/projector.cu",
            "tomobar_tpu/ops/projector_pallas.py:511"),
+    "K4p": ("unshear_bp_packed", "tomobar_tpu_torch/csrc/projector.cu",
+            "tomobar_tpu/ops/projector_pallas.py:588"),
     "PD": ("pd_tv_iter", "tomobar_tpu_torch/csrc/pd_tv.cu",
            "tomobar_tpu/ops/pd_tv_pallas.py:144"),
     "G": ("usfft_grid", "tomobar_tpu_torch/csrc/usfft_grid.cu",
@@ -77,6 +91,7 @@ KERNELS = {
           "tomobar_tpu/ops/fft_real.py:208"),
 }
 ITERATIVE = ("K1", "K2", "K3", "K4", "PD")  # the kernels of phase 6's path
+TWO_D = ("K1p", "K4p")  # measured in phase 8
 
 
 class SmokeFailure(RuntimeError):
@@ -185,6 +200,36 @@ def rel_l2(torch, got, ref) -> float:
     return float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
 
 
+def timed_calls(torch, dev, launches, label, title, fn, shape, reps=3):
+    """fn() reps times between CUDA events, with the launch counters and the
+    peak-memory statistic reset first; prints the times, the launches per
+    call and the peak after ``title``, checks the result's shape and that it
+    is finite, keeps the launches in ``launches[label]`` and returns the
+    last result and the mean ms."""
+    from tomobar_tpu_torch import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    counts = {k: v // reps for k, v in _build.launch_counts.items() if v}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    print(f"{title}: " + ", ".join(f"{t:.2f}" for t in ms)
+          + f" ms; launches per call {json.dumps(counts)}; peak {peak:.1f} MiB")
+    require(tuple(res.shape) == shape, f"{title}: shape {tuple(res.shape)}")
+    require(bool(torch.isfinite(res).all()), f"{title}: non-finite result")
+    launches[label] = counts
+    return res, float(np.mean(ms))
+
+
 def check_direct_kernels(torch, errs, dev) -> None:
     """7a: G and F against their plain versions on random inputs."""
     from tomobar_tpu_torch.ops import fft_kernels as FK
@@ -262,7 +307,7 @@ def fbp_by_stage(torch, rt, by_angle):
 
 def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     """7: the direct path; returns the G and F launches of its main run."""
-    from tomobar_tpu_torch import RecToolsDIRCuPy, _build
+    from tomobar_tpu_torch import RecToolsDIRCuPy
     from tomobar_tpu_torch.geometry import Geometry
     from tomobar_tpu_torch.ops import fft_kernels as FK
     from tomobar_tpu_torch.ops import usfft_kernels as UK
@@ -295,27 +340,9 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     torch.cuda.synchronize()
     launches = {}
 
-    def timed(label, fn, reps=3):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        _build.reset_launch_counts()
-        ms = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            res = fn()
-            end.record()
-            torch.cuda.synchronize()
-            ms.append(start.elapsed_time(end))
-        counts = {k: v // reps for k, v in _build.launch_counts.items() if v}
-        peak = torch.cuda.max_memory_allocated(dev) / 2**20
-        print(f"[7] {label} {NA}x{NZ}x{N}: " + ", ".join(f"{t:.1f}" for t in ms)
-              + f" ms; launches per call {json.dumps(counts)}; peak {peak:.1f} MiB")
-        require(tuple(res.shape) == (NZ, N, N), f"{label}: shape {tuple(res.shape)}")
-        require(bool(torch.isfinite(res).all()), f"{label}: non-finite result")
-        launches[label] = counts
-        return res, float(np.mean(ms))
+    def timed(label, fn):
+        return timed_calls(torch, dev, launches, label, f"[7] {label} {NA}x{NZ}x{N}",
+                           fn, (NZ, N, N))
 
     fi, ms_fi = timed("FOURIER_INV", lambda: rt.FOURIER_INV(clean))
     require(launches["FOURIER_INV"].get("G", 0) > 0, "FOURIER_INV did not launch G")
@@ -375,6 +402,241 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
         "G": launches["FOURIER_INV"].get("G", 0),
         "F": launches["FOURIER_INV"].get("F", 0) + launches["FBP (sinc)"].get("F", 0),
     }
+
+
+def check_packed_kernels(torch, K, errs, geom, dev, seed: int) -> None:
+    """8a: K1p/K4p against their plain versions on one slice."""
+    from tomobar_tpu_torch.ops.projector import Projector
+
+    n = geom.recon_size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vol = torch.randn((1, n, n), generator=gen, device=dev)
+    for g in Projector(geom)._plan.groups(n, n, dev, True):
+        require(g.prm.packed, "a 512^2 slice must take the packed pair")
+        U0, LU, A = g.prm.U0, g.prm.LU, g.prm.A
+        tag = f"{'y' if g.swap else 'x'}-driven, {A} angles"
+        rows = vol.transpose(1, 2).contiguous() if g.swap else vol
+        errs.compare("K1p", tag, K.shear_fp_packed(rows, g.beta, U0, LU),
+                     K.shear_fp_packed_plain(rows, g.beta, U0, LU))
+        q = torch.randn((A, 1, LU), generator=gen, device=dev)
+        errs.compare("K4p", tag, K.unshear_bp_packed(q, g.beta, U0, n, g.swap),
+                     K.unshear_bp_packed_plain(q, g.beta, U0, n, g.swap))
+        base = torch.randn((1, n, n), generator=gen, device=dev)
+        errs.compare(
+            "K4p", tag + ", accumulate",
+            K.unshear_bp_packed(q, g.beta, U0, n, g.swap, out=base.clone()),
+            K.unshear_bp_packed_plain(q, g.beta, U0, n, g.swap, out=base.clone()),
+        )
+
+
+def residual(torch, rt, x, b) -> float:
+    return float(torch.linalg.vector_norm(rt.Atools.fp(x) - b))
+
+
+def two_d_path(torch, K, errs, measure, dev) -> dict:
+    """8: the 2D path; returns the K1p/K4p launches of its main runs (2D
+    FORWPROJ, FBP and FISTA)."""
+    from tomobar_tpu_torch import RecToolsDIRCuPy, RecToolsIRCuPy, _build
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops.projector import Projector, radon_bp, radon_fp
+
+    # ---- 8a. K1p/K4p against their plain versions, adjointness ------------
+    angles180 = np.linspace(0.0, np.pi, 180, endpoint=False)
+    geoms = {
+        "cor 3.5": Geometry(512, 1, angles180, 3.5, 512),
+        "per-angle cor": Geometry(512, 1, angles180, 3.5 + 2.0 * np.sin(3.0 * angles180), 512),
+    }
+    gen = torch.Generator(device=dev).manual_seed(80)
+    for i, (label, geom) in enumerate(geoms.items()):
+        print(f"[8] packed kernels, 512^2 x 180 angles, {label}:")
+        check_packed_kernels(torch, K, errs, geom, dev, seed=81 + i)
+        x = torch.randn((512, 512), generator=gen, device=dev)
+        y = torch.randn((180, 512), generator=gen, device=dev)
+        lhs = float(torch.sum(radon_fp(x, geom).double() * y.double()))
+        rhs = float(torch.sum(x.double() * radon_bp(y, geom).double()))
+        rel = abs(lhs - rhs) / abs(lhs)
+        print(f"[8] adjointness of the nz=1 pair, {label}: {rel:.3e} (tol {TOL_ADJOINT:g})")
+        require(rel <= TOL_ADJOINT, f"2D adjointness {rel:.3e} > {TOL_ADJOINT:g}")
+
+    # ---- 8b. 2D FBP and FISTA on the CPU and on the card -------------------
+    angles90 = np.linspace(0.0, np.pi, 90, endpoint=False)
+    ph = torch.as_tensor(shepp_logan(256), device=dev)
+    sino = radon_fp(ph, Geometry(256, 1, angles90, 0.0, 256))
+    lc = RecToolsIRCuPy(256, 0, None, 0.0, angles90, 256, OS_number=5, device=dev).powermethod(
+        {"projection_data": sino})
+    alg = {"iterations": 3, "nonnegativity": True, "lipschitz_const": lc}
+    reg = {"method": "PD_TV", "regul_param": 5e-4, "iterations": 20}
+    out = {}
+    for name, device, data in (("cpu", "cpu", sino.cpu()), ("gpu", dev, sino)):
+        fbp = RecToolsDIRCuPy(256, 0, None, 0.0, angles90, 256, device=device).FBP(data)
+        rec = RecToolsIRCuPy(256, 0, None, 0.0, angles90, 256, OS_number=5, device=device).FISTA(
+            {"projection_data": data}, dict(alg), dict(reg))
+        out[name] = (fbp.cpu(), rec.cpu())
+    for i, label in enumerate(("FBP (sinc 1.1)", "FISTA OS5 LS PD-TV20")):
+        got, ref = out["gpu"][i], out["cpu"][i]
+        require(bool(torch.isfinite(got).all()), f"2D {label}: non-finite GPU result")
+        rel = rel_l2(torch, got, ref)
+        print(f"[8] 2D {label} 256^2x90: rel L2 GPU vs CPU = {rel:.3e} (tol {TOL_SLICE:g})")
+        require(rel <= TOL_SLICE, f"2D {label}: GPU vs CPU {rel:.3e} > {TOL_SLICE:g}")
+
+    # ---- 8c. the 2D flagship: one 2560^2 slice x 1801 angles ---------------
+    N, NA, OS = 2560, 1801, 10
+    angles = np.linspace(0.0, np.pi, NA, endpoint=False)
+    truth = torch.as_tensor(shepp_logan(N), device=dev)
+    rd = RecToolsDIRCuPy(N, 0, None, 0.0, angles, N, device=dev)
+    clean = rd.FORWPROJ(truth)
+    px, i0 = 2.0 / N, 1.0e4  # as phase 6
+    gen = torch.Generator(device=dev).manual_seed(8)
+    counts = torch.poisson(i0 * torch.exp(-clean * px), generator=gen)
+    data = -torch.log(torch.clamp(counts, min=1.0) / i0) / px
+    del counts
+    launches = {}
+    for label, fn, shape in (("FORWPROJ", lambda: rd.FORWPROJ(truth), (NA, N)),
+                             ("FBP (sinc 1.1)", lambda: rd.FBP(data), (N, N))):
+        fn()  # warm-up
+        timed_calls(torch, dev, launches, label, f"[8] 2D {label} {NA}x{N}", fn, shape)
+    require(launches["FORWPROJ"].get("K1p", 0) > 0, "2D FORWPROJ did not launch K1p")
+    require(launches["FBP (sinc 1.1)"].get("K4p", 0) > 0, "2D FBP did not launch K4p")
+
+    rt = RecToolsIRCuPy(N, 0, None, 0.0, angles, N, OS_number=OS, device=dev)
+    reg = {"method": "PD_TV", "regul_param": 5e-4, "iterations": 20}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    lc = rt.powermethod({"projection_data": data})
+    torch.cuda.synchronize()
+    t_power = time.perf_counter() - t0
+    recs, ms = [], []
+    for iters in (1, 2, 3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        recs.append(rt.FISTA({"projection_data": data},
+                             {"iterations": iters, "nonnegativity": True, "lipschitz_const": lc},
+                             dict(reg)))
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    launches["FISTA"] = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[8] 2D power method (OS10): L = {lc:.6g} in {t_power:.2f} s wall")
+    print(f"[8] 2D launch counts, power method + FISTA 1+2+3: {json.dumps(launches['FISTA'])}")
+    for k in TWO_D + ("K2", "K3", "PD"):
+        require(launches["FISTA"][k] > 0, f"kernel {k} was not launched by 2D FISTA")
+    rmse = []
+    for iters, rec, t in zip((1, 2, 3), recs, ms):
+        require(tuple(rec.shape) == (1, N, N), f"2D FISTA shape {tuple(rec.shape)}")
+        require(bool(torch.isfinite(rec).all()), f"2D FISTA: non-finite after {iters}")
+        rmse.append(float(torch.sqrt(torch.mean((rec[0] - truth) ** 2))))
+        print(f"[8] 2D FISTA {iters} outer iteration(s): {t:.2f} ms, RMSE vs phantom {rmse[-1]:.6f}")
+    print(f"[8] 2D FISTA peak device memory: {peak / 2**20:.1f} MiB")
+    require(rmse[0] > rmse[1] > rmse[2], f"2D FISTA RMSE does not fall: {rmse}")
+    x_last = recs[-1]
+    del recs
+
+    # one FISTA subset step and one FBP call by stage (CUDA events)
+    from tomobar_tpu_torch.ops.filters import filter_sino_sinc
+    from tomobar_tpu_torch.regularisers import PD_TV
+
+    b0 = rt.Atools.sino_subset(data[None], 0)
+    stages = {
+        "fp_sub (K1p x2, K2 x2)": lambda: rt.Atools.fp_sub(x_last, 0),
+        "bp_sub (K3 x2, K4p x2)": lambda: rt.Atools.bp_sub(b0, 0),
+        "PD-TV prox, 20 iterations": lambda: PD_TV(x_last, 5e-4, 20, 0, 1, 12.0),
+        "FBP sinc filter": lambda: filter_sino_sinc(data, 1.1),
+        "FBP back-projection (K3 x2, K4p x2)": lambda: rd.Atools.bp(data),
+    }
+    print("[8] 2D by stage (ms): " + json.dumps(
+        {k: round(time_cuda(torch, fn, 5), 3) for k, fn in stages.items()}))
+    del b0
+
+    # the other solvers at the flagship: finite, residuals fall
+    t0 = time.perf_counter()
+    x = rt.ADMM({"projection_data": data},
+                {"iterations": 2, "nonnegativity": True, "lipschitz_const": lc}, dict(reg))
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(x).all()), "2D ADMM: non-finite result")
+    print(f"[8] 2D ADMM OS10, 2 outer, PD-TV20: {time.perf_counter() - t0:.2f} s wall, "
+          f"RMSE vs phantom {float(torch.sqrt(torch.mean((x[0] - truth) ** 2))):.6f}")
+    rn = RecToolsIRCuPy(N, 0, None, 0.0, angles, N, device=dev)
+    lc_full = rn.powermethod({"projection_data": data})
+    b = data[None]
+    start_res = {"SIRT": residual(torch, rn, torch.ones((1, N, N), device=dev), b),
+                 "CGLS": float(torch.linalg.vector_norm(b)),
+                 "Landweber": float(torch.linalg.vector_norm(b))}
+    for method, its, alg in (("SIRT", (5, 10), {}), ("CGLS", (5, 10), {}),
+                             ("Landweber", (10, 20), {"tau_step_lanweber": 1.0 / lc_full})):
+        res = [start_res[method]]
+        for it in its:
+            t0 = time.perf_counter()
+            x = getattr(rn, method)({"projection_data": data}, dict(alg, iterations=it))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            require(bool(torch.isfinite(x).all()), f"2D {method}: non-finite result")
+            res.append(residual(torch, rn, x, b))
+            print(f"[8] 2D {method} {it} iterations: {wall:.3f} s wall, ||Ax-b|| {res[-1]:.6g}")
+        print(f"[8] 2D {method} residual: start {res[0]:.6g} -> {res[1]:.6g} -> {res[2]:.6g}")
+        require(res[0] > res[1] > res[2], f"2D {method}: residual does not fall: {res}")
+    t0 = time.perf_counter()
+    x = rt.OSEM({"projection_data": torch.clamp(data, min=0.0)},
+                {"iterations": 3, "osem_normalisation": "divide"})
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(x).all()), "2D OSEM: non-finite result")
+    print(f"[8] 2D OSEM OS10 divide, 3 iterations: {time.perf_counter() - t0:.2f} s wall, "
+          f"RMSE vs phantom {float(torch.sqrt(torch.mean((x[0] - truth) ** 2))):.6f}")
+    del x
+
+    # ---- 8d. K1p/K4p beside their plain versions and K1/K4 ------------------
+    # the JSON line's "ms" sums both driven groups of OS subset 0 (2D
+    # FISTA's fp_sub/bp_sub); then the full 1801-angle groups (FORWPROJ,
+    # FBP).  K1/K4 at nz = 1, on the same inputs, are what the 2D path ran
+    # before K1p/K4p.
+    vol = x_last.contiguous()
+    sub0 = Projector(rt.Atools._sub_geoms[0])
+    for tag, proj in (("OS subset 0", sub0), ("all 1801 angles", rt.Atools)):
+        for g in proj._plan.groups(N, N, dev, True):
+            U0, LU, A = g.prm.U0, g.prm.LU, g.prm.A
+            label = f"{'y' if g.swap else 'x'}-driven {A} angles, LU {LU} ({tag})"
+            rows = vol.transpose(1, 2).contiguous() if g.swap else vol
+            s = K.shear_fp_packed(rows, g.beta, U0, LU)
+            q = K.resample_bp(K.resample_fp(s, g.alpha, g.gamma, U0, N), g.alpha, g.gamma, U0, LU)
+            del s
+
+            def k1p():
+                return K.shear_fp_packed(rows, g.beta, U0, LU)
+
+            def k1p_plain():
+                return K.shear_fp_packed_plain(rows, g.beta, U0, LU)
+
+            def k4p():
+                return K.unshear_bp_packed(q, g.beta, U0, N, g.swap)
+
+            def k4p_plain():
+                return K.unshear_bp_packed_plain(q, g.beta, U0, N, g.swap)
+
+            def k1():
+                return K.shear_fp(vol, g.beta, U0, LU, g.swap)
+
+            def k4():
+                return K.unshear_bp(q, g.beta, U0, N, N, g.swap)
+
+            errs.compare("K1p", f"flagship, {label}, against K1", k1p(), k1())
+            errs.compare("K4p", f"flagship, {label}, against K4", k4p(), k4())
+            if tag == "OS subset 0":
+                measure("K1p", label, k1p, k1p_plain)
+                measure("K4p", label, k4p, k4p_plain)
+            else:
+                errs.compare("K1p", f"flagship, {label}", k1p(), k1p_plain())
+                errs.compare("K4p", f"flagship, {label}", k4p(), k4p_plain())
+                print(f"[8] K1p shear_fp_packed, {label}: kernel {time_cuda(torch, k1p, 5):.3f} ms, "
+                      f"plain {time_cuda(torch, k1p_plain, 1):.3f} ms")
+                print(f"[8] K4p unshear_bp_packed, {label}: kernel {time_cuda(torch, k4p, 5):.3f} ms, "
+                      f"plain {time_cuda(torch, k4p_plain, 1):.3f} ms")
+            print(f"[8] K1 at nz=1, {label}: {time_cuda(torch, k1, 5):.3f} ms; "
+                  f"K4 at nz=1: {time_cuda(torch, k4, 5):.3f} ms")
+    return {k: sum(launches[p].get(k, 0) for p in ("FORWPROJ", "FBP (sinc 1.1)", "FISTA"))
+            for k in TWO_D}
 
 
 def main() -> int:
@@ -556,7 +818,7 @@ def main() -> int:
     times = {k: [0.0, 0.0] for k in KERNELS}
 
     def measure(key, label, kern, plain, reps=10, plain_reps=2, check=True):
-        phase = "6" if key in ITERATIVE else "7"
+        phase = "6" if key in ITERATIVE else "8" if key in TWO_D else "7"
         if check:
             errs.compare(key, f"flagship, {label}", kern(), plain())
         t_kern = time_cuda(torch, kern, reps)
@@ -589,6 +851,10 @@ def main() -> int:
 
     # ---- 7. the direct path ------------------------------------------------
     launches.update(direct_path(torch, errs, measure, dev, clean, angles))
+    del clean
+
+    # ---- 8. the 2D path ----------------------------------------------------
+    launches.update(two_d_path(torch, K, errs, measure, dev))
 
     summary = {
         "kernels": [

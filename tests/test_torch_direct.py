@@ -196,9 +196,14 @@ def test_fourier_inv_correlates_with_fbp_ram_lak():
 
 @pytest.mark.parametrize("method", ["FBP", "FORWPROJ", "BACKPROJ"])
 def test_2d_projector_methods_name_the_next_slice(method):
+    """The 2D methods that waited for the packed nz = 1 kernels K1p/K4p run
+    now (parity with JAX in ``tests/test_torch_2d.py``): 2D in, 2D out."""
     rt = RecToolsDIR(32, 0, None, 0.0, np.linspace(0, np.pi, 8), 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="K1p/K4p"):
-        getattr(rt, method)(np.zeros((8, 32), np.float32))
+    shape_in, shape_out = ((32, 32), (8, 32)) if method == "FORWPROJ" else ((8, 32), (32, 32))
+    data = np.random.default_rng(15).uniform(0, 1, shape_in).astype(np.float32)
+    out = getattr(rt, method)(data)
+    assert isinstance(out, np.ndarray) and out.shape == shape_out
+    assert np.isfinite(out).all() and np.abs(out).max() > 0.0
 
 
 def test_shape_tuple_names_memest_item():

@@ -16,7 +16,7 @@ from tomobar_tpu.regularisers import PD_TV as jax_PD_TV
 
 from tomobar_tpu_torch import _build
 from tomobar_tpu_torch.ops.pd_tv import pd_tv_constants
-from tomobar_tpu_torch.regularisers import PD_TV, prox_regul
+from tomobar_tpu_torch.regularisers import PD_TV, ROF_TV, prox_regul
 
 torch.set_num_threads(1)
 
@@ -83,7 +83,11 @@ def test_prox_regul_dispatch():
     np.testing.assert_array_equal(
         prox_regul(Owner(), v, reg).numpy(), PD_TV(v, LAM, 3, 0, 1, LC).numpy()
     )
-    for method in ("ROF_TV", "FGP_TV", "PD_TV_WAVELETS"):
+    rof = dict(reg, method="ROF_TV", time_marching_step=0.002)
+    np.testing.assert_array_equal(
+        prox_regul(Owner(), v, rof).numpy(), ROF_TV(v, LAM, 3, 0.002).numpy()
+    )
+    for method in ("FGP_TV", "PD_TV_WAVELETS"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             prox_regul(Owner(), v, dict(reg, method=method))
 

@@ -5,10 +5,11 @@ A second package beside the JAX package ``tomobar_tpu``, which stays the
 reference it is tested against.  It imports neither jax nor ``tomobar_tpu``.
 Ported so far:
 
-* the iterative main path: ``RecToolsIRCuPy.FISTA`` with LS/PWLS/SWLS/KL
-  fidelity, ordered subsets and a PD-TV prox, on the two-pass
-  shear/resample projector pair;
-* the direct path: ``RecToolsDIR``/``RecToolsDIRCuPy`` 3D ``FBP``,
+* the iterative path: ``RecToolsIRCuPy`` (power method, Landweber, SIRT,
+  CGLS, FISTA, ADMM, OSEM) with LS/PWLS/SWLS/KL fidelity, ordered subsets
+  and ROF-TV/PD-TV proxes, on the two-pass shear/resample projector pair
+  (its packed nz = 1 kernels for one slice);
+* the direct path: ``RecToolsDIR``/``RecToolsDIRCuPy`` 2D and 3D ``FBP``,
   ``FORWPROJ``/``BACKPROJ``, 2D ``FOURIER`` and ``FOURIER_INV`` (the USFFT
   gridding and the fused axis-(-2) FFT pass).
 

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "tt_resample_fp": [_P] * 4 + [_I] * 5 + [_P],
     "tt_resample_bp": [_P] * 4 + [_I] * 5 + [_P],
     "tt_unshear_bp": [_P] * 3 + [_I] * 8 + [_P],
+    "tt_shear_fp_packed": [_P] * 3 + [_I] * 5 + [_P],
+    "tt_unshear_bp_packed": [_P] * 3 + [_I] * 6 + [_P],
     "tt_pd_tv_iter": [_P] * 9 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_P],
     "tt_usfft_grid": [_P] * 8 + [_I] * 5 + [_F] * 3 + [_P],
     "tt_fft_axis2": [_P] * 5 + [_I] * 4 + [_P],
@@ -57,7 +59,9 @@ _SIGNATURES = {
 
 # launches per kernel since the last reset; each wrapper adds one where it
 # launches its kernel and nowhere else
-launch_counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "PD": 0, "G": 0, "F": 0}
+launch_counts = {
+    "K1": 0, "K1p": 0, "K2": 0, "K3": 0, "K4": 0, "K4p": 0, "PD": 0, "G": 0, "F": 0,
+}
 
 
 def reset_launch_counts() -> None:

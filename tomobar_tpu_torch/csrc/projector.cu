@@ -12,6 +12,9 @@
 //   K2 resample_fp_kernel <- projector_pallas.py _resample_fp_kernel
 //   K3 resample_bp_kernel <- projector_pallas.py _resample_bp_kernel
 //   K4 unshear_bp_kernel  <- projector_pallas.py _unshear_bp_kernel
+//   K1p shear_fp_packed_kernel   <- projector_pallas.py _shear_fp_packed_kernel
+//   K4p unshear_bp_packed_kernel <- projector_pallas.py _unshear_bp_packed_kernel
+//   (K1p/K4p: the pair for one slice, nz == 1; see their own note below)
 //
 // Design.  One thread owns one output element and gathers its taps, so no
 // kernel needs atomics and every result is deterministic.  The TPU kernels
@@ -37,6 +40,8 @@
 // from contracting them into FMAs) and sums run in the plain versions'
 // order, so K2 and K3 compute bit-identical hat weights and stay exact
 // transposes, and each kernel can be held to its plain version tightly.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -183,6 +188,229 @@ __global__ void unshear_bp_kernel(const float* __restrict__ q,
   vol[idx] = accumulate ? __fadd_rn(vol[idx], acc) : acc;
 }
 
+// ---------------------------------------------------------------------------
+// K1p / K4p: the pair for one slice (nz == 1), driven rows in bands of 8.
+//
+// They compute K1's and K4's sums at nz == 1 in the same order and with the
+// same rounding, so each equals its plain version (and K1/K4) bit for bit
+// and the nz == 1 pair stays an exact adjoint with K2/K3.  The Pallas
+// kernels packed 8 image rows onto the sublanes and placed each row's two
+// taps with a one-hot MXU matmul and a strided lane roll (K4p on d-rolled
+// copies of q); none of that has a counterpart here.  What carries over is
+// the unit of work: a band of 8 consecutive driven rows, whose shifts o_r
+// differ by at most 8 for one angle (|beta| <= 1).
+//
+// What bounds them.  Per (row, angle, output) term both do two shared-
+// memory loads and five fp32 operations; K1/K4 add a global (L1) load pair
+// and the row shift o, f of the (row, angle) to every term and take ~30
+// issued instructions per term.  The shift is the same for every output of
+// a row and an angle, so here a thread owns kPJ outputs 32 apart (a warp
+// covers 32 consecutive ones, so shared-memory reads are conflict-free),
+// computes the shift once and reuses it kPJ times.  The kernels are bound
+// by issue rate; device memory sees each row band or q window once per
+// block.
+//
+// K1p: a block owns 32 * kPJ u-values of 8 consecutive angles (one warp
+// per angle).  Per band it stages in shared memory, with coalesced loads,
+// the part of the 8 rows its taps can touch (j from u0 - max o to
+// u0 + 32 kPJ - min o over its angles), and every tap is read from there.
+// Neighbouring angles shift a row by similar amounts, so the window is a
+// little wider than the u-tile; where it would exceed kP1W (a block that
+// straddles the two ends of the x-driven group) that band is read from
+// global memory with the same arithmetic.  Bands whose window misses the
+// rows add nothing and are skipped.  The caller passes the y-driven group
+// the transposed slice, so its loads coalesce like the x-driven group's
+// (K1 reads that group through swapped strides).
+//
+// K4p: a block owns an 8-row x 32 kPJ4-column tile, one warp per row.
+// For one angle the tile's 8 rows read one window of q of width
+// 32 kPJ4 + 9 (the Pallas kernel's ten diagonals); the block stages the
+// windows of kP4A angles in shared memory with coalesced loads, then sums
+// from there.  A step whose shifts would not fit the window (|beta| > 1,
+// never from the driven-group split) reads q from global memory instead.
+// The y-driven group writes vol[col, row] (K4's index mapping), so no
+// transpose is made.
+
+constexpr int kPJ = 4;              // K1p: u-values per thread
+constexpr int kP1U = 32 * kPJ;      // K1p: u per block
+constexpr int kP1W = 1024;          // K1p: staged row window, floats per row
+constexpr int kPJ4 = 8;             // K4p: columns per thread
+constexpr int kP4C = 32 * kPJ4;     // K4p: columns per block
+constexpr int kP4A = 32;            // K4p: angles staged per step
+constexpr int kP4W = kP4C + 16;     // K4p: q window per angle (kP4C + 9 used)
+
+// K1p: s[a, u] = sum_r (1-f) row_r[u-o] + f row_r[u-o+1] over the n_rows
+// rows of one slice, rows[r * row_len + c] (n_rows % 8 == 0).  Thread
+// (x, y) of a block: angle a_base + y, u = u0 + x + 32 k for k < kPJ.
+__global__ void __launch_bounds__(256)
+shear_fp_packed_kernel(const float* __restrict__ rows,
+                       const float* __restrict__ beta, float* __restrict__ s,
+                       int A, int n_rows, int row_len, int U0, int LU) {
+  __shared__ float win[8][kP1W];
+  // window bounds [lo, hi] of j per band, double-buffered by band parity
+  // so that a band which is skipped needs no second barrier
+  __shared__ int bounds[2][2];
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const int u0 = blockIdx.x * kP1U;
+  const int a_base = blockIdx.y * 8;
+  const int a = a_base + threadIdx.y;
+  const bool live = a < A;
+  const float b = live ? beta[a] : 0.f;
+  const float cy = 0.5f * static_cast<float>(n_rows - 1);
+  float acc[kPJ];
+#pragma unroll
+  for (int k = 0; k < kPJ; ++k) acc[k] = 0.f;
+  for (int r0 = 0; r0 < n_rows; r0 += 8) {
+    int* bd = bounds[(r0 >> 3) & 1];
+    if (tid < 32) {
+      // lanes 2k, 2k+1: angle a_base + k at the band's first and last row;
+      // o_r is monotone in r, so they bound the band's shifts
+      const int k = tid >> 1;
+      int omin = INT_MAX, omax = INT_MIN;
+      if (k < 8 && a_base + k < A) {
+        int o;
+        float f;
+        row_shift(beta[a_base + k], r0 + (tid & 1) * 7, cy, U0, o, f);
+        omin = omax = o;
+      }
+      for (int m = 16; m > 0; m >>= 1) {
+        omin = min(omin, __shfl_xor_sync(0xffffffffu, omin, m));
+        omax = max(omax, __shfl_xor_sync(0xffffffffu, omax, m));
+      }
+      if (tid == 0) {
+        bd[0] = u0 - omax;         // lowest tap j = u - o of the block
+        bd[1] = u0 + kP1U - omin;  // highest tap j + 1
+      }
+    }
+    __syncthreads();
+    const int lo = bd[0], hi = bd[1];
+    if (hi < 0 || lo >= row_len) continue;  // every tap is outside the rows
+    const int width = hi - lo + 1;
+    const bool staged = width <= kP1W;
+    const float* band = rows + static_cast<long long>(r0) * row_len;
+    if (staged) {
+      for (int k = tid; k < 8 * width; k += 256) {
+        const int i = k / width;
+        const int c = k - i * width;
+        const int j = lo + c;
+        win[i][c] = (j >= 0 && j < row_len)
+                        ? band[static_cast<long long>(i) * row_len + j]
+                        : 0.f;
+      }
+    }
+    __syncthreads();
+    if (live) {
+      for (int i = 0; i < 8; ++i) {
+        int o;
+        float f;
+        row_shift(b, r0 + i, cy, U0, o, f);
+        const int j0 = u0 + threadIdx.x - o;  // tap j of u0 + x
+        if (staged) {
+          const float* w = &win[i][j0 - lo];
+#pragma unroll
+          for (int k = 0; k < kPJ; ++k)
+            acc[k] = __fadd_rn(acc[k], lerp_taps(f, w[32 * k], w[32 * k + 1]));
+        } else {
+          // j = -1 is the f * row[0] tap, as in K1
+          const float* row = band + static_cast<long long>(i) * row_len;
+#pragma unroll
+          for (int k = 0; k < kPJ; ++k) {
+            const int j = j0 + 32 * k;
+            const float v0 = (j >= 0 && j < row_len) ? row[j] : 0.f;
+            const float v1 = (j + 1 >= 0 && j + 1 < row_len) ? row[j + 1] : 0.f;
+            acc[k] = __fadd_rn(acc[k], lerp_taps(f, v0, v1));
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < kPJ; ++k) {
+      const int u = u0 + threadIdx.x + 32 * k;
+      if (u < LU) s[static_cast<long long>(a) * LU + u] = acc[k];
+    }
+  }
+}
+
+// K4p: vol[row, col] (+)= sum_a (1-f) q[a, o+col] + f q[a, o+col-1] on one
+// n x n slice (n % 8 == 0), written to vol[col, row] for the y-driven group.
+// Thread (x, y) of a block: row r0 + y, col = c0 + x + 32 k for k < kPJ4.
+__global__ void __launch_bounds__(256)
+unshear_bp_packed_kernel(const float* __restrict__ q,
+                         const float* __restrict__ beta,
+                         float* __restrict__ vol, int A, int n, int LU,
+                         int U0, int swap, int accumulate) {
+  __shared__ float win[kP4A][kP4W];
+  __shared__ float sbeta[kP4A];
+  __shared__ int base[kP4A];  // u of win[ia][0]
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const int c0 = blockIdx.x * kP4C;
+  const int row = blockIdx.y * 8 + threadIdx.y;
+  const float cy = 0.5f * static_cast<float>(n - 1);
+  float acc[kPJ4];
+#pragma unroll
+  for (int k = 0; k < kPJ4; ++k) acc[k] = 0.f;
+  for (int a0 = 0; a0 < A; a0 += kP4A) {
+    const int na = min(kP4A, A - a0);
+    bool too_wide = false;
+    if (tid < na) {
+      const float b = beta[a0 + tid];
+      int o_first, o_last;
+      float f;
+      row_shift(b, blockIdx.y * 8, cy, U0, o_first, f);
+      row_shift(b, blockIdx.y * 8 + 7, cy, U0, o_last, f);
+      sbeta[tid] = b;
+      base[tid] = min(o_first, o_last) + c0 - 1;
+      too_wide = abs(o_last - o_first) > kP4W - kP4C - 1;
+    }
+    const bool wide = __syncthreads_or(too_wide);
+    if (!wide) {
+      for (int k = tid; k < na * kP4W; k += 256) {
+        const int ia = k / kP4W;
+        const int w = k - ia * kP4W;
+        const int u = base[ia] + w;
+        win[ia][w] = (u >= 0 && u < LU)
+                         ? q[static_cast<long long>(a0 + ia) * LU + u]
+                         : 0.f;
+      }
+    }
+    __syncthreads();
+    for (int ia = 0; ia < na; ++ia) {
+      int o;
+      float f;
+      row_shift(sbeta[ia], row, cy, U0, o, f);
+      const int u = o + c0 + threadIdx.x;  // tap u of column c0 + x
+      if (!wide) {
+        const float* w = &win[ia][u - base[ia]];
+#pragma unroll
+        for (int k = 0; k < kPJ4; ++k)
+          acc[k] = __fadd_rn(acc[k], lerp_taps(f, w[32 * k], w[32 * k - 1]));
+      } else {
+        const float* line = q + static_cast<long long>(a0 + ia) * LU;
+#pragma unroll
+        for (int k = 0; k < kPJ4; ++k) {
+          const int uk = u + 32 * k;
+          const float q0 = (uk >= 0 && uk < LU) ? line[uk] : 0.f;
+          const float q1 = (uk >= 1 && uk - 1 < LU) ? line[uk - 1] : 0.f;
+          acc[k] = __fadd_rn(acc[k], lerp_taps(f, q0, q1));
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < kPJ4; ++k) {
+    const int col = c0 + threadIdx.x + 32 * k;
+    if (col < n) {
+      const long long idx = swap ? static_cast<long long>(col) * n + row
+                                 : static_cast<long long>(row) * n + col;
+      vol[idx] = accumulate ? __fadd_rn(vol[idx], acc[k]) : acc[k];
+    }
+  }
+}
+
 unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
@@ -232,6 +460,26 @@ int tt_unshear_bp(const float* q, const float* beta, float* vol, int A,
   if (n == 0) return 0;
   unshear_bp_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
       q, beta, vol, A, nz, ny, nx, LU, U0, swap, accumulate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tt_shear_fp_packed(const float* rows, const float* beta, float* s, int A,
+                       int n_rows, int row_len, int U0, int LU,
+                       cudaStream_t stream) {
+  if (A == 0 || LU == 0) return 0;
+  const dim3 grid((LU + kP1U - 1) / kP1U, (A + 7) / 8);
+  shear_fp_packed_kernel<<<grid, dim3(32, 8), 0, stream>>>(
+      rows, beta, s, A, n_rows, row_len, U0, LU);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tt_unshear_bp_packed(const float* q, const float* beta, float* vol, int A,
+                         int n, int LU, int U0, int swap, int accumulate,
+                         cudaStream_t stream) {
+  if (n == 0) return 0;
+  const dim3 grid((n + kP4C - 1) / kP4C, n / 8);
+  unshear_bp_packed_kernel<<<grid, dim3(32, 8), 0, stream>>>(
+      q, beta, vol, A, n, LU, U0, swap, accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,11 +6,10 @@ Counterpart of ``tomobar_tpu/models/direct.py`` (reference ``RecToolsDIR``,
 ``RecToolsDIR`` returns numpy arrays and ``RecToolsDIRTPU`` (alias
 ``RecToolsDIRCuPy``) returns tensors on its device.
 
-Ported: 3D ``FBP``, ``FORWPROJ`` and ``BACKPROJ``, 2D ``FOURIER`` and
-``FOURIER_INV`` (3D, and 2D promoted to detY = 1).  2D ``FBP``/``FORWPROJ``/
-``BACKPROJ`` wait for the packed nz = 1 projector kernels, and the
-shape-only memory estimate of ``FOURIER_INV`` for the memory estimator
-(ROADMAP.md).
+Ported: 2D and 3D ``FBP``, ``FORWPROJ`` and ``BACKPROJ`` (2D runs the
+packed nz = 1 projector kernels K1p/K4p), 2D ``FOURIER`` and
+``FOURIER_INV`` (3D, and 2D promoted to detY = 1).  The shape-only memory
+estimate of ``FOURIER_INV`` waits for the memory estimator (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,11 +32,9 @@ from tomobar_tpu_torch.utils.tools import (
 
 __all__ = ["RecToolsDIR", "RecToolsDIRTPU"]
 
-_NO_2D = (
-    "RecToolsDIR.{}: 2D data is not ported yet; it needs the packed nz=1 "
-    "projector kernels K1p/K4p (ROADMAP.md, queue 2: the next slice, with "
-    "the 2D FBP/FORWPROJ/BACKPROJ path). Pass 3D data with detY = 1."
-)
+
+def _labels(ndim: int):
+    return ["angles", "detX"] if ndim == 2 else ["detY", "angles", "detX"]
 
 
 class RecToolsDIR:
@@ -109,51 +106,54 @@ class RecToolsDIR:
     # -- public API ----------------------------------------------------------
 
     def FORWPROJ(self, data, **kwargs):
-        """Forward projection of a 3D object ``[nz, ny, nx]``.  Output
-        canonical order ``["detY", "angles", "detX"]``, reorderable via
+        """Forward projection of a 2D ``[ny, nx]`` or 3D ``[nz, ny, nx]``
+        object.  Output canonical order ``["angles", "detX"]`` (2D) or
+        ``["detY", "angles", "detX"]`` (3D), reorderable via
         ``data_axes_labels_order``."""
-        data = _to_device(data, self.device)
-        if data.dim() == 2:
-            raise NotImplementedError(_NO_2D.format("FORWPROJ"))
-        projected = self.Atools.fp(data)
+        projected = self.Atools.fp(_to_device(data, self.device))
         order = kwargs.get("data_axes_labels_order")
         if order is not None:
-            projected = data_dims_swapper(projected, order, ["detY", "angles", "detX"])
+            projected = data_dims_swapper(projected, order, _labels(projected.dim()))
         return self._out(projected)
 
     def BACKPROJ(self, data, **kwargs):
-        """Back-projection of 3D projection data ``[detY, angles, detX]``."""
+        """Back-projection of 2D ``[angles, detX]`` or 3D
+        ``[detY, angles, detX]`` projection data."""
         data = _to_device(data, self.device)
-        if data.dim() == 2:
-            raise NotImplementedError(_NO_2D.format("BACKPROJ"))
         order = kwargs.get("data_axes_labels_order")
         if order is not None:
-            data = data_dims_swapper(data, order, ["detY", "angles", "detX"])
+            data = data_dims_swapper(data, order, _labels(data.dim()))
         data = apply_horiz_detector_padding(data, self.detectors_x_pad)
         return self._out(self.Atools.bp(data))
 
     def FBP(self, data, **kwargs):
-        """Filtered back-projection of 3D data, canonical order
-        ``["angles", "detY", "detX"]`` (``methodsDIR_CuPy.py:123``), with the
-        custom sinc filter (``cutoff_freq``, default 0.35) or, when
-        ``filter_type`` is given, a classic filter with optional
-        ``filter_parameter``/``filter_d``."""
+        """Filtered back-projection of 2D data ``["angles", "detX"]`` or of
+        3D data, canonical order ``["angles", "detY", "detX"]``
+        (``methodsDIR_CuPy.py:123``), with the custom sinc filter
+        (``cutoff_freq``, default 1.1 in 2D as the reference's host 2D path,
+        ``methodsDIR.py:297``, and 0.35 in 3D) or, when ``filter_type`` is
+        given, a classic filter with optional ``filter_parameter``/
+        ``filter_d``."""
         data = _to_device(data, self.device)
-        if data.dim() == 2:
-            raise NotImplementedError(_NO_2D.format("FBP"))
         cutoff = kwargs.get("cutoff_freq", None)
         filter_type = kwargs.get("filter_type", None)
         order = kwargs.get("data_axes_labels_order")
-        if order is not None:
-            data = data_dims_swapper(data, order, ["angles", "detY", "detX"])
-        data = data.transpose(0, 1)  # to canonical (detY, angles, detX)
-        if data.shape[1] != self.geom.n_angles:
-            raise ValueError(
-                f"FBP expects 3D data as [angles, detY, detX] (got "
-                f"{tuple(data.transpose(0, 1).shape)} for "
-                f"{self.geom.n_angles} angles; pass "
-                f"data_axes_labels_order to reorder)"
-            )
+        if data.dim() == 2:
+            if order is not None:
+                data = data_dims_swapper(data, order, ["angles", "detX"])
+            default_cutoff = 1.1
+        else:
+            if order is not None:
+                data = data_dims_swapper(data, order, ["angles", "detY", "detX"])
+            data = data.transpose(0, 1)  # to canonical (detY, angles, detX)
+            if data.shape[1] != self.geom.n_angles:
+                raise ValueError(
+                    f"FBP expects 3D data as [angles, detY, detX] (got "
+                    f"{tuple(data.transpose(0, 1).shape)} for "
+                    f"{self.geom.n_angles} angles; pass "
+                    f"data_axes_labels_order to reorder)"
+                )
+            default_cutoff = 0.35
         data = apply_horiz_detector_padding(data, self.detectors_x_pad)
         if filter_type is not None:
             data = filter_sino_classic(
@@ -161,7 +161,7 @@ class RecToolsDIR:
                 kwargs.get("filter_d", 1.0),
             )
         else:
-            data = filter_sino_sinc(data, 0.35 if cutoff is None else cutoff)
+            data = filter_sino_sinc(data, default_cutoff if cutoff is None else cutoff)
         rec = self.Atools.bp(data)
         rec = check_kwargs(rec, recon_mask_radius=kwargs.get("recon_mask_radius"))
         return self._out(rec)

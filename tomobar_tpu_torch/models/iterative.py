@@ -2,11 +2,11 @@
 PyTorch tensors.
 
 Counterpart of ``tomobar_tpu/models/iterative.py`` (reference
-``tomobar/methodsIR_CuPy.py:36``): power method and FISTA with LS / PWLS /
-SWLS / KL fidelities, ordered subsets, PD-TV, warm start, detector padding
-(with recon-grid enlargement and final crop) and circular masking.
-Landweber, SIRT, CGLS, ADMM and OSEM are not ported yet (ROADMAP.md queue
-1, item 5).
+``tomobar/methodsIR_CuPy.py:36``): power method, Landweber, SIRT, CGLS,
+FISTA and ADMM with LS / PWLS / SWLS / KL fidelities, OSEM, ordered subsets,
+the ROF-TV and PD-TV proxes, warm start, detector padding (with recon-grid
+enlargement and final crop) and circular masking.  2D data run as one
+slice (detY = 1) and return ``(1, N, N)``.
 """
 
 from __future__ import annotations
@@ -148,6 +148,8 @@ class RecToolsIRTPU:
                     f"the correct dims are {rec_dim}. Zero initialisation is used."
                 )
                 x0 = torch.zeros(rec_dim, dtype=torch.float32, device=self.device)
+        elif method_run == "OSEM":
+            x0 = torch.ones(rec_dim, dtype=torch.float32, device=self.device)
         else:
             x0 = torch.zeros(rec_dim, dtype=torch.float32, device=self.device)
         return d, a, r, x0
@@ -184,6 +186,37 @@ class RecToolsIRTPU:
         self._lipschitz_cache = val
         return val
 
+    def Landweber(self, _data_: dict, _algorithm_: Union[dict, None] = None) -> torch.Tensor:
+        d, a, _ = self._prep_data(_data_, _algorithm_, None, "Landweber")
+        x = solvers.landweber(
+            self.Atools,
+            d["projection_data"],
+            iterations=a["iterations"],
+            tau_step=a["tau_step_lanweber"],
+            nonnegativity=a["nonnegativity"],
+        )
+        return self._finalise(x, a)
+
+    def SIRT(self, _data_: dict, _algorithm_: Union[dict, None] = None) -> torch.Tensor:
+        d, a, _ = self._prep_data(_data_, _algorithm_, None, "SIRT")
+        x = solvers.sirt(
+            self.Atools,
+            d["projection_data"],
+            iterations=a["iterations"],
+            nonnegativity=a["nonnegativity"],
+        )
+        return self._finalise(x, a)
+
+    def CGLS(self, _data_: dict, _algorithm_: Union[dict, None] = None) -> torch.Tensor:
+        d, a, _ = self._prep_data(_data_, _algorithm_, None, "CGLS")
+        x = solvers.cgls(
+            self.Atools,
+            d["projection_data"],
+            iterations=a["iterations"],
+            nonnegativity=a["nonnegativity"],
+        )
+        return self._finalise(x, a)
+
     def FISTA(
         self,
         _data_: dict,
@@ -203,5 +236,50 @@ class RecToolsIRTPU:
             fid_kwargs=self._fid_kwargs(d),
             tolerance=a.get("tolerance", 0.0),
             verbose=bool(a.get("verbose", False)),
+        )
+        return self._finalise(x, a)
+
+    def ADMM(
+        self,
+        _data_: dict,
+        _algorithm_: Union[dict, None] = None,
+        _regularisation_: Union[dict, None] = None,
+    ) -> torch.Tensor:
+        d, a, r, x0 = self._common_init(_data_, _algorithm_, _regularisation_, "ADMM")
+        # regul_param scaled by 1/rho (methodsIR_CuPy.py:526-528)
+        r = dict(r)
+        if r.get("regul_param") is not None:
+            r["regul_param"] = r["regul_param"] / a["ADMM_rho_const"]
+        x = solvers.admm(
+            self.Atools,
+            d["projection_data"],
+            iterations=a["iterations"],
+            lipschitz_const=a["lipschitz_const"],
+            rho_const=a["ADMM_rho_const"],
+            relax_par=a["ADMM_relax_par"],
+            nonnegativity=a["nonnegativity"],
+            fidelity=d["data_fidelity"],
+            regul_fn=self._regul_fn(r),
+            x0=x0,
+            fid_kwargs=self._fid_kwargs(d),
+            tolerance=a.get("tolerance", 0.0),
+            verbose=bool(a.get("verbose", False)),
+        )
+        return self._finalise(x, a)
+
+    def OSEM(
+        self,
+        _data_: dict,
+        _algorithm_: Union[dict, None] = None,
+        _regularisation_: Union[dict, None] = None,
+    ) -> torch.Tensor:
+        d, a, r, x0 = self._common_init(_data_, _algorithm_, _regularisation_, "OSEM")
+        x = solvers.osem(
+            self.Atools,
+            d["projection_data"],
+            iterations=a["iterations"],
+            regul_fn=self._regul_fn(r),
+            x0=x0,
+            normalisation_mode=a.get("osem_normalisation", "reference"),
         )
         return self._finalise(x, a)

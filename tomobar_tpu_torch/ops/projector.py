@@ -2,8 +2,9 @@
 
 Counterpart of ``tomobar_tpu/ops/projector.py`` on its Pallas backend: the
 operator is the two-pass shear/resample pair of
-:mod:`tomobar_tpu_torch.ops.projector_kernels` (K1-K4), an exact numerical
-adjoint pair.  Public layouts are the JAX package's canonical ones:
+:mod:`tomobar_tpu_torch.ops.projector_kernels` (K1-K4, and K1p/K4p in place
+of K1/K4 for one slice whose driven rows come in groups of 8, under the
+JAX package's conditions), an exact numerical adjoint pair.  Public layouts are the JAX package's canonical ones:
 volumes ``(nz, ny, nx)`` and sinograms ``(detY, angles, detX)``; 2D inputs
 ``(ny, nx)`` / ``(angles, detX)`` are accepted and returned as 2D.
 
@@ -27,7 +28,9 @@ from tomobar_tpu_torch.ops.projector_kernels import (
     resample_bp,
     resample_fp,
     shear_fp,
+    shear_fp_packed,
     unshear_bp,
+    unshear_bp_packed,
 )
 
 __all__ = [
@@ -91,8 +94,14 @@ class _Plan:
         self.geom = geom
         self._groups = {}
 
-    def groups(self, ny: int, nx: int, device: torch.device) -> List[_Group]:
-        key = (ny, nx, device)
+    def groups(self, ny: int, nx: int, device: torch.device,
+               single_slice: bool = False) -> List[_Group]:
+        """The driven-angle groups of a (ny, nx) slice; with
+        ``single_slice`` (nz == 1) a group whose driven rows number a
+        multiple of 8 is packed (``radon_fp_pallas``/``radon_bp_pallas``'
+        conditions: ny % 8 for the x-driven group, nx % 8 for the y-driven
+        one, n % 8 for both in BP, where ny == nx == n)."""
+        key = (ny, nx, device, single_slice)
         if key not in self._groups:
             g = self.geom
             cos_v, sin_v, idx_x, idx_y = _partition(g.angles)
@@ -106,7 +115,10 @@ class _Plan:
             ):
                 if idx.size == 0:
                     continue
-                prm = driven_params(c[idx], s[idx], cor[idx], det_x, *shape)
+                packed = single_slice and shape[0] % 8 == 0
+                prm = driven_params(
+                    c[idx], s[idx], cor[idx], det_x, *shape, packed=packed
+                )
 
                 def put(a, dtype=torch.float32):
                     return torch.as_tensor(a, dtype=dtype, device=device)
@@ -139,10 +151,15 @@ class _Plan:
         vol = vol.to(torch.float32).contiguous()
         nz, ny, nx = vol.shape
         det_x = self.geom.detectors_x_total
-        groups = self.groups(ny, nx, vol.device)
+        groups = self.groups(ny, nx, vol.device, nz == 1)
         out = None
         for g in groups:
-            s = shear_fp(vol, g.beta, g.prm.U0, g.prm.LU, g.swap)
+            if g.prm.packed:
+                # the y-driven group reads one explicit transpose of the slice
+                rows = vol.transpose(1, 2).contiguous() if g.swap else vol
+                s = shear_fp_packed(rows, g.beta, g.prm.U0, g.prm.LU)
+            else:
+                s = shear_fp(vol, g.beta, g.prm.U0, g.prm.LU, g.swap)
             p = resample_fp(s, g.alpha, g.gamma, g.prm.U0, det_x)
             if len(groups) == 1:
                 out = p
@@ -164,12 +181,15 @@ class _Plan:
         sino = sino.to(torch.float32).contiguous()
         nz = sino.shape[0]
         n = self.geom.recon_size
-        groups = self.groups(n, n, sino.device)
+        groups = self.groups(n, n, sino.device, nz == 1)
         vol = None
         for g in groups:
             p = sino if len(groups) == 1 else sino[:, g.idx]
             q = resample_bp(p, g.alpha, g.gamma, g.prm.U0, g.prm.LU)
-            vol = unshear_bp(q, g.beta, g.prm.U0, n, n, g.swap, out=vol)
+            if g.prm.packed:
+                vol = unshear_bp_packed(q, g.beta, g.prm.U0, n, g.swap, out=vol)
+            else:
+                vol = unshear_bp(q, g.beta, g.prm.U0, n, n, g.swap, out=vol)
         if vol is None:
             vol = torch.zeros((nz, n, n), dtype=torch.float32, device=sino.device)
         return vol[0] if squeeze else vol

@@ -10,10 +10,19 @@ with the volume's y and x axes swapped) the forward projector is
     K3  resample_bp  p (nz, A, det_x)    -> q (A, nz, LU)
     K4  unshear_bp   q (A, nz, LU)       -> vol (nz, ny, nx)
 
-and K3/K4 are the exact transposes of K2/K1.  ``U0`` and ``LU`` are the JAX
-package's own, so ``s`` and ``q`` line up index for index with the Pallas
-stages; the TPU-only glue (angle padding to block multiples, z-chunking,
-128-lane row rounding, the packed nz == 1 kernels) has no counterpart.
+and K3/K4 are the exact transposes of K2/K1.  A single slice (nz == 1)
+whose driven rows come in groups of 8 takes the packed pair instead, as
+in the JAX package:
+
+    K1p shear_fp_packed    rows (1, n_rows, row_len) -> s (A, 1, LU)
+    K4p unshear_bp_packed  q (A, 1, LU)              -> vol (1, n, n)
+
+the same sums as K1/K4 at nz == 1 with kernels designed for one slice.
+``U0``, ``NXP`` and ``LU`` are the JAX package's own (``packed`` widens
+NXP, hence LU, by 128 as there), so ``s`` and ``q`` line up index for
+index with the Pallas stages; the TPU-only glue (angle padding to block
+multiples, z-chunking, 128-lane row rounding, the d-rolled ``qs`` copies
+of K4p) has no counterpart.
 
 Each ``*_plain`` function is the plain PyTorch version of its kernel.  A
 wrapper runs the plain version only for a tensor on the CPU; for a CUDA
@@ -36,10 +45,14 @@ __all__ = [
     "resample_fp",
     "resample_bp",
     "unshear_bp",
+    "shear_fp_packed",
+    "unshear_bp_packed",
     "shear_fp_plain",
     "resample_fp_plain",
     "resample_bp_plain",
     "unshear_bp_plain",
+    "shear_fp_packed_plain",
+    "unshear_bp_packed_plain",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -60,6 +73,7 @@ class DrivenParams(NamedTuple):
     U0: int  # u of the row centre: headroom for the largest row shift
     NXP: int  # row width with the Pallas roll headroom; sizes LU
     LU: int  # length of the u-lines s and q
+    packed: bool  # the nz == 1 pair K1p/K4p runs this group
 
 
 def driven_params(
@@ -69,13 +83,17 @@ def driven_params(
     det_x: int,
     n_rows: int,
     row_len: int,
+    packed: bool = False,
 ) -> DrivenParams:
     """Port of ``projector_pallas._driven_params`` without angle padding:
-    float64 math, float32 results, the same U0/NXP/LU."""
+    float64 math, float32 results, the same U0/NXP/LU (``packed`` widens
+    NXP by 128, the Pallas K1p's per-sublane roll headroom)."""
     alpha = 1.0 / cos_v
     beta = -sin_v / cos_v
     gamma = alpha * (cor_v - (det_x - 1) / 2.0) + (row_len - 1) / 2.0
     NXP = _round_up(row_len + 2, 128) + 128
+    if packed:
+        NXP += 128
     U0 = _round_up(n_rows // 2 + 2, 128)
     LU = _round_up(U0 + n_rows // 2 + 2 + NXP, 128) + 128
     return DrivenParams(
@@ -87,6 +105,7 @@ def driven_params(
         U0,
         NXP,
         LU,
+        bool(packed),
     )
 
 
@@ -197,6 +216,18 @@ def unshear_bp_plain(q, beta, U0: int, ny: int, nx: int, swap: bool = False,
         return vol.contiguous()
     out += vol
     return out
+
+
+def shear_fp_packed_plain(rows, beta, U0: int, LU: int):
+    """K1p: K1 on one slice whose rows are the driven rows (the y-driven
+    group passes the transposed slice)."""
+    return shear_fp_plain(rows, beta, U0, LU)
+
+
+def unshear_bp_packed_plain(q, beta, U0: int, n: int, swap: bool = False,
+                            out: Optional[torch.Tensor] = None):
+    """K4p: K4 on one n x n slice."""
+    return unshear_bp_plain(q, beta, U0, n, n, swap, out)
 
 
 # ---------------------------------------------------------------------------
@@ -324,4 +355,64 @@ def unshear_bp(q, beta, U0: int, ny: int, nx: int, swap: bool = False,
         )
     _build.check("K4", err)
     _build.launch_counts["K4"] += 1
+    return vol
+
+
+def _packed_ok(name: str, n_rows: int) -> None:
+    if n_rows % 8:
+        raise ValueError(f"{name}: {n_rows} driven rows, not a multiple of 8")
+
+
+def shear_fp_packed(rows, beta, U0: int, LU: int):
+    """K1p (see :func:`shear_fp_packed_plain`).  rows (1, n_rows, row_len)
+    float32 with n_rows % 8 == 0 -> s (A, 1, LU)."""
+    if rows.device.type == "cpu":
+        return shear_fp_packed_plain(rows, beta, U0, LU)
+    _check_cuda("K1p", rows, beta)
+    if rows.dim() != 3 or rows.shape[0] != 1:
+        raise ValueError("K1p: rows must be (1, n_rows, row_len)")
+    _, n_rows, row_len = rows.shape
+    _packed_ok("K1p", n_rows)
+    A = beta.shape[0]
+    _params_ok("K1p", A, beta)
+    s = torch.empty((A, 1, LU), dtype=torch.float32, device=rows.device)
+    _check_cuda("K1p", s)
+    lib = _build.library()
+    with torch.cuda.device(rows.device):
+        err = lib.tt_shear_fp_packed(
+            rows.data_ptr(), beta.data_ptr(), s.data_ptr(), A, n_rows,
+            row_len, U0, LU, _stream(rows),
+        )
+    _build.check("K1p", err)
+    _build.launch_counts["K1p"] += 1
+    return s
+
+
+def unshear_bp_packed(q, beta, U0: int, n: int, swap: bool = False,
+                      out: Optional[torch.Tensor] = None):
+    """K4p (see :func:`unshear_bp_packed_plain`).  q (A, 1, LU) -> vol
+    (1, n, n) with n % 8 == 0, added into ``out`` when given."""
+    if q.device.type == "cpu":
+        return unshear_bp_packed_plain(q, beta, U0, n, swap, out)
+    _check_cuda("K4p", q, beta)
+    if q.dim() != 3 or q.shape[1] != 1:
+        raise ValueError("K4p: q must be (A, 1, LU)")
+    _packed_ok("K4p", n)
+    A, _, LU = q.shape
+    _params_ok("K4p", A, beta)
+    if out is None:
+        vol = torch.empty((1, n, n), dtype=torch.float32, device=q.device)
+    else:
+        vol = out
+        if tuple(vol.shape) != (1, n, n):
+            raise ValueError(f"K4p: out must have shape {(1, n, n)}")
+    _check_cuda("K4p", q, vol)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.tt_unshear_bp_packed(
+            q.data_ptr(), beta.data_ptr(), vol.data_ptr(), A, n, LU, U0,
+            int(swap), int(out is not None), _stream(q),
+        )
+    _build.check("K4p", err)
+    _build.launch_counts["K4p"] += 1
     return vol

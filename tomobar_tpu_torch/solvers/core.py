@@ -1,10 +1,14 @@
-"""Iterative solver cores on PyTorch tensors: power method and FISTA.
+"""Iterative solver cores on PyTorch tensors: power method, Landweber,
+SIRT, CGLS, FISTA, ADMM and OSEM.
 
 Counterpart of ``tomobar_tpu/solvers/core.py`` (reference
-``tomobar/methodsIR_CuPy.py``: powermethod:311, FISTA:401).  PyTorch runs
-eagerly, so the outer and the ordered-subset loops are plain Python loops
-and nothing is compiled or cached per call.  Landweber, SIRT, CGLS, ADMM
-and OSEM are not ported yet (ROADMAP.md queue 1, item 5).
+``tomobar/methodsIR_CuPy.py``: Landweber:128, SIRT:174, CGLS:233,
+powermethod:311, FISTA:401, ADMM:486, OSEM:587).  PyTorch runs eagerly, so
+the outer and the ordered-subset loops are plain Python loops and nothing
+is compiled or cached per call.  The reference's solver quirks that the JAX
+package keeps for parity are kept too, and noted where they occur (CGLS's
+in-loop clamp, ADMM's late relaxation and once-per-outer-iteration dual
+update, OSEM's multiplication by the clipped subset-0 sensitivity).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 from tomobar_tpu_torch.fidelity import grad_data_term, swls_weights
 from tomobar_tpu_torch.ops.projector import Projector
 
-__all__ = ["power_method", "fista"]
+__all__ = ["power_method", "landweber", "sirt", "cgls", "fista", "admm", "osem"]
 
 
 def _subset_slices(projector: Projector, sino, w=None):
@@ -71,6 +75,81 @@ def power_method(
     return float(s)
 
 
+def _volume(sino: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
+    """A (detY, n, n) volume filled with ``value`` beside ``sino``."""
+    return torch.full((sino.shape[0], n, n), value, dtype=torch.float32, device=sino.device)
+
+
+def landweber(
+    projector: Projector,
+    sino: torch.Tensor,
+    iterations: int = 1500,
+    tau_step: float = 1e-5,
+    nonnegativity: bool = False,
+) -> torch.Tensor:
+    """Landweber iterations x <- x - tau A^T (A x - b) from zero."""
+    x = _volume(sino, projector.geom.recon_size)
+    for _ in range(iterations):
+        x = x - tau_step * projector.bp(projector.fp(x) - sino)
+        if nonnegativity:
+            x = torch.clamp(x, min=0.0)
+    return x
+
+
+def _safe_reciprocal(v: torch.Tensor) -> torch.Tensor:
+    """1 / v with NaN and +-inf replaced by 1 (SIRT's row/column sums)."""
+    return torch.nan_to_num(1.0 / v, nan=1.0, posinf=1.0, neginf=1.0)
+
+
+def sirt(
+    projector: Projector,
+    sino: torch.Tensor,
+    iterations: int = 200,
+    nonnegativity: bool = False,
+) -> torch.Tensor:
+    """SIRT x <- x + C A^T (R (b - A x)) from ones, R and C the inverse
+    row and column sums of A."""
+    x = _volume(sino, projector.geom.recon_size, 1.0)
+    R = _safe_reciprocal(projector.fp(x))
+    C = _safe_reciprocal(projector.bp(torch.ones_like(sino)))
+    for _ in range(iterations):
+        x = x + C * projector.bp(R * (sino - projector.fp(x)))
+        if nonnegativity:
+            x = torch.clamp(x, min=0.0)
+    return x
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def cgls(
+    projector: Projector,
+    sino: torch.Tensor,
+    iterations: int = 30,
+    nonnegativity: bool = False,
+) -> torch.Tensor:
+    """Conjugate gradients on the normal equations, from zero."""
+    x = _volume(sino, projector.geom.recon_size)
+    d = projector.bp(sino)
+    normr2 = _dot(d, d)
+    r = sino
+    for _ in range(iterations):
+        Ad = projector.fp(d)
+        alpha = normr2 / _dot(Ad, Ad)
+        x = x + alpha * d
+        r = r - alpha * Ad
+        s = projector.bp(r)
+        normr2_new = _dot(s, s)
+        d = s + (normr2_new / normr2) * d
+        normr2 = normr2_new
+        if nonnegativity:
+            # the reference clamps x inside the CG loop
+            # (methodsIR_CuPy.py:296-297); kept for parity
+            x = torch.clamp(x, min=0.0)
+    return x
+
+
 def _prepare_pwls_weights(sino: torch.Tensor) -> torch.Tensor:
     """PWLS weights from the (padded, post-log) data
     (``methodsIR_CuPy.py:392-397``)."""
@@ -90,6 +169,22 @@ def _rel_update(x_new: torch.Tensor, x_prev: torch.Tensor) -> float:
     num = torch.linalg.vector_norm(x_new - x_prev)
     den = torch.clamp(torch.linalg.vector_norm(x_new), min=1e-12)
     return float(num / den)
+
+
+def _stop(name: str, it: int, x, x_prev, tolerance: float, verbose: bool) -> bool:
+    """Progress print and early stop after outer iteration ``it``: the
+    relative update norm is printed when ``verbose`` and ends the solve once
+    below ``tolerance > 0``."""
+    if not (verbose or (tolerance and tolerance > 0.0)):
+        return False
+    rel = _rel_update(x, x_prev)
+    if verbose:
+        print(f"{name} iteration ({it + 1}) relative update: {rel:.3e}")
+    if tolerance and tolerance > 0.0 and rel < tolerance:
+        if verbose:
+            print(f"{name} stopped at iteration ({it + 1}): tolerance reached")
+        return True
+    return False
 
 
 def fista(
@@ -112,8 +207,6 @@ def fista(
     outer iteration falls below it; ``verbose`` prints that norm after
     every outer iteration.  The momentum scalar ``t`` is kept in float32 on
     the host, as the JAX package keeps it in float32."""
-    nz = sino.shape[0]
-    n = projector.geom.recon_size
     n_sub = len(projector.subset_indices)
     use_os = n_sub > 1
     fid_kwargs = fid_kwargs or {}
@@ -123,7 +216,7 @@ def fista(
     subs, w_subs = _subset_slices(projector, sino, w)
 
     if x0 is None:
-        x0 = torch.zeros((nz, n, n), dtype=torch.float32, device=sino.device)
+        x0 = _volume(sino, projector.geom.recon_size)
     x = x_t = x0
     t = np.float32(1.0)
     one, four, half = np.float32(1.0), np.float32(4.0), np.float32(0.5)
@@ -148,12 +241,118 @@ def fista(
                 x = regul_fn(x)
             t = np.float32((one + np.sqrt(one + four * t * t)) * half)
             x_t = x + float(np.float32((t_old - one) / t)) * (x - x_old)
-        if verbose or (tolerance and tolerance > 0.0):
-            rel = _rel_update(x, x_prev)
-            if verbose:
-                print(f"FISTA iteration ({it + 1}) relative update: {rel:.3e}")
-            if tolerance and tolerance > 0.0 and rel < tolerance:
-                if verbose:
-                    print(f"FISTA stopped at iteration ({it + 1}): tolerance reached")
-                break
+        if _stop("FISTA", it, x, x_prev, tolerance, verbose):
+            break
+    return x
+
+
+def admm(
+    projector: Projector,
+    sino: torch.Tensor,
+    iterations: int,
+    lipschitz_const: float,
+    rho_const: float = 1.0,
+    relax_par: float = 1.6,
+    nonnegativity: bool = False,
+    fidelity: str = "LS",
+    regul_fn: Optional[Callable] = None,
+    x0: Optional[torch.Tensor] = None,
+    fid_kwargs: Optional[dict] = None,
+    tolerance: float = 0.0,
+    verbose: bool = False,
+) -> torch.Tensor:
+    """Linearised and relaxed ADMM with ordered subsets
+    (``methodsIR_CuPy.py:486-585``).  As in the reference, relaxation
+    starts at outer iteration index 2 and the dual ``u`` is updated once per
+    outer iteration.  ``tolerance``/``verbose`` as in :func:`fista`."""
+    n_sub = len(projector.subset_indices)
+    use_os = n_sub > 1
+    fid_kwargs = fid_kwargs or {}
+    tau = float(np.float32(0.9 / (lipschitz_const + rho_const)))
+
+    w = _prepare_weights(sino, fidelity, fid_kwargs)
+    subs, w_subs = _subset_slices(projector, sino, w)
+
+    if x0 is None:
+        x0 = _volume(sino, projector.geom.recon_size)
+    x = z = x0
+    z_old = u = torch.zeros_like(x0)
+    for it in range(iterations):
+        x_prev = x
+        for s in range(n_sub):
+            grad = grad_data_term(
+                projector,
+                z,
+                subs[s],
+                sub_ind=s if use_os else None,
+                w=w_subs[s],
+                fidelity=fidelity,
+                huber_threshold=fid_kwargs.get("huber_threshold"),
+                studentst_threshold=fid_kwargs.get("studentst_threshold"),
+            )
+            z = z - tau * (grad + rho_const * (z - x + u))
+            if nonnegativity:
+                z = torch.clamp(z, min=0.0)
+            if it > 1:
+                z = (1.0 - relax_par) * z_old + relax_par * z
+            z_old = z
+            x = z + u
+            if regul_fn is not None:
+                x = regul_fn(x)
+        u = u + (z - x)
+        if _stop("ADMM", it, x, x_prev, tolerance, verbose):
+            break
+    return x
+
+
+def osem(
+    projector: Projector,
+    sino: torch.Tensor,
+    iterations: int,
+    regul_fn: Optional[Callable] = None,
+    x0: Optional[torch.Tensor] = None,
+    normalisation_mode: str = "reference",
+) -> torch.Tensor:
+    """OSEM (MLEM with one subset), multiplicative EM updates
+    (``methodsIR_CuPy.py:587-667``).
+
+    ``normalisation_mode`` "reference" multiplies by the clipped
+    sensitivity volume of subset 0, ``x *= backproj * normalisation``, as
+    the reference does (``methodsIR_CuPy.py:654``); "divide" is the
+    textbook update ``x *= backproj / A_s^T 1`` with each subset's own
+    sensitivity."""
+    if normalisation_mode not in ("reference", "divide"):
+        raise ValueError(
+            "osem_normalisation must be 'reference' or 'divide', got "
+            f"{normalisation_mode!r}"
+        )
+    n_sub = len(projector.subset_indices)
+    use_os = n_sub > 1
+    eps = 1e-8
+
+    def Ax(v, s):
+        return projector.fp_sub(v, s) if use_os else projector.fp(v)
+
+    def Atb(r, s):
+        return projector.bp_sub(r, s) if use_os else projector.bp(r)
+
+    subs, _ = _subset_slices(projector, sino)
+    if normalisation_mode == "reference":
+        # one volume from subset 0, used for every subset (reference quirk)
+        norms = [torch.clamp(Atb(torch.ones_like(subs[0]), 0), min=eps)] * n_sub
+    else:
+        norms = [
+            torch.clamp(Atb(torch.ones_like(subs[s]), s), min=eps)
+            for s in range(n_sub)
+        ]
+    x = _volume(sino, projector.geom.recon_size, 1.0) if x0 is None else x0
+    for _ in range(iterations):
+        for s in range(n_sub):
+            backproj = Atb(subs[s] / torch.clamp(Ax(x, s), min=eps), s)
+            if normalisation_mode == "reference":
+                x = x * (backproj * norms[s])
+            else:
+                x = x * (backproj / norms[s])
+            if regul_fn is not None:
+                x = regul_fn(x)
     return x
