@@ -17,9 +17,11 @@ Phases, in order; any failure raises and exits non-zero:
 2. build: compiles ``tomobar_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
    one process per source, all started together.
 3. kernels: K1-K4 at N=512, nz=8, 180 angles (scalar CoR 3.5 and a
-   per-angle CoR vector, both driven groups) and PD-TV (iso/aniso x
-   nonneg, nz 1 and 8, plus bf16 duals), each against its plain version on
-   the same inputs.
+   per-angle CoR vector, both driven groups), K1 also at nz = 1 and 3, at
+   500 driven rows (not a multiple of 8) and at rows of 510 (not 16-byte
+   aligned), and PD-TV (iso/aniso x nonneg, nz 1 and 8, plus bf16 duals),
+   each against its plain version on the same inputs; K1 must equal its
+   plain version bit for bit.
 4. adjointness of the kernel pair.
 5. the slice on the CPU (plain versions) and on the GPU (kernels),
    256^2 x 4 slices x 90 angles, OS5, PWLS, nonneg, PD-TV 20.
@@ -28,10 +30,12 @@ Phases, in order; any failure raises and exits non-zero:
    method, 1, 2 and 3 outer iterations; launch counts, times, RMSE
    against the phantom, peak memory, then each kernel's time beside its
    plain version's at that shape (K1-K4 on both driven groups of OS
-   subset 0, PD-TV for one iteration on the whole volume).
+   subset 0, PD-TV for one iteration on the whole volume), and one OS
+   subset of the FISTA step by stage.
 7. the direct path: G (USFFT gridding) against its plain version at
    n=512, 2 z-pairs, 360 angles with 0 and pi/2 (both driven groups), F
-   (axis-(-2) FFT) at n = 2560, 5120, 8192 and both signs; FOURIER_INV and
+   (axis-(-2) FFT) at n = 2560, 5120, 8192 (its compile-time stage plans)
+   and n = 3000 (the run-time plan) and both signs; FOURIER_INV and
    3D FBP at 256^2 x 4 x 90 on the CPU and on the GPU; then on phase 6's
    clean 1801 x 8 x 2560 sinogram: FOURIER_INV and FBP times after a
    warm-up call, G/F launch counts per path, both paths' time by stage,
@@ -48,7 +52,15 @@ Phases, in order; any failure raises and exits non-zero:
    plain versions and beside K1/K4 on the same input.
 
 The last three lines are the nvidia-smi line, a JSON object with one
-entry per kernel, and ``{"ok": true, "device": {...}}``.
+entry per kernel, and ``{"ok": true, "device": {...}}``.  A kernel's entry
+holds its launches on the main paths (``launches``) and per call of its
+path (``launches_per_call`` of ``per_call_of``), its worst error, and, summed
+over the calls timed at the flagship shapes, its time, its plain version's,
+the time of one PyTorch call for the same function where there is one
+(``library_ms``: ``torch.fft`` on an already complex tensor for F) and its
+bound: the larger of its operations over 67 TFLOP/s (float32 outside the
+tensor cores) and its bytes, each input read once and each output written
+once, over 3.35 TB/s, the published peaks of an H100 SXM at 700 W.
 """
 
 from __future__ import annotations
@@ -68,6 +80,8 @@ TOL_PD_BF16 = 1e-3  # bf16 duals: a one-ulp fp32 difference can flip a rounding
 TOL_ADJOINT = 1e-5  # |<Ax,y> - <x,A^T y>| / |<Ax,y>|
 TOL_SLICE = 1e-4  # rel L2 between the CPU and the GPU reconstruction
 MIN_CORR = 0.99  # FOURIER_INV vs Ram-Lak FBP inside the inscribed circle
+PEAK_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
+PEAK_BYTES = 3.35e12  # HBM3 bytes per second, H100 SXM data sheet
 
 KERNELS = {
     "K1": ("shear_fp", "tomobar_tpu_torch/csrc/projector.cu",
@@ -92,6 +106,47 @@ KERNELS = {
 }
 ITERATIVE = ("K1", "K2", "K3", "K4", "PD")  # the kernels of phase 6's path
 TWO_D = ("K1p", "K4p")  # measured in phase 8
+
+
+# (operations, bytes) of one call: what the function must do on these
+# inputs, each input read once and each output written once
+def work_shear(A, nz, n_rows, row_len, LU):
+    """K1/K1p: a (angle, slice, row) reaches row_len + 1 values of u with two
+    products and two sums each."""
+    return 4 * A * nz * n_rows * (row_len + 1), 4 * (nz * n_rows * row_len + A + A * nz * LU)
+
+
+def work_unshear(A, nz, n, LU):
+    """K4/K4p: two products and two sums per voxel and angle."""
+    return 4 * A * nz * n * n, 4 * (A * nz * LU + A + nz * n * n)
+
+
+def work_resample(A, nz, LU, det_x, per_output):
+    """K2 (13 operations per sinogram sample: position, two hats, two
+    weighted taps) and K3 (26 per u: four candidate positions and hats, two
+    weighted taps)."""
+    n_out = nz * A * det_x if per_output == 13 else A * nz * LU
+    return per_output * n_out, 4 * (A * nz * LU + nz * A * det_x + 2 * A)
+
+
+def work_pd(nz, n):
+    """PD, one iteration: data, u and the duals read, u and the duals
+    written (three duals, two for one slice); about 60 operations per voxel
+    (four projected duals and the divergence)."""
+    return 60 * nz * n * n, (36 if nz > 1 else 28) * nz * n * n
+
+
+def work_grid(nz2, n_angles, n, m=5):
+    """G: per polar sample and tap 8 operations for the weight and a product
+    and a sum per z-pair and channel; spectra read, the (2n)^2 grids written."""
+    taps = n_angles * n * (2 * m + 1) ** 2
+    return taps * (8 + 4 * nz2), 8 * nz2 * n_angles * n + 8 * nz2 * 4 * n * n + 8 * n_angles
+
+
+def work_fft(shape):
+    """F: 5 n log2 n operations per column; re and im read and written."""
+    n, count = shape[-2], int(np.prod(shape))
+    return 5 * count * np.log2(n), 16 * count
 
 
 class SmokeFailure(RuntimeError):
@@ -138,7 +193,8 @@ class Errors:
         self.abs = {k: 0.0 for k in KERNELS}
 
     def compare(self, key: str, label: str, got, ref, tol: float = TOL_KERNEL):
-        """got/ref are tensors, or (re, im) pairs of tensors."""
+        """got/ref are tensors, or (re, im) pairs of tensors; tol 0 asks for
+        bit-for-bit equality."""
         self.torch.cuda.synchronize()
         if isinstance(got, tuple):
             got, ref = self.torch.stack(got), self.torch.stack(ref)
@@ -162,7 +218,7 @@ def check_projector_kernels(torch, K, errs, geom, dev, seed: int) -> None:
         U0, LU, A = g.prm.U0, g.prm.LU, g.prm.A
         tag = f"{'y' if g.swap else 'x'}-driven, {A} angles"
         s_p = K.shear_fp_plain(vol, g.beta, U0, LU, g.swap)
-        errs.compare("K1", tag, K.shear_fp(vol, g.beta, U0, LU, g.swap), s_p)
+        errs.compare("K1", tag, K.shear_fp(vol, g.beta, U0, LU, g.swap), s_p, tol=0.0)
         errs.compare(
             "K2", tag, K.resample_fp(s_p, g.alpha, g.gamma, U0, det),
             K.resample_fp_plain(s_p, g.alpha, g.gamma, U0, det),
@@ -182,6 +238,25 @@ def check_projector_kernels(torch, K, errs, geom, dev, seed: int) -> None:
         )
 
 
+def check_k1_shapes(torch, K, errs, dev) -> None:
+    """K1 against its plain version, bit for bit, at one and three slices,
+    with driven rows that are no multiple of the band's 8 and with rows that
+    are not 16-byte aligned (read from global memory)."""
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops.projector import Projector
+
+    angles = np.linspace(0.0, np.pi, 90, endpoint=False)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    for n, nz in ((512, 1), (512, 3), (500, 8), (510, 3)):
+        vol = torch.randn((nz, n, n), generator=gen, device=dev)
+        for g in Projector(Geometry(n, nz, angles, 3.5, n))._plan.groups(n, n, dev):
+            errs.compare(
+                "K1", f"{n}^2 x {nz}, {'y' if g.swap else 'x'}-driven, {g.prm.A} angles",
+                K.shear_fp(vol, g.beta, g.prm.U0, g.prm.LU, g.swap),
+                K.shear_fp_plain(vol, g.beta, g.prm.U0, g.prm.LU, g.swap), tol=0.0,
+            )
+
+
 def time_cuda(torch, fn, reps: int) -> float:
     """Mean milliseconds of fn() over reps calls, after one warm-up call."""
     fn()
@@ -194,6 +269,16 @@ def time_cuda(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def outer_iteration_launches(counts_after, keys, path: str) -> dict:
+    """Launches of one outer iteration: those of the 2-iteration FISTA call
+    less those of the 1-iteration call, from the counters read before the
+    first call and after each (``counts_after``)."""
+    one, two = (
+        {k: counts_after[i + 1][k] - counts_after[i][k] for k in keys} for i in (0, 1)
+    )
+    return {k: (two[k] - one[k], path) for k in keys}
 
 
 def rel_l2(torch, got, ref) -> float:
@@ -244,13 +329,14 @@ def check_direct_kernels(torch, errs, dev) -> None:
         "G", "n=512, 2 z-pairs, 360 angles",
         UK.grid(g_re, g_im, 512, theta), UK.grid_plain(g_re, g_im, 512, theta),
     )
-    for n in (2560, 5120, 8192):
+    for n in (2560, 5120, 8192, 3000):
         B, C = FK.best_split(n)
         re = torch.randn((2, n, 300), generator=gen, device=dev)
         im = torch.randn((2, n, 300), generator=gen, device=dev)
         for sign in (-1, 1):
             errs.compare(
-                "F", f"n={n} (B={B}, C={C}), 2 x {n} x 300, sign {sign:+d}",
+                "F", f"n={n} (B={B}, C={C}, stages {'x'.join(map(str, FK.stage_plan(C)))}), "
+                     f"2 x {n} x 300, sign {sign:+d}",
                 FK.fft_axis2(re, im, sign), FK.fft_axis2_plain(re, im, sign),
             )
 
@@ -306,7 +392,8 @@ def fbp_by_stage(torch, rt, by_angle):
 
 
 def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
-    """7: the direct path; returns the G and F launches of its main run."""
+    """7: the direct path; returns the G and F launches of its main run and
+    their launches per FOURIER_INV call."""
     from tomobar_tpu_torch import RecToolsDIRCuPy
     from tomobar_tpu_torch.geometry import Geometry
     from tomobar_tpu_torch.ops import fft_kernels as FK
@@ -387,21 +474,29 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
                  UK.grid(sre, sim, N, theta),
                  tuple(g.float() for g in UK.grid_plain(sre.double(), sim.double(), N, theta)))
     measure("G", f"{NZ // 2} z-pairs x {NA} x {N}", lambda: UK.grid(sre, sim, N, theta),
-            lambda: UK.grid_plain(sre, sim, N, theta), reps=3, plain_reps=1, check=False)
+            lambda: UK.grid_plain(sre, sim, N, theta), work_grid(NZ // 2, NA, N),
+            reps=3, plain_reps=1, check=False)
     del sre, sim
     gen = torch.Generator(device=dev).manual_seed(71)
     rows = NZ * (NA + 1) // 2
     for shape, sign in (((4, 2 * N, 2 * N), 1), ((8192, rows), -1), ((N, rows), -1)):
         re = torch.randn(shape, generator=gen, device=dev)
         im = torch.randn(shape, generator=gen, device=dev)
+        # the library call: torch.fft alone, on an already complex tensor
+        # (the plain version also packs re/im and splits the result)
+        xc = torch.complex(re, im)
         measure("F", f"{'x'.join(map(str, shape))}, sign {sign:+d}",
                 lambda: FK.fft_axis2(re, im, sign),
-                lambda: FK.fft_axis2_plain(re, im, sign), reps=5, plain_reps=5)
-        del re, im
+                lambda: FK.fft_axis2_plain(re, im, sign), work_fft(shape),
+                reps=5, plain_reps=5,
+                library=(lambda: torch.fft.fft(xc, dim=-2)) if sign < 0
+                else (lambda: torch.fft.ifft(xc, dim=-2, norm="forward")))
+        del re, im, xc
+    per_call = {k: (launches["FOURIER_INV"].get(k, 0), "FOURIER_INV call") for k in ("G", "F")}
     return {
         "G": launches["FOURIER_INV"].get("G", 0),
         "F": launches["FOURIER_INV"].get("F", 0) + launches["FBP (sinc)"].get("F", 0),
-    }
+    }, per_call
 
 
 def check_packed_kernels(torch, K, errs, geom, dev, seed: int) -> None:
@@ -435,7 +530,7 @@ def residual(torch, rt, x, b) -> float:
 
 def two_d_path(torch, K, errs, measure, dev) -> dict:
     """8: the 2D path; returns the K1p/K4p launches of its main runs (2D
-    FORWPROJ, FBP and FISTA)."""
+    FORWPROJ, FBP and FISTA) and their launches per outer FISTA iteration."""
     from tomobar_tpu_torch import RecToolsDIRCuPy, RecToolsIRCuPy, _build
     from tomobar_tpu_torch.geometry import Geometry
     from tomobar_tpu_torch.ops.projector import Projector, radon_bp, radon_fp
@@ -507,7 +602,7 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
     lc = rt.powermethod({"projection_data": data})
     torch.cuda.synchronize()
     t_power = time.perf_counter() - t0
-    recs, ms = [], []
+    recs, ms, counts_after = [], [], [dict(_build.launch_counts)]
     for iters in (1, 2, 3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -518,7 +613,9 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
         end.record()
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
+        counts_after.append(dict(_build.launch_counts))
     launches["FISTA"] = dict(_build.launch_counts)
+    per_call = outer_iteration_launches(counts_after, TWO_D, "2D FISTA outer iteration")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[8] 2D power method (OS10): L = {lc:.6g} in {t_power:.2f} s wall")
     print(f"[8] 2D launch counts, power method + FISTA 1+2+3: {json.dumps(launches['FISTA'])}")
@@ -624,8 +721,8 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
             errs.compare("K1p", f"flagship, {label}, against K1", k1p(), k1())
             errs.compare("K4p", f"flagship, {label}, against K4", k4p(), k4())
             if tag == "OS subset 0":
-                measure("K1p", label, k1p, k1p_plain)
-                measure("K4p", label, k4p, k4p_plain)
+                measure("K1p", label, k1p, k1p_plain, work_shear(A, 1, N, N, LU))
+                measure("K4p", label, k4p, k4p_plain, work_unshear(A, 1, N, LU))
             else:
                 errs.compare("K1p", f"flagship, {label}", k1p(), k1p_plain())
                 errs.compare("K4p", f"flagship, {label}", k4p(), k4p_plain())
@@ -636,7 +733,7 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
             print(f"[8] K1 at nz=1, {label}: {time_cuda(torch, k1, 5):.3f} ms; "
                   f"K4 at nz=1: {time_cuda(torch, k4, 5):.3f} ms")
     return {k: sum(launches[p].get(k, 0) for p in ("FORWPROJ", "FBP (sinc 1.1)", "FISTA"))
-            for k in TWO_D}
+            for k in TWO_D}, per_call
 
 
 def main() -> int:
@@ -690,6 +787,8 @@ def main() -> int:
     for i, (label, geom) in enumerate(geoms.items()):
         print(f"[3] projector kernels, {label}:")
         check_projector_kernels(torch, K, errs, geom, dev, seed=10 + i)
+    print("[3] K1 at other slice counts and row counts, cor 3.5, 90 angles:")
+    check_k1_shapes(torch, K, errs, dev)
     print("[3] PD-TV kernel, 20 iterations, lambda 0.05, L 12:")
     rng = np.random.default_rng(3)
     for nz in (1, 8):
@@ -776,7 +875,7 @@ def main() -> int:
     lc = rt.powermethod({"projection_data": data, "data_fidelity": "PWLS"})
     torch.cuda.synchronize()
     t_power = time.perf_counter() - t0
-    recs, ms = [], []
+    recs, ms, counts_after = [], [], [dict(_build.launch_counts)]
     for iters in (1, 2, 3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -790,7 +889,11 @@ def main() -> int:
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
         recs.append(out)
+        counts_after.append(dict(_build.launch_counts))
     launches = dict(_build.launch_counts)
+    per_call = outer_iteration_launches(counts_after, ITERATIVE, "3D FISTA outer iteration")
+    print("[6] launches per outer iteration: "
+          + json.dumps({k: v[0] for k, v in per_call.items()}))
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[6] power method: L = {lc:.6g} in {t_power:.2f} s wall")
     print(f"[6] launch counts during the main path: {json.dumps(launches)}")
@@ -815,18 +918,37 @@ def main() -> int:
     # give them; "ms" is the sum over the two groups (one fp_sub or bp_sub
     # call), PD is one iteration (one launch) on the full volume
     x = recs[-1].contiguous()
-    times = {k: [0.0, 0.0] for k in KERNELS}
+    times = {k: {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                 "bound_ms": 0.0, "library_ms": None} for k in KERNELS}
 
-    def measure(key, label, kern, plain, reps=10, plain_reps=2, check=True):
+    def measure(key, label, kern, plain, work, reps=10, plain_reps=2, check=True,
+                tol=TOL_KERNEL, library=None):
+        """Time kern() beside plain() (and library(), one PyTorch call for the
+        same function) and add them, and the bound of `work` = (operations,
+        bytes), to the kernel's sums."""
         phase = "6" if key in ITERATIVE else "8" if key in TWO_D else "7"
         if check:
-            errs.compare(key, f"flagship, {label}", kern(), plain())
+            errs.compare(key, f"flagship, {label}", kern(), plain(), tol=tol)
+        t = times[key]
         t_kern = time_cuda(torch, kern, reps)
         t_plain = time_cuda(torch, plain, plain_reps)
-        times[key][0] += t_kern
-        times[key][1] += t_plain
-        print(f"[{phase}] {key} {KERNELS[key][0]}, {label}: kernel {t_kern:.3f} ms, plain {t_plain:.3f} ms")
+        ops_ms, bytes_ms = work[0] / PEAK_FLOPS * 1e3, work[1] / PEAK_BYTES * 1e3
+        t["ms"] += t_kern
+        t["plain_ms"] += t_plain
+        t["ops_ms"] += ops_ms
+        t["bytes_ms"] += bytes_ms
+        t["bound_ms"] += max(ops_ms, bytes_ms)
+        line = (f"[{phase}] {key} {KERNELS[key][0]}, {label}: kernel {t_kern:.3f} ms, "
+                f"plain {t_plain:.3f} ms, bound {max(ops_ms, bytes_ms):.3f} ms "
+                f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+        if library is not None:
+            t_lib = time_cuda(torch, library, reps)
+            t["library_ms"] = (t["library_ms"] or 0.0) + t_lib
+            line += f", library call {t_lib:.3f} ms"
+        print(line)
 
+    t_copy = time_cuda(torch, lambda: x.transpose(1, 2).contiguous(), 10)
+    print(f"[6] transposed copy of the volume, inside K1's y-driven time: {t_copy:.3f} ms")
     sub0 = Projector(rt.Atools._sub_geoms[0])
     for g in sub0._plan.groups(N, N, dev):
         U0, LU, A = g.prm.U0, g.prm.LU, g.prm.A
@@ -835,26 +957,45 @@ def main() -> int:
         p = K.resample_fp_plain(s, g.alpha, g.gamma, U0, N)
         q = K.resample_bp_plain(p, g.alpha, g.gamma, U0, LU)
         measure("K1", label, lambda: K.shear_fp(x, g.beta, U0, LU, g.swap),
-                lambda: K.shear_fp_plain(x, g.beta, U0, LU, g.swap))
+                lambda: K.shear_fp_plain(x, g.beta, U0, LU, g.swap),
+                work_shear(A, NZ, N, N, LU), tol=0.0)
         measure("K2", label, lambda: K.resample_fp(s, g.alpha, g.gamma, U0, N),
-                lambda: K.resample_fp_plain(s, g.alpha, g.gamma, U0, N))
+                lambda: K.resample_fp_plain(s, g.alpha, g.gamma, U0, N),
+                work_resample(A, NZ, LU, N, 13))
         measure("K3", label, lambda: K.resample_bp(p, g.alpha, g.gamma, U0, LU),
-                lambda: K.resample_bp_plain(p, g.alpha, g.gamma, U0, LU))
+                lambda: K.resample_bp_plain(p, g.alpha, g.gamma, U0, LU),
+                work_resample(A, NZ, LU, N, 26))
         measure("K4", label, lambda: K.unshear_bp(q, g.beta, U0, N, N, g.swap),
-                lambda: K.unshear_bp_plain(q, g.beta, U0, N, N, g.swap))
+                lambda: K.unshear_bp_plain(q, g.beta, U0, N, N, g.swap),
+                work_unshear(A, NZ, N, LU))
     pd_args = (x, 5e-4, 20, 0, 1, 12.0)
     errs.compare("PD", "flagship, 20 iterations", PDT.pd_tv(*pd_args), PDT.pd_tv_plain(*pd_args))
     measure("PD", f"one iteration on {NZ}x{N}x{N}",
             lambda: PDT.pd_tv(*pd_args[:2], 1, *pd_args[3:]),
-            lambda: PDT.pd_tv_plain(*pd_args[:2], 1, *pd_args[3:]))
+            lambda: PDT.pd_tv_plain(*pd_args[:2], 1, *pd_args[3:]), work_pd(NZ, N))
+    # one OS subset of the FISTA step by stage (CUDA events), as phase 8 does
+    from tomobar_tpu_torch.regularisers import PD_TV
+
+    b0 = rt.Atools.sino_subset(data, 0)
+    stages = {
+        "fp_sub (K1 x2, K2 x2)": lambda: rt.Atools.fp_sub(x, 0),
+        "bp_sub (K3 x2, K4 x2)": lambda: rt.Atools.bp_sub(b0, 0),
+        "PD-TV prox, 20 iterations": lambda: PD_TV(x, 5e-4, 20, 0, 1, 12.0),
+    }
+    print("[6] one OS subset by stage (ms): " + json.dumps(
+        {k: round(time_cuda(torch, fn, 5), 3) for k, fn in stages.items()}))
+    del b0
     del x, recs, data, truth
 
     # ---- 7. the direct path ------------------------------------------------
-    launches.update(direct_path(torch, errs, measure, dev, clean, angles))
+    for part, whole in zip(direct_path(torch, errs, measure, dev, clean, angles),
+                           (launches, per_call)):
+        whole.update(part)
     del clean
 
     # ---- 8. the 2D path ----------------------------------------------------
-    launches.update(two_d_path(torch, K, errs, measure, dev))
+    for part, whole in zip(two_d_path(torch, K, errs, measure, dev), (launches, per_call)):
+        whole.update(part)
 
     summary = {
         "kernels": [
@@ -864,9 +1005,14 @@ def main() -> int:
                 "source": KERNELS[k][1],
                 "replaces": KERNELS[k][2],
                 "launches": launches[k],
+                "launches_per_call": per_call[k][0],
+                "per_call_of": per_call[k][1],
                 "max_abs_err": errs.abs[k],
-                "ms": times[k][0],
-                "plain_ms": times[k][1],
+                "ms": times[k]["ms"],
+                "plain_ms": times[k]["plain_ms"],
+                "bound_ms": times[k]["bound_ms"],
+                "bound_by": "operations" if times[k]["ops_ms"] >= times[k]["bytes_ms"] else "bytes",
+                "library_ms": times[k]["library_ms"],
             }
             for k in KERNELS
         ]

@@ -46,7 +46,7 @@ _NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of csrc/*.cu (pointers and the stream as void*, ints as int)
 _SIGNATURES = {
-    "tt_shear_fp": [_P] * 3 + [_I] * 9 + [_P],
+    "tt_shear_fp": [_P] * 3 + [_I] * 6 + [_P],
     "tt_resample_fp": [_P] * 4 + [_I] * 5 + [_P],
     "tt_resample_bp": [_P] * 4 + [_I] * 5 + [_P],
     "tt_unshear_bp": [_P] * 3 + [_I] * 8 + [_P],
@@ -54,7 +54,7 @@ _SIGNATURES = {
     "tt_unshear_bp_packed": [_P] * 3 + [_I] * 6 + [_P],
     "tt_pd_tv_iter": [_P] * 9 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_P],
     "tt_usfft_grid": [_P] * 8 + [_I] * 5 + [_F] * 3 + [_P],
-    "tt_fft_axis2": [_P] * 5 + [_I] * 4 + [_P],
+    "tt_fft_axis2": [_P] * 5 + [_I] * 4 + [_P, _I, _P],
 }
 
 # launches per kernel since the last reset; each wrapper adds one where it

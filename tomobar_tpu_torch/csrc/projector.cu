@@ -16,22 +16,22 @@
 //   K4p unshear_bp_packed_kernel <- projector_pallas.py _unshear_bp_packed_kernel
 //   (K1p/K4p: the pair for one slice, nz == 1; see their own note below)
 //
-// Design.  One thread owns one output element and gathers its taps, so no
-// kernel needs atomics and every result is deterministic.  The TPU kernels
-// scattered with lane rolls and banded MXU matmuls (bf16x3 operand split);
-// here every tap is an fp32 load and an fp32 multiply-add.  The y-driven
-// angle group runs the same kernels with the volume's y and x axes swapped
-// through strides (K1) or index mapping (K4), so no transpose is made.
+// Design.  Every kernel is a gather, so none needs atomics and every
+// result is deterministic.  The TPU kernels scattered with lane rolls and
+// banded MXU matmuls (bf16x3 operand split); here every tap is an fp32 load
+// and an fp32 multiply-add.  In K2, K3 and K4 one thread owns one output
+// element.  K1 is built for this card (its own note stands above it).
+// The y-driven angle group runs K1 on one transposed copy of the volume
+// (as the JAX package does) and K4 with y and x swapped by index mapping.
 //
-// What bounds them on an H100.  K1 and K4 are gathers with a long inner
-// loop: K1 issues two loads per image row for each (angle, slice, u)
-// output and K4 two loads per angle for each voxel, and every load is
-// reused by many outputs, so both are bound by L1/L2 load bandwidth and
-// issue rate, not by HBM traffic.  K2 and K3 read at most two taps per
-// output and are bound by HBM traffic on their inputs and outputs.  The
-// design keeps neighbouring threads on neighbouring u (K1, K3), t (K2) or
-// x (K4), so the loads and stores of a warp coalesce; the swapped K1
-// reads a column per row and leans on L1 to reuse its sectors.
+// What bounds them on an H100.  K1 and K4 do two taps of two products and
+// two sums for each (angle, slice, row, u) term and read every volume or q
+// element many times, so they are bound by operations (fp32 instruction
+// and on-chip load rate), not by HBM traffic.  K4 makes two L1 loads per angle
+// for each voxel.  K2 and K3 read at most two taps per output and are bound
+// by HBM traffic on their inputs and outputs.  Neighbouring threads sit on
+// neighbouring u (K1, K3), t (K2) or x (K4), so the loads and stores of a
+// warp coalesce.
 //
 // Float semantics follow the Pallas kernels: the row shift is
 // shift = beta * (r - cy) in fp32, o = U0 - floor(shift), f = shift - floor;
@@ -71,36 +71,259 @@ __device__ __forceinline__ float hat(float pos, int u) {
   return fmaxf(0.f, 1.f - fabsf(__fsub_rn(pos, static_cast<float>(u))));
 }
 
+// (1-f) a + f b as lerp_taps, with g = 1 - f taken once per (angle, row)
+__device__ __forceinline__ float lerp_taps_g(float g, float f, float a, float b) {
+  return __fadd_rn(__fmul_rn(g, a), __fmul_rn(f, b));
+}
+
+// ---------------------------------------------------------------------------
 // K1: s[a, z, u] = sum_r (1-f) row_r[u-o] + f row_r[u-o+1], rows zero
-// outside [0, row_len).  Row r of slice z is vol[z*sz + r*sr + c*sc].
-__global__ void shear_fp_kernel(const float* __restrict__ vol,
-                                const float* __restrict__ beta,
-                                float* __restrict__ s, int A, int nz,
-                                int n_rows, int row_len, long long sz,
-                                long long sr, long long sc, int U0, int LU) {
-  const long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (idx >= static_cast<long long>(A) * nz * LU) return;
-  const int u = static_cast<int>(idx % LU);
-  const long long az = idx / LU;
-  const int z = static_cast<int>(az % nz);
-  const int a = static_cast<int>(az / nz);
-  const float b = beta[a];
-  const float cy = 0.5f * static_cast<float>(n_rows - 1);
-  const float* vz = vol + z * sz;
-  float acc = 0.f;
-  for (int r = 0; r < n_rows; ++r) {
-    int o;
-    float f;
-    row_shift(b, r, cy, U0, o, f);
-    const int j = u - o;
-    if (j < -1 || j >= row_len) continue;
-    const float* row = vz + r * sr;
-    // j = -1 is the f * row[0] tap (the Pallas kernel's wrapped roll lane)
-    const float v0 = j >= 0 ? row[j * sc] : 0.f;
-    const float v1 = j + 1 < row_len ? row[(j + 1) * sc] : 0.f;
-    acc = __fadd_rn(acc, lerp_taps(f, v0, v1));
+// outside [0, row_len), over the n_rows driven rows of every slice,
+// rows[(z * n_rows + r) * row_len + c].  The y-driven group is given the
+// transposed volume, so both groups read rows that lie along memory.
+//
+// What bounds it.  A group of 91 angles x 8 slices x 2560 rows has
+// 4.8e9 (angle, slice, row, u) terms of two products and two sums (rounded
+// one by one, so no FMA): operations, 0.29 ms at the card's fp32 peak,
+// against 0.07 ms for reading the volume and writing s once.  Each term also
+// needs its two taps, and the shift (o, f) of its (angle, row).  A thread
+// that owns one output and fetches every tap through L1 spends ~30
+// instructions per term; the design below spends the two shared-memory loads
+// and the four roundings, and spreads the rest over many terms.  What is
+// left is the rate of shared-memory loads (two 4-byte loads per term):
+//
+//  * A block owns kK1Tile = 256 consecutive u of up to kK1A = 8 consecutive
+//    angles (one warp each) of one slice.  A thread owns kK1U = 8 u-values
+//    32 apart (a warp covers 32 consecutive ones, so its shared-memory
+//    reads are conflict-free): the row shift is computed once for 8 terms,
+//    and every tap is read with an immediate offset from one address per
+//    row.  (Tiles of 2, 4 or 8 slices per block, which reuse the shift
+//    further, were no faster: the loads, not the shift, set the pace.)
+//  * The driven rows go by in bands of kK1R = 8.  For each band the block
+//    stages the part of the 8 rows its taps can touch (j from u0 - max o
+//    to u0 + 256 - min o over its angles) with 16-byte cp.async copies that
+//    zero-fill outside the rows; the window start is rounded down to a
+//    multiple of 4 so that source and destination are 16-byte aligned.  Two
+//    buffers: the copies of band b + 1 are in flight while band b is
+//    summed, one barrier per band.
+//  * Before the loop every thread works out the windows of a few bands
+//    (o_r is monotone in r, so the band's first and last row bound its
+//    shifts) into shared memory, together with the first and last band whose
+//    window meets the rows at all: LU is more than twice the 2561 live taps
+//    of a row, so most (block, band) pairs have nothing to add and are
+//    never visited.
+//  * The angles of a block must shift a row by similar amounts, or the
+//    window does not fit.  A driven group is a few runs of neighbouring
+//    angles (the x-driven group of a 180 degree scan is [0, pi/4] and
+//    [3pi/4, pi), with beta jumping from -1 to +1 between them), so angle
+//    tiles never span a jump of beta larger than kK1Jump: every block finds
+//    its tile's angle range by a scan of beta (up to kK1Splits jumps are
+//    honoured, and the grid has that many spare tiles, which exit at once).
+//  * A band whose window is still wider than kK1W (sparse angles), or any
+//    band when rows are not 16-byte aligned (row_len % 4 != 0), is summed
+//    from global memory with the same arithmetic.
+//
+// Per output the rows are summed in ascending r with lerp_taps' rounding,
+// and a zero-filled tap adds +0, so K1 equals its plain version bit for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int kK1U = 8;             // u-values per thread
+constexpr int kK1Tile = 32 * kK1U;  // u per block
+constexpr int kK1A = 8;             // angles per block, one warp each
+constexpr int kK1R = 8;             // driven rows per band
+constexpr int kK1W = 768;           // staged window, floats per row
+constexpr int kK1Buf = kK1R * kK1W; // one window buffer, floats
+constexpr int kK1Threads = 32 * kK1A;
+constexpr float kK1Jump = 0.5f;     // |beta[a] - beta[a-1]| that ends an angle tile
+constexpr int kK1Splits = 8;        // such jumps honoured per group
+
+// Angle range [a0, a1) of angle tile `tile`: the angles are cut at the first
+// kK1Splits jumps of beta, each run into tiles of kK1A.  Every lane of the
+// calling warp returns the same range; a tile past the last one is empty.
+__device__ __forceinline__ void k1_angle_tile(const float* __restrict__ beta,
+                                              int A, int tile, int& a0, int& a1) {
+  int start = 0, tiles_before = 0, splits = 0;
+  for (int base = 0; base < A && splits < kK1Splits; base += 32) {
+    const int a = base + static_cast<int>(threadIdx.x);
+    const bool jump = a > 0 && a < A && fabsf(beta[a] - beta[a - 1]) > kK1Jump;
+    unsigned m = __ballot_sync(0xffffffffu, jump);
+    while (m != 0 && splits < kK1Splits) {
+      const int j = base + __ffs(m) - 1;  // the run [start, j) ends here
+      m &= m - 1;
+      ++splits;
+      const int n_tiles = (j - start + kK1A - 1) / kK1A;
+      if (tile < tiles_before + n_tiles) {
+        a0 = start + (tile - tiles_before) * kK1A;
+        a1 = min(a0 + kK1A, j);
+        return;
+      }
+      tiles_before += n_tiles;
+      start = j;
+    }
   }
-  s[idx] = acc;
+  a0 = min(start + (tile - tiles_before) * kK1A, A);  // the last run [start, A)
+  a1 = min(a0 + kK1A, A);
+}
+
+// 16-byte asynchronous copy to shared memory; bytes beyond `bytes` (0 or
+// 16) are zero-filled
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// start the copies of band b's window (lo4, w4 from `bounds`) of slice
+// `slice` (n_rows x row_len) into `dst`, laid out [row of the band][kK1W]
+__device__ __forceinline__ void k1_stage(const float* __restrict__ slice,
+                                         float* dst, const int* bounds, int b,
+                                         int n_rows, int row_len) {
+  const int w4 = bounds[2 * b + 1];
+  if (w4 <= 0) return;  // skipped, or summed from global memory
+  const int lo4 = bounds[2 * b];
+  const int n_chunks = w4 >> 2;
+  for (int i = threadIdx.y; i < kK1R; i += kK1A) {
+    const int r = b * kK1R + i;
+    const bool row_ok = r < n_rows;
+    const float* src = slice + static_cast<long long>(row_ok ? r : 0) * row_len;
+    float* d = dst + i * kK1W;
+    for (int c = threadIdx.x; c < n_chunks; c += 32) {
+      const int j = lo4 + 4 * c;  // j % 4 == 0 and row_len % 4 == 0
+      const bool ok = row_ok && j >= 0 && j < row_len;
+      cp_async16(d + 4 * c, ok ? src + j : slice, ok ? 16 : 0);
+    }
+  }
+}
+
+// Thread (x, y) of a block: angle a_base + y of angle tile blockIdx.y,
+// slice blockIdx.z, u = u0 + x + 32 k for k < kK1U.  Dynamic shared memory:
+// two window buffers of kK1Buf floats, then (lo4, w4) per band.
+__global__ void __launch_bounds__(kK1Threads, 4)
+shear_fp_kernel(const float* __restrict__ rows, const float* __restrict__ beta,
+                float* __restrict__ s, int A, int nz, int n_rows, int row_len,
+                int U0, int LU, int aligned) {
+  extern __shared__ __align__(16) float k1_smem[];
+  int* bounds = reinterpret_cast<int*>(k1_smem + 2 * kK1Buf);
+  __shared__ int live_bands[2];  // first and last band with a tap in the rows
+  __shared__ int angle_tile[2];
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const int u0 = blockIdx.x * kK1Tile;
+  const int z = blockIdx.z;
+  const float* slice = rows + static_cast<long long>(z) * n_rows * row_len;
+  const float cy = 0.5f * static_cast<float>(n_rows - 1);
+  const int n_bands = (n_rows + kK1R - 1) / kK1R;
+  if (threadIdx.y == 0) {
+    int a0, a1;
+    k1_angle_tile(beta, A, blockIdx.y, a0, a1);
+    if (threadIdx.x == 0) {
+      angle_tile[0] = a0;
+      angle_tile[1] = a1;
+      live_bands[0] = n_bands;
+      live_bands[1] = -1;
+    }
+  }
+  __syncthreads();
+  const int a_base = angle_tile[0];
+  const int a_end = angle_tile[1];
+  if (a_base >= a_end) return;  // a spare tile
+  const int a = a_base + threadIdx.y;
+  const bool live = a < a_end;
+  const float b_a = live ? beta[a] : 0.f;
+
+  for (int b = tid; b < n_bands; b += kK1Threads) {
+    int omin = INT_MAX, omax = INT_MIN;
+    for (int k = a_base; k < a_end; ++k) {
+      const float bk = beta[k];
+      int o;
+      float f;
+      row_shift(bk, b * kK1R, cy, U0, o, f);
+      omin = min(omin, o);
+      omax = max(omax, o);
+      row_shift(bk, b * kK1R + kK1R - 1, cy, U0, o, f);
+      omin = min(omin, o);
+      omax = max(omax, o);
+    }
+    const int lo = u0 - omax;            // lowest tap j = u - o of the block
+    const int hi = u0 + kK1Tile - omin;  // highest tap j + 1
+    const int lo4 = lo & ~3;             // floor to a multiple of 4
+    int w4 = (hi - lo4 + 4) & ~3;        // hi - lo4 + 1 rounded up to 4
+    if (hi < 0 || lo >= row_len) {
+      w4 = 0;  // every tap is outside the rows
+    } else {
+      atomicMin(&live_bands[0], b);
+      atomicMax(&live_bands[1], b);
+      if (!aligned || w4 > kK1W) w4 = -1;
+    }
+    bounds[2 * b] = lo4;
+    bounds[2 * b + 1] = w4;
+  }
+  __syncthreads();
+  const int b_first = live_bands[0];
+  const int b_last = live_bands[1];
+
+  float acc[kK1U];
+#pragma unroll
+  for (int k = 0; k < kK1U; ++k) acc[k] = 0.f;
+
+  if (b_first <= b_last) k1_stage(slice, k1_smem, bounds, b_first, n_rows, row_len);
+  cp_async_commit();
+  for (int b = b_first; b <= b_last; ++b) {
+    const int parity = (b - b_first) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // band b has landed; band b - 1's buffer is free
+    if (b < b_last)
+      k1_stage(slice, k1_smem + (parity ^ 1) * kK1Buf, bounds, b + 1, n_rows, row_len);
+    cp_async_commit();
+    const int w4 = bounds[2 * b + 1];
+    if (w4 == 0 || !live) continue;
+    const int r0 = b * kK1R;
+    if (w4 > 0) {
+      const float* win = k1_smem + parity * kK1Buf + (u0 + threadIdx.x - bounds[2 * b]);
+#pragma unroll
+      for (int i = 0; i < kK1R; ++i) {
+        int o;
+        float f;
+        row_shift(b_a, r0 + i, cy, U0, o, f);
+        const float g = __fsub_rn(1.f, f);
+        const float* w = win + i * kK1W - o;  // tap j of u0 + x
+#pragma unroll
+        for (int k = 0; k < kK1U; ++k)
+          acc[k] = __fadd_rn(acc[k], lerp_taps_g(g, f, w[32 * k], w[32 * k + 1]));
+      }
+    } else {
+      for (int i = 0; i < kK1R && r0 + i < n_rows; ++i) {
+        int o;
+        float f;
+        row_shift(b_a, r0 + i, cy, U0, o, f);
+        const float g = __fsub_rn(1.f, f);
+        const int j0 = u0 + threadIdx.x - o;
+        const float* row = slice + static_cast<long long>(r0 + i) * row_len;
+#pragma unroll
+        for (int k = 0; k < kK1U; ++k) {
+          const int j = j0 + 32 * k;
+          // j = -1 is the f * row[0] tap (the Pallas kernel's wrapped roll lane)
+          const float v0 = (j >= 0 && j < row_len) ? row[j] : 0.f;
+          const float v1 = (j + 1 >= 0 && j + 1 < row_len) ? row[j + 1] : 0.f;
+          acc[k] = __fadd_rn(acc[k], lerp_taps_g(g, f, v0, v1));
+        }
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < kK1U; ++k) {
+      const int u = u0 + threadIdx.x + 32 * k;
+      if (u < LU) s[(static_cast<long long>(a) * nz + z) * LU + u] = acc[k];
+    }
+  }
 }
 
 // K2: p[z, a, t] = |alpha| (hat(pos - i) s[i] + hat(pos - i - 1) s[i+1]),
@@ -201,9 +424,9 @@ __global__ void unshear_bp_kernel(const float* __restrict__ q,
 // differ by at most 8 for one angle (|beta| <= 1).
 //
 // What bounds them.  Per (row, angle, output) term both do two shared-
-// memory loads and five fp32 operations; K1/K4 add a global (L1) load pair
-// and the row shift o, f of the (row, angle) to every term and take ~30
-// issued instructions per term.  The shift is the same for every output of
+// memory loads and five fp32 operations; K4 adds a global (L1) load pair
+// and the row shift o, f of the (row, angle) to every term and takes ~30
+// instructions per term.  The shift is the same for every output of
 // a row and an angle, so here a thread owns kPJ outputs 32 apart (a warp
 // covers 32 consecutive ones, so shared-memory reads are conflict-free),
 // computes the shift once and reuses it kPJ times.  The kernels are bound
@@ -220,7 +443,7 @@ __global__ void unshear_bp_kernel(const float* __restrict__ q,
 // global memory with the same arithmetic.  Bands whose window misses the
 // rows add nothing and are skipped.  The caller passes the y-driven group
 // the transposed slice, so its loads coalesce like the x-driven group's
-// (K1 reads that group through swapped strides).
+// (as K1's wrapper gives K1 the transposed volume).
 //
 // K4p: a block owns an 8-row x 32 kPJ4-column tile, one warp per row.
 // For one angle the tile's 8 rows read one window of q of width
@@ -423,13 +646,24 @@ const char* tt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int tt_shear_fp(const float* vol, const float* beta, float* s, int A, int nz,
-                int n_rows, int row_len, int sz, int sr, int sc, int U0,
-                int LU, cudaStream_t stream) {
-  const long long n = static_cast<long long>(A) * nz * LU;
-  if (n == 0) return 0;
-  shear_fp_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-      vol, beta, s, A, nz, n_rows, row_len, sz, sr, sc, U0, LU);
+int tt_shear_fp(const float* rows, const float* beta, float* s, int A, int nz,
+                int n_rows, int row_len, int U0, int LU, cudaStream_t stream) {
+  if (A == 0 || nz == 0 || LU == 0) return 0;
+  const int aligned =
+      row_len % 4 == 0 && reinterpret_cast<unsigned long long>(rows) % 16 == 0;
+  const int n_bands = (n_rows + kK1R - 1) / kK1R;
+  const size_t smem =
+      sizeof(float) * 2 * kK1Buf + sizeof(int) * 2 * static_cast<size_t>(n_bands);
+  // angle tiles: kK1Splits spare ones for the jumps of beta
+  const dim3 grid((LU + kK1Tile - 1) / kK1Tile, (A + kK1A - 1) / kK1A + kK1Splits, nz);
+  if (smem > 227 * 1024 || grid.y > 65535 || grid.z > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      shear_fp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  shear_fp_kernel<<<grid, dim3(32, kK1A), smem, stream>>>(
+      rows, beta, s, A, nz, n_rows, row_len, U0, LU, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,6 +10,10 @@ factorisation n = B*C:
 
 with ``T[k1, n2] = exp(sign*2i*pi*k1*n2/n)``.  The tables are built in
 float64 on the host and cast to float32, as the JAX package builds them.
+The kernel is the forward transform; the unnormalised inverse is the same
+launch on swapped re/im pointers, since conj(DFT(conj x)) equals
+swap(DFT(swap x)) with swap(a + ib) = b + ia.  Its C-point transform runs
+as in-place stages whose radices :func:`stage_plan` picks.
 
 :func:`fft_axis2_plain` is the plain version (``torch.fft`` along dim -2).
 :func:`fft_axis2` runs it for a tensor on the CPU; for a CUDA tensor it
@@ -18,6 +22,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 from typing import Tuple
 
@@ -30,6 +35,7 @@ __all__ = [
     "MAX_C",
     "MAX_B",
     "best_split",
+    "stage_plan",
     "dft_mats",
     "twiddle",
     "fft_axis2",
@@ -83,19 +89,44 @@ def fft_axis2_plain(re: torch.Tensor, im: torch.Tensor, sign: int):
     return y.real.contiguous(), y.imag.contiguous()
 
 
+# stages of a 2**k-point transform, k <= 10: the fewest, of radix <= 16
+_POW2_STAGES = (
+    (), (2,), (4,), (8,), (16,), (8, 4), (8, 8), (16, 8), (16, 16), (8, 8, 8),
+    (16, 8, 8),
+)
+
+
+@lru_cache(maxsize=None)
+def stage_plan(C: int) -> Tuple[int, ...]:
+    """Radices of the kernel's C-point stages, in order (their product is
+    C): the odd prime factors first, ascending (3 and 5 have register
+    butterflies; a larger prime runs one output per thread item), then the
+    power of two in radices up to 16."""
+    plan = []
+    p = 3
+    while C & (C - 1):  # not yet a power of two: an odd factor is left
+        if C % p == 0:
+            plan.append(p)
+            C //= p
+        else:
+            p += 2
+    return tuple(plan) + _POW2_STAGES[C.bit_length() - 1]
+
+
 @lru_cache(maxsize=16)
-def _device_tables(n: int, B: int, C: int, sign: int, device) -> torch.Tensor:
-    """The kernel's constant tables on ``device``, in one float32 buffer:
-    [DFT_B re (B*B), im (B*B), T re (B*C), im (B*C), w_C re (C), im (C)]
-    with w_C[j] = exp(sign*2i*pi*j/C), the C-stage twiddles."""
-    bre, bim = dft_mats(B, sign)
-    tre, tim = twiddle(n, B, C, sign)
-    ang = (sign * 2.0 * np.pi / C) * np.arange(C, dtype=np.float64)
-    flat = np.concatenate([
-        bre.ravel(), bim.ravel(), tre.ravel(), tim.ravel(),
-        np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32),
+def _device_tables(n: int, B: int, C: int, device) -> torch.Tensor:
+    """The kernel's constant tables of the forward transform on ``device``,
+    in one float32 buffer of (re, im) pairs: DFT_B (B*B), T (B*C) and the
+    C-stage roots w_C[j] = exp(-2i*pi*j/C) (C)."""
+    bre, bim = dft_mats(B, -1)
+    tre, tim = twiddle(n, B, C, -1)
+    ang = (-2.0 * np.pi / C) * np.arange(C, dtype=np.float64)
+    pairs = np.concatenate([
+        np.stack([bre.ravel(), bim.ravel()], axis=1),
+        np.stack([tre.ravel(), tim.ravel()], axis=1),
+        np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32),
     ])
-    return torch.as_tensor(flat, dtype=torch.float32, device=device)
+    return torch.as_tensor(pairs.ravel(), dtype=torch.float32, device=device)
 
 
 def fft_axis2(re: torch.Tensor, im: torch.Tensor, sign: int):
@@ -121,13 +152,16 @@ def fft_axis2(re: torch.Tensor, im: torch.Tensor, sign: int):
     im = im.contiguous()
     ore = torch.empty_like(re)
     oim = torch.empty_like(im)
-    tables = _device_tables(n, B, C, sign, re.device)
+    tables = _device_tables(n, B, C, re.device)
+    plan = stage_plan(C)
+    radices = (ctypes.c_int * len(plan))(*plan)
+    # the inverse: the forward kernel on swapped re/im, in and out
+    ptrs = (re, im, ore, oim) if sign < 0 else (im, re, oim, ore)
     lib = _build.library()
     with torch.cuda.device(re.device):
         err = lib.tt_fft_axis2(
-            re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-            tables.data_ptr(), Z, B, C, L,
-            torch.cuda.current_stream(re.device).cuda_stream,
+            *(t.data_ptr() for t in ptrs), tables.data_ptr(), Z, B, C, L,
+            radices, len(plan), torch.cuda.current_stream(re.device).cuda_stream,
         )
     _build.check("F", err)
     _build.launch_counts["F"] += 1

@@ -3,7 +3,8 @@ and the wrappers that launch the CUDA kernels of ``csrc/projector.cu``.
 
 Counterpart of the host side of ``tomobar_tpu/ops/projector_pallas.py``.
 Per driven-angle group (x-driven when |cos| >= |sin|, y-driven otherwise,
-with the volume's y and x axes swapped) the forward projector is
+with the volume's y and x axes swapped: K1 on a transposed copy, K4 by
+index mapping) the forward projector is
 
     K1  shear_fp     vol (nz, ny, nx)    -> s (A, nz, LU)
     K2  resample_fp  s (A, nz, LU)       -> p (nz, A, det_x)
@@ -261,24 +262,26 @@ def _params_ok(name: str, A: int, *vecs: torch.Tensor) -> None:
 
 
 def shear_fp(vol, beta, U0: int, LU: int, swap: bool = False):
-    """K1 (see :func:`shear_fp_plain`).  vol (nz, ny, nx) float32."""
+    """K1 (see :func:`shear_fp_plain`).  vol (nz, ny, nx) float32.  The
+    kernel reads driven rows that lie along memory, so the y-driven group
+    (``swap``) is given one transposed copy of the volume, as the JAX
+    package gives it."""
     if vol.device.type == "cpu":
         return shear_fp_plain(vol, beta, U0, LU, swap)
     _check_cuda("K1", vol, beta)
     if vol.dim() != 3:
         raise ValueError("K1: vol must be (nz, ny, nx)")
-    nz, ny, nx = vol.shape
+    rows = vol.transpose(1, 2).contiguous() if swap else vol
+    nz, n_rows, row_len = rows.shape
     A = beta.shape[0]
     _params_ok("K1", A, beta)
-    n_rows, row_len = (nx, ny) if swap else (ny, nx)
-    strides = (ny * nx, 1, nx) if swap else (ny * nx, nx, 1)
     s = torch.empty((A, nz, LU), dtype=torch.float32, device=vol.device)
     _check_cuda("K1", s)
     lib = _build.library()
     with torch.cuda.device(vol.device):
         err = lib.tt_shear_fp(
-            vol.data_ptr(), beta.data_ptr(), s.data_ptr(), A, nz, n_rows,
-            row_len, *strides, U0, LU, _stream(vol),
+            rows.data_ptr(), beta.data_ptr(), s.data_ptr(), A, nz, n_rows,
+            row_len, U0, LU, _stream(vol),
         )
     _build.check("K1", err)
     _build.launch_counts["K1"] += 1

@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Time the K1 and F kernels of tomobar_tpu_torch at their flagship shapes,
+for several source trees in one call, in turns, on one NVIDIA GPU.
+
+Two versions of a kernel can be compared only inside one call on one card,
+so this script takes any number of trees and runs them alternately::
+
+    # this checkout against another commit unpacked into an ignored directory
+    git archive <commit> | tar -x -C _archive/parent
+    python3 tools/torch_kernel_times.py --repo . --repo _archive/parent
+
+    # this checkout against variants of its kernels' compile-time constants
+    python3 tools/torch_kernel_times.py --repo . --set kK1R=4,kK1W=512 --set kK1U=4
+
+A tree is timed through the package's public wrappers (``shear_fp``,
+``shear_fp_packed``, ``fft_axis2``), whose signatures do not change with
+the kernels behind them, in a process of its own (the kernel library is
+built from that tree's sources at first use).  ``--set`` copies this
+checkout's package into ``_archive/variants/`` with ``constexpr int NAME =
+value;`` lines of its CUDA sources replaced.
+
+Shapes: K1 on both driven groups of OS subset 0 of the 3D flagship (1801
+angles, OS10, 8 x 2560^2) and at one slice beside K1p; F at 4 x 5120 x 5120
+(sign +1), 8192 x 7208 and 2560 x 7208 (sign -1), beside its plain version
+(``torch.fft`` with the complex pack and split) and ``torch.fft`` alone on
+an already complex tensor.  Times are means of CUDA-event timings in ms;
+the first line of output is the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def worker(repo: str) -> dict:
+    sys.path.insert(0, os.path.abspath(repo))
+    import numpy as np
+    import torch
+
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops import fft_kernels as FK
+    from tomobar_tpu_torch.ops import projector_kernels as K
+    from tomobar_tpu_torch.ops.projector import Projector
+
+    dev = torch.device("cuda", 0)
+
+    def ms(fn, reps):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    out = {}
+    N, NZ = 2560, 8
+    gen = torch.Generator(device=dev).manual_seed(0)
+    angles = np.linspace(0.0, np.pi, 1801, endpoint=False)
+    vol = torch.randn((NZ, N, N), generator=gen, device=dev)
+    sub0 = Projector(Geometry(N, NZ, angles, 0.0, N, os_number=10))._sub_plans[0]
+    for g in sub0.groups(N, N, dev):
+        tag = "y" if g.swap else "x"
+        out[f"K1 {tag} 8 slices"] = ms(lambda: K.shear_fp(vol, g.beta, g.prm.U0, g.prm.LU, g.swap), 10)
+    one = vol[:1].contiguous()
+    for g in sub0.groups(N, N, dev, True):
+        tag = "y" if g.swap else "x"
+        rows = one.transpose(1, 2).contiguous() if g.swap else one
+        out[f"K1 {tag} 1 slice"] = ms(lambda: K.shear_fp(one, g.beta, g.prm.U0, g.prm.LU, g.swap), 20)
+        out[f"K1p {tag} 1 slice"] = ms(lambda: K.shear_fp_packed(rows, g.beta, g.prm.U0, g.prm.LU), 20)
+    del vol
+    rows = NZ * 1802 // 2
+    for shape, sign in (((4, 2 * N, 2 * N), 1), ((8192, rows), -1), ((N, rows), -1)):
+        re_ = torch.randn(shape, generator=gen, device=dev)
+        im_ = torch.randn(shape, generator=gen, device=dev)
+        xc = torch.complex(re_, im_)
+        tag = "x".join(map(str, shape))
+        out[f"F {tag}"] = ms(lambda: FK.fft_axis2(re_, im_, sign), 10)
+        out[f"F plain {tag}"] = ms(lambda: FK.fft_axis2_plain(re_, im_, sign), 10)
+        out[f"torch.fft {tag}"] = ms(
+            (lambda: torch.fft.fft(xc, dim=-2)) if sign < 0
+            else (lambda: torch.fft.ifft(xc, dim=-2, norm="forward")), 10)
+        del re_, im_, xc
+    return out
+
+
+def make_variant(spec: str) -> str:
+    """A copy of this checkout's package with the named constants replaced."""
+    dst = os.path.join(HERE, "_archive", "variants", re.sub(r"[^A-Za-z0-9=,]", "_", spec))
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(HERE, "tomobar_tpu_torch"), os.path.join(dst, "tomobar_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    csrc = os.path.join(dst, "tomobar_tpu_torch", "csrc")
+    for item in spec.split(","):
+        name, value = item.split("=")
+        hits = 0
+        for fname in os.listdir(csrc):
+            path = os.path.join(csrc, fname)
+            text = open(path).read()
+            new, n = re.subn(rf"(constexpr int {name} = )[^;]+;", rf"\g<1>{value};", text)
+            if n:
+                open(path, "w").write(new)
+                hits += n
+        if hits != 1:
+            raise SystemExit(f"--set {item}: {hits} lines 'constexpr int {name} = ...;' found")
+    return dst
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", action="append", default=[], help="a source tree to time")
+    ap.add_argument("--set", action="append", default=[], dest="sets", metavar="NAME=VALUE,...",
+                    help="a variant of this checkout with constexpr ints replaced")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        print("RESULT " + json.dumps(worker(args.worker)))
+        return 0
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    trees = [(r, r) for r in (args.repo or ["."])] + [(s, make_variant(s)) for s in args.sets]
+    results = {name: [] for name, _ in trees}
+    for rnd in range(args.rounds):
+        for name, path in (trees if rnd % 2 == 0 else trees[::-1]):
+            run = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", path],
+                                 capture_output=True, text=True)
+            line = [x for x in run.stdout.splitlines() if x.startswith("RESULT ")]
+            if run.returncode != 0 or not line:
+                print(run.stdout[-2000:], run.stderr[-4000:])
+                raise SystemExit(f"{name}: the timing process failed")
+            results[name].append(json.loads(line[0][7:]))
+    keys = list(next(iter(results.values()))[0])
+    print("ms per call; one column per round: " + " | ".join(name for name, _ in trees))
+    for k in keys:
+        print(f"{k:>28}: " + " | ".join(
+            " ".join(f"{r[k]:8.3f}" for r in results[name]) for name, _ in trees))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
