@@ -17,11 +17,14 @@ Phases, in order; any failure raises and exits non-zero:
 2. build: compiles ``tomobar_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
    one process per source, all started together.
 3. kernels: K1-K4 at N=512, nz=8, 180 angles (scalar CoR 3.5 and a
-   per-angle CoR vector, both driven groups), K1 also at nz = 1 and 3, at
-   500 driven rows (not a multiple of 8) and at rows of 510 (not 16-byte
-   aligned), and PD-TV (iso/aniso x nonneg, nz 1 and 8, plus bf16 duals),
-   each against its plain version on the same inputs; K1 must equal its
-   plain version bit for bit.
+   per-angle CoR vector, both driven groups), K1 and K4 also at nz = 1 and
+   3, at 500 driven rows (not a multiple of 8), at rows of 510 (not 16-byte
+   aligned) and K4 at ny != nx and adding into a volume, and PD-TV
+   (iso/aniso x nonneg, nz 1 and 8, plus bf16 duals; iteration counts 1,
+   K - 1, K + 1 and 20 for K iterations per launch; 3 x 500 x 510, which
+   its tiles do not divide, and 20 slices, which it cuts into z-chunks),
+   each against its plain version on the same inputs; K1 and K4 must equal
+   their plain versions bit for bit.
 4. adjointness of the kernel pair.
 5. the slice on the CPU (plain versions) and on the GPU (kernels),
    256^2 x 4 slices x 90 angles, OS5, PWLS, nonneg, PD-TV 20.
@@ -30,8 +33,8 @@ Phases, in order; any failure raises and exits non-zero:
    method, 1, 2 and 3 outer iterations; launch counts, times, RMSE
    against the phantom, peak memory, then each kernel's time beside its
    plain version's at that shape (K1-K4 on both driven groups of OS
-   subset 0, PD-TV for one iteration on the whole volume), and one OS
-   subset of the FISTA step by stage.
+   subset 0, PD-TV for one prox of 20 iterations on the whole volume, and
+   for one iteration), and one OS subset of the FISTA step by stage.
 7. the direct path: G (USFFT gridding) against its plain version at
    n=512, 2 z-pairs, 360 angles with 0 and pi/2 (both driven groups), F
    (axis-(-2) FFT) at n = 2560, 5120, 8192 (its compile-time stage plans)
@@ -55,7 +58,8 @@ The last three lines are the nvidia-smi line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.  A kernel's entry
 holds its launches on the main paths (``launches``) and per call of its
 path (``launches_per_call`` of ``per_call_of``), its worst error, and, summed
-over the calls timed at the flagship shapes, its time, its plain version's,
+over the calls timed at the flagship shapes (PD: one prox of 20 iterations,
+which is several launches), its time, its plain version's,
 the time of one PyTorch call for the same function where there is one
 (``library_ms``: ``torch.fft`` on an already complex tensor for F) and its
 bound: the larger of its operations over 67 TFLOP/s (float32 outside the
@@ -96,7 +100,7 @@ KERNELS = {
            "tomobar_tpu/ops/projector_pallas.py:511"),
     "K4p": ("unshear_bp_packed", "tomobar_tpu_torch/csrc/projector.cu",
             "tomobar_tpu/ops/projector_pallas.py:588"),
-    "PD": ("pd_tv_iter", "tomobar_tpu_torch/csrc/pd_tv.cu",
+    "PD": ("pd_tv", "tomobar_tpu_torch/csrc/pd_tv.cu",
            "tomobar_tpu/ops/pd_tv_pallas.py:144"),
     "G": ("usfft_grid", "tomobar_tpu_torch/csrc/usfft_grid.cu",
           "tomobar_tpu/ops/usfft_pallas.py:236 (G1 _grid_kernel_astack) "
@@ -129,11 +133,14 @@ def work_resample(A, nz, LU, det_x, per_output):
     return per_output * n_out, 4 * (A * nz * LU + nz * A * det_x + 2 * A)
 
 
-def work_pd(nz, n):
-    """PD, one iteration: data, u and the duals read, u and the duals
-    written (three duals, two for one slice); about 60 operations per voxel
-    (four projected duals and the divergence)."""
-    return 60 * nz * n * n, (36 if nz > 1 else 28) * nz * n * n
+def work_pd(nz, n, iterations):
+    """PD, one prox: data read and u written once, whatever the iteration
+    count.  Per voxel and iteration (iso, nonneg) 36 operations, 28 for one
+    slice: the differences (3), the dual ascent (6), the norm (5), compare,
+    clamp, rsqrt, select and scaling (7), the divergence (5), the clamp of u
+    (1) and the primal step with its relaxation (9); one slice has no z
+    term."""
+    return (36 if nz > 1 else 28) * iterations * nz * n * n, 8 * nz * n * n
 
 
 def work_grid(nz2, n_angles, n, m=5):
@@ -228,13 +235,13 @@ def check_projector_kernels(torch, K, errs, geom, dev, seed: int) -> None:
         errs.compare("K3", tag, K.resample_bp(p, g.alpha, g.gamma, U0, LU), q_p)
         errs.compare(
             "K4", tag, K.unshear_bp(q_p, g.beta, U0, n, n, g.swap),
-            K.unshear_bp_plain(q_p, g.beta, U0, n, n, g.swap),
+            K.unshear_bp_plain(q_p, g.beta, U0, n, n, g.swap), tol=0.0,
         )
         base = torch.randn((nz, n, n), generator=gen, device=dev)
         errs.compare(
             "K4", tag + ", accumulate",
             K.unshear_bp(q_p, g.beta, U0, n, n, g.swap, out=base.clone()),
-            K.unshear_bp_plain(q_p, g.beta, U0, n, n, g.swap, out=base.clone()),
+            K.unshear_bp_plain(q_p, g.beta, U0, n, n, g.swap, out=base.clone()), tol=0.0,
         )
 
 
@@ -255,6 +262,56 @@ def check_k1_shapes(torch, K, errs, dev) -> None:
                 K.shear_fp(vol, g.beta, g.prm.U0, g.prm.LU, g.swap),
                 K.shear_fp_plain(vol, g.beta, g.prm.U0, g.prm.LU, g.swap), tol=0.0,
             )
+
+
+def check_k4_shapes(torch, K, errs, dev) -> None:
+    """K4 against its plain version, bit for bit, at one and three slices
+    (one slice per block; an even count takes two), with driven rows that
+    are no multiple of the block's 8, ny != nx (more than one column tile
+    in one group), volumes whose rows are not 16-byte aligned, and adding
+    into a volume."""
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops.projector import Projector
+
+    angles = np.linspace(0.0, np.pi, 90, endpoint=False)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    for ny, nx, nz in ((512, 512, 1), (512, 512, 3), (500, 500, 8), (510, 510, 3), (200, 520, 2)):
+        n = max(ny, nx)
+        for g in Projector(Geometry(n, nz, angles, 3.5, n))._plan.groups(ny, nx, dev):
+            q = torch.randn((g.prm.A, nz, g.prm.LU), generator=gen, device=dev)
+            base = torch.randn((nz, ny, nx), generator=gen, device=dev)
+            tag = f"{ny}x{nx} x {nz}, {'y' if g.swap else 'x'}-driven, {g.prm.A} angles"
+            errs.compare("K4", tag, K.unshear_bp(q, g.beta, g.prm.U0, ny, nx, g.swap),
+                         K.unshear_bp_plain(q, g.beta, g.prm.U0, ny, nx, g.swap), tol=0.0)
+            errs.compare(
+                "K4", tag + ", accumulate",
+                K.unshear_bp(q, g.beta, g.prm.U0, ny, nx, g.swap, out=base.clone()),
+                K.unshear_bp_plain(q, g.beta, g.prm.U0, ny, nx, g.swap, out=base.clone()), tol=0.0)
+
+
+def check_pd_shapes(torch, PDT, errs, dev) -> None:
+    """PD against its plain version at iteration counts around the K that
+    one launch fuses (a single launch, a shorter last launch), on a volume
+    its tiles do not divide, on one slice, and on 20 slices (z-chunks with a
+    halo in z, fewer iterations per launch)."""
+    from tomobar_tpu_torch import _build
+
+    rng = np.random.default_rng(32)
+    for shape in ((3, 500, 510), (1, 500, 510), (20, 100, 120)):
+        k = _build.library().tt_pd_tv_fuse(shape[0])
+        clean = phantom(512, shape[0])[:, : shape[1], : shape[2]]
+        data = torch.as_tensor(
+            clean + 0.1 * rng.standard_normal(shape).astype(np.float32), device=dev)
+        for iters in (1, k - 1, k + 1, 20):
+            for mtv, nn in ((0, 1), (1, 0)):
+                args = (data, 0.05, iters, mtv, nn, 12.0)
+                errs.compare(
+                    "PD", f"{'x'.join(map(str, shape))}, {iters} iterations ({k} per launch), "
+                          f"methodTV={mtv} nonneg={nn}",
+                    PDT.pd_tv(*args), PDT.pd_tv_plain(*args))
+        args = (data, 0.05, k + 1, 0, 1, 12.0, True)
+        errs.compare("PD", f"{'x'.join(map(str, shape))}, {k + 1} iterations, bf16 duals",
+                     PDT.pd_tv(*args), PDT.pd_tv_plain(*args), tol=TOL_PD_BF16)
 
 
 def time_cuda(torch, fn, reps: int) -> float:
@@ -722,7 +779,7 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
             errs.compare("K4p", f"flagship, {label}, against K4", k4p(), k4())
             if tag == "OS subset 0":
                 measure("K1p", label, k1p, k1p_plain, work_shear(A, 1, N, N, LU))
-                measure("K4p", label, k4p, k4p_plain, work_unshear(A, 1, N, LU))
+                measure("K4p", label, k4p, k4p_plain, work_unshear(A, 1, N, LU), tol=0.0)
             else:
                 errs.compare("K1p", f"flagship, {label}", k1p(), k1p_plain())
                 errs.compare("K4p", f"flagship, {label}", k4p(), k4p_plain())
@@ -789,6 +846,8 @@ def main() -> int:
         check_projector_kernels(torch, K, errs, geom, dev, seed=10 + i)
     print("[3] K1 at other slice counts and row counts, cor 3.5, 90 angles:")
     check_k1_shapes(torch, K, errs, dev)
+    print("[3] K4 at other slice counts, row counts and ny != nx, cor 3.5, 90 angles:")
+    check_k4_shapes(torch, K, errs, dev)
     print("[3] PD-TV kernel, 20 iterations, lambda 0.05, L 12:")
     rng = np.random.default_rng(3)
     for nz in (1, 8):
@@ -810,6 +869,8 @@ def main() -> int:
                 "PD", "nz=8 iso nonneg, bf16 duals",
                 PDT.pd_tv(*args), PDT.pd_tv_plain(*args), tol=TOL_PD_BF16,
             )
+    print("[3] PD-TV at other iteration counts and shapes, lambda 0.05, L 12:")
+    check_pd_shapes(torch, PDT, errs, dev)
 
     # ---- 4. adjointness on the card ----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -899,6 +960,9 @@ def main() -> int:
     print(f"[6] launch counts during the main path: {json.dumps(launches)}")
     for k in ITERATIVE:
         require(launches[k] > 0, f"kernel {k} was not launched by the main path")
+    # 10 subsets x 20 PD-TV iterations: fewer launches than iterations
+    require(per_call["PD"][0] < 200, "PD did not fuse iterations: "
+            f"{per_call['PD'][0]} launches per outer iteration")
     rmse = []
     for iters, out, t in zip((1, 2, 3), recs, ms):
         require(tuple(out.shape) == (NZ, N, N), f"recon shape {tuple(out.shape)}")
@@ -916,7 +980,7 @@ def main() -> int:
     # ---- 6b. kernel vs plain times at the flagship shape --------------------
     # K1-K4 on both driven groups of OS subset 0, the shapes fp_sub/bp_sub
     # give them; "ms" is the sum over the two groups (one fp_sub or bp_sub
-    # call), PD is one iteration (one launch) on the full volume
+    # call), PD is one prox of 20 iterations on the full volume
     x = recs[-1].contiguous()
     times = {k: {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
                  "bound_ms": 0.0, "library_ms": None} for k in KERNELS}
@@ -967,12 +1031,16 @@ def main() -> int:
                 work_resample(A, NZ, LU, N, 26))
         measure("K4", label, lambda: K.unshear_bp(q, g.beta, U0, N, N, g.swap),
                 lambda: K.unshear_bp_plain(q, g.beta, U0, N, N, g.swap),
-                work_unshear(A, NZ, N, LU))
+                work_unshear(A, NZ, N, LU), tol=0.0)
     pd_args = (x, 5e-4, 20, 0, 1, 12.0)
     errs.compare("PD", "flagship, 20 iterations", PDT.pd_tv(*pd_args), PDT.pd_tv_plain(*pd_args))
-    measure("PD", f"one iteration on {NZ}x{N}x{N}",
-            lambda: PDT.pd_tv(*pd_args[:2], 1, *pd_args[3:]),
-            lambda: PDT.pd_tv_plain(*pd_args[:2], 1, *pd_args[3:]), work_pd(NZ, N))
+    one = (*pd_args[:2], 1, *pd_args[3:])
+    print(f"[6] PD pd_tv, one iteration on {NZ}x{N}x{N}: "
+          f"kernel {time_cuda(torch, lambda: PDT.pd_tv(*one), 10):.3f} ms, "
+          f"plain {time_cuda(torch, lambda: PDT.pd_tv_plain(*one), 2):.3f} ms")
+    measure("PD", f"one prox of 20 iterations on {NZ}x{N}x{N}",
+            lambda: PDT.pd_tv(*pd_args), lambda: PDT.pd_tv_plain(*pd_args),
+            work_pd(NZ, N, 20), reps=5, plain_reps=1, check=False)
     # one OS subset of the FISTA step by stage (CUDA events), as phase 8 does
     from tomobar_tpu_torch.regularisers import PD_TV
 

@@ -1,19 +1,25 @@
-"""Index arithmetic of the K1 and F CUDA kernels, emulated in numpy.
+"""Index arithmetic of the K1, K4, PD and F CUDA kernels, emulated in numpy.
 
 The kernels of ``tomobar_tpu_torch/csrc`` run only on a GPU.  What can go
 wrong in them apart from the compiler is their index arithmetic: windows,
-zero fill, skipped bands, buffer parity, digit order, twiddle indices, the
-shared-memory swizzle.  The emulations below walk the same blocks, bands,
-stages and thread items as ``shear_fp_kernel`` (csrc/projector.cu) and
-``fft_axis2_kernel`` (csrc/fft_axis2.cu), formula for formula, on the CPU:
+zero fill, skipped bands, buffer parity, tiles, halos and levels, digit
+order, twiddle indices, the shared-memory swizzle.  The emulations below
+walk the same blocks, bands, batches, stages and thread items as
+``shear_fp_kernel`` and ``unshear_bp_kernel`` (csrc/projector.cu),
+``pd_tv_kernel`` (csrc/pd_tv.cu) and ``fft_axis2_kernel``
+(csrc/fft_axis2.cu), formula for formula, on the CPU:
 
-* K1 must equal ``shear_fp_plain`` bit for bit (float32, every product and
-  sum rounded on its own, rows summed in ascending order);
+* K1 and K4 must equal ``shear_fp_plain`` and ``unshear_bp_plain`` bit for
+  bit (float32, every product and sum rounded on its own, rows or angles
+  summed in ascending order);
+* PD must agree with ``pd_tv_plain`` within 1e-6 of the maximum (1e-3 with
+  bfloat16 duals), for every launch plan;
 * F must agree with ``numpy.fft`` within 1e-5 of the maximum (float32
   tables and arithmetic in another order).
 
-Unstaged shared memory is NaN in the emulation, so a tap read outside the
-staged window shows up in the result.
+Unstaged or unwritten shared memory is NaN in the emulation, so a tap read
+outside the staged window, or a halo value that reaches an inner tile,
+shows up in the result.
 """
 
 import numpy as np
@@ -498,3 +504,381 @@ def test_f_stage_plan(Cn):
     odd = [r for r in plan if r % 2]
     assert list(plan[: len(odd)]) == sorted(odd)  # odd radices first, ascending
     assert all(r in (16, 8, 4, 2) for r in plan[len(odd):])
+
+
+# ---------------------------------------------------------------------------
+# constants of the CUDA sources that the emulations below share
+# ---------------------------------------------------------------------------
+
+
+def cu_const(source, name):
+    """Value of ``constexpr int <name> = <integer>;`` in csrc/<source>."""
+    import os
+    import re
+
+    import tomobar_tpu_torch
+
+    path = os.path.join(os.path.dirname(tomobar_tpu_torch.__file__), "csrc", source)
+    with open(path) as fh:
+        found = re.findall(rf"constexpr int {name} = (\d+);", fh.read())
+    assert len(found) == 1, (source, name, found)
+    return int(found[0])
+
+
+# ---------------------------------------------------------------------------
+# K4: csrc/projector.cu, unshear_bp_kernel
+# ---------------------------------------------------------------------------
+
+K4_R, K4_J, K4_AZ = (cu_const("projector.cu", n) for n in ("kK4R", "kK4J", "kK4AZ"))
+K4_C = 32 * K4_J
+K4_W = K4_C + 16  # kK4W
+K4_GLOBAL = None  # kK4Global
+
+
+def k4_stage(q, beta, dst, sbeta, sbase, b, Z, z0, r0, c0, cy, U0, aligned, stats):
+    """k4_stage(): the windows of angle batch b, 16-byte chunks, zero-filled
+    outside [0, LU); an angle whose window does not fit is marked."""
+    A, nz, LU = q.shape
+    K4_A = K4_AZ // Z
+    for i in range(K4_A):
+        a = b * K4_A + i
+        if a >= A:
+            continue
+        o_first = int(row_shift(beta[a], r0, cy, U0)[0])
+        o_last = int(row_shift(beta[a], r0 + K4_R - 1, cy, U0)[0])
+        lo4 = (min(o_first, o_last) + c0 - 1) & ~3
+        fits = aligned and max(o_first, o_last) + c0 + K4_C - 1 - lo4 < K4_W
+        sbeta[i] = beta[a]
+        sbase[i] = lo4 if fits else K4_GLOBAL
+        stats["staged" if fits else "global"] += 1
+        if not fits:
+            continue
+        for zz in range(Z):
+            for c in range(K4_W // 4):
+                u = lo4 + 4 * c
+                dst[zz, i, 4 * c : 4 * c + 4] = q[a, z0 + zz, u : u + 4] if 0 <= u < LU else 0.0
+
+
+def k4_block(q, beta, vol, bx, by, bz, Z, U0, ny, nx, swap, accumulate, aligned, stats):
+    A, nz, LU = q.shape
+    K4_A = K4_AZ // Z
+    n_rows, row_len = (nx, ny) if swap else (ny, nx)
+    c0, r0, z0 = bx * K4_C, by * K4_R, bz * Z
+    cy = f32(0.5) * f32(n_rows - 1)
+    n_batches = (A + K4_A - 1) // K4_A
+    cols = np.arange(32)[None, :] + 32 * np.arange(K4_J)[:, None]  # [k, x]
+    acc = np.zeros((Z, K4_R, K4_J, 32), dtype=f32)
+    buf = np.full((2, Z, K4_A, K4_W), np.nan, dtype=f32)
+    sbeta = np.full((2, K4_A), np.nan, dtype=f32)
+    sbase = [[None] * K4_A, [None] * K4_A]
+    if n_batches:
+        k4_stage(q, beta, buf[0], sbeta[0], sbase[0], 0, Z, z0, r0, c0, cy, U0, aligned, stats)
+    for b in range(n_batches):
+        parity = b & 1
+        if b + 1 < n_batches:
+            k4_stage(q, beta, buf[parity ^ 1], sbeta[parity ^ 1], sbase[parity ^ 1],
+                     b + 1, Z, z0, r0, c0, cy, U0, aligned, stats)
+        for i in range(min(K4_A, A - b * K4_A)):
+            for y in range(K4_R):  # rows past n_rows are summed too, and never stored
+                o, f = row_shift(sbeta[parity, i], r0 + y, cy, U0)
+                o, f = int(o), f32(f)
+                g = f32(1.0) - f
+                u = o + c0 + cols
+                lo4 = sbase[parity][i]
+                for zz in range(Z):
+                    if lo4 is not K4_GLOBAL:
+                        idx = u - lo4
+                        assert idx.min() >= 1 and idx.max() < K4_W
+                        w = buf[parity, zz, i]
+                        acc[zz, y] += g * w[idx] + f * w[idx - 1]
+                    else:
+                        line = q[b * K4_A + i, z0 + zz]
+                        q0 = np.where((u >= 0) & (u < LU), line[np.clip(u, 0, LU - 1)], f32(0))
+                        q1 = np.where((u >= 1) & (u - 1 < LU), line[np.clip(u - 1, 0, LU - 1)], f32(0))
+                        acc[zz, y] += g * q0 + f * q1
+    for zz in range(Z):
+        for y in range(K4_R):
+            row = r0 + y
+            if row >= n_rows:
+                continue
+            col = c0 + cols
+            ok = col < row_len
+            target = vol[z0 + zz, :, row] if swap else vol[z0 + zz, row, :]
+            v = acc[zz, y][ok]
+            target[col[ok]] = target[col[ok]] + v if accumulate else v
+
+
+def k4_emulated(q, beta, U0, ny, nx, swap, out=None):
+    """unshear_bp() on a CUDA tensor, block by block."""
+    A, nz, LU = q.shape
+    n_rows, row_len = (nx, ny) if swap else (ny, nx)
+    aligned = LU % 4 == 0  # numpy lines start 16-byte aligned, as torch's do
+    vol = np.full((nz, ny, nx), np.nan, dtype=f32) if out is None else out.copy()
+    stats = {"staged": 0, "global": 0}
+    Z = 2 if nz % 2 == 0 else 1  # slices per block
+    for bz in range(nz // Z):
+        for by in range((n_rows + K4_R - 1) // K4_R):
+            for bx in range((row_len + K4_C - 1) // K4_C):
+                k4_block(q, beta, vol, bx, by, bz, Z, U0, ny, nx, swap, out is not None,
+                         aligned, stats)
+    return vol, stats
+
+
+@pytest.mark.parametrize("accumulate", [False, True], ids=["new", "accumulate"])
+@pytest.mark.parametrize("group", ["x-driven", "y-driven"])
+@pytest.mark.parametrize("cor", [2.5, "per-angle"], ids=["scalar-cor", "per-angle-cor"])
+@pytest.mark.parametrize("nz,ny,nx", [(1, 40, 40), (3, 38, 44), (8, 16, 24), (2, 20, 300)],
+                         ids=["nz1", "nz3-rows%8!=0", "nz8", "ny!=nx-two-column-tiles"])
+def test_k4_emulation_bit_exact(nz, ny, nx, cor, group, accumulate):
+    """K4's block arithmetic equals unshear_bp_plain bit for bit: angle
+    batches in two buffers (40 angles per group: full batches and a ragged
+    one, of 32 angles for one slice per block or of 16 for two),
+    16-byte zero-filled windows, rows that are no multiple of 8, ny != nx
+    with more than one column tile, one and several slices, both driven
+    groups, adding into a volume."""
+    _, groups = k1_case(nz, ny, nx, 80, cor, seed=nz + ny)
+    g = groups[0 if group == "x-driven" else 1]
+    assert g.swap == (group == "y-driven") and g.prm.A > K4_AZ
+    rng = np.random.default_rng(nx + nz)
+    q = rng.standard_normal((g.prm.A, nz, g.prm.LU)).astype(f32)
+    base = rng.standard_normal((nz, ny, nx)).astype(f32) if accumulate else None
+    ref = PK.unshear_bp_plain(
+        torch.as_tensor(q), g.beta, g.prm.U0, ny, nx, g.swap,
+        out=None if base is None else torch.as_tensor(base.copy())).numpy()
+    got, stats = k4_emulated(q, g.prm.beta, g.prm.U0, ny, nx, g.swap, out=base)
+    assert np.array_equal(got, ref)
+    assert stats["staged"] > 0 and stats["global"] == 0
+
+
+@pytest.mark.parametrize("case", ["steep-angles", "unaligned-lines"])
+def test_k4_emulation_from_global_memory(case):
+    """An angle whose 8 rows shift by more than the window allows (|beta| >
+    1) is summed from global memory, the others of its batch from their
+    windows; lines of q that are not 16-byte aligned (LU % 4 != 0) are all
+    read from global memory.  Same arithmetic, same bits."""
+    rng = np.random.default_rng(11)
+    ny, nx = 24, 40
+    beta = np.array([-0.9, 2.5, 0.3, -3.0, 1.0, 0.0] if case == "steep-angles"
+                    else [-0.9, 0.3, 1.0], dtype=f32)
+    U0 = 128
+    LU = 512 if case == "steep-angles" else 510
+    for nz, swap in ((2, False), (2, True), (3, False), (3, True)):
+        q = rng.standard_normal((beta.shape[0], nz, LU)).astype(f32)
+        ref = PK.unshear_bp_plain(torch.as_tensor(q), torch.as_tensor(beta), U0, ny, nx, swap).numpy()
+        got, stats = k4_emulated(q, beta, U0, ny, nx, swap)
+        assert np.array_equal(got, ref)
+        assert stats["global"] > 0
+        assert (stats["staged"] > 0) == (case == "steep-angles")
+
+
+def test_k4_wrapper_on_cpu_is_the_plain_version():
+    _, groups = k1_case(2, 24, 24, 12, 0.0, seed=1)
+    rng = np.random.default_rng(2)
+    for g in groups:
+        q = torch.as_tensor(rng.standard_normal((g.prm.A, 2, g.prm.LU)).astype(f32))
+        assert torch.equal(PK.unshear_bp(q, g.beta, g.prm.U0, 24, 24, g.swap),
+                           PK.unshear_bp_plain(q, g.beta, g.prm.U0, 24, 24, g.swap))
+
+
+# ---------------------------------------------------------------------------
+# PD: csrc/pd_tv.cu, pd_tv_kernel
+# ---------------------------------------------------------------------------
+
+from tomobar_tpu_torch.ops import pd_tv as PDT  # noqa: E402
+
+PD_K, PD_KZ, PD_V, PD_TY, PD_ZMAX, PD_PAD = (
+    cu_const("pd_tv.cu", n) for n in ("kPDK", "kPDKz", "kPDV", "kPDThreadsY", "kPDZMax", "kPDPad"))
+
+
+def pd_fuse(nz):
+    """fuse() of pd_tv.cu: iterations per launch."""
+    return PD_K if nz <= PD_ZMAX else PD_KZ
+
+
+def pd_tile(nz):
+    """launch() of pd_tv.cu: (ZC, CY, TYT, slices a z-chunk stores)."""
+    for zc in (1, 2, 4, 8):
+        if nz <= zc:
+            return zc, PD_V // zc, PD_TY, nz
+    return PD_ZMAX, PD_V // PD_ZMAX, PD_TY, nz if nz <= PD_ZMAX else PD_ZMAX - 2 * pd_fuse(nz)
+
+
+def bf16_round(x):
+    return torch.from_numpy(x).to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def pd_block(data, u_in, p_in, u_out, p_out, stored, bx, by, bz, K, first, last, consts,
+             iso, nonneg, bf16):
+    sigma, tau, lt, theta = (f32(c) for c in consts)
+    nz, ny, nx = data.shape
+    ZC, CY, TYT, zi = pd_tile(nz)
+    HY = TYT * CY
+    plane = (HY + 1) * 32
+    array = ZC * plane + PD_PAD
+    three = ZC > 1
+    smem = np.full(3 * array + PD_PAD, np.nan, dtype=f32)  # unwritten shared memory
+    su, sp1, sp2 = (PD_PAD + i * array for i in range(3))  # offsets into smem
+    # every (z, ly, lx) of the tile belongs to one thread: ly = y + TYT j
+    z = np.arange(ZC)[:, None, None]
+    ly = np.arange(HY)[None, :, None]
+    lx = np.arange(32)[None, None, :]
+    s = z * plane + ly * 32 + lx
+    gx = bx * (32 - 2 * K) - K + lx
+    gy = by * (HY - 2 * K) - K + ly
+    zi0 = bz * zi
+    zs = max(0, zi0 - K) if zi < nz else 0
+    zc = min(nz, zi0 + zi + K) - zs if zi < nz else nz
+    z_lo, z_hi = zi0 - zs, min(nz, zi0 + zi) - zs
+    assert zc <= ZC
+    inside = (gx >= 0) & (gx < nx) & (gy >= 0) & (gy < ny) & (z < zc)
+    gz, gy_c, gx_c = (np.broadcast_to(np.clip(v, 0, n - 1), inside.shape)
+                      for v, n in ((zs + z, nz), (gy, ny), (gx, nx)))
+
+    def fetch(arr):
+        return np.where(inside, arr[gz, gy_c, gx_c], f32(0)).astype(f32)
+
+    def duals_as_stored(c):
+        return bf16_round(c) if bf16 else c
+
+    # registers: data and the third dual; shared memory: u and the first two
+    dat = fetch(data)
+    p3 = (np.zeros(inside.shape, dtype=f32) if first or not three
+          else fetch(p_in[2].astype(f32)))
+    smem[su + s] = dat if first else fetch(u_in)
+    for off, i in ((sp1, 0), (sp2, 1)):
+        smem[off + s] = f32(0) if first else fetch(p_in[i].astype(f32))
+    x_last, y_last, x_first, y_first = gx == nx - 1, gy == ny - 1, gx == 0, gy == 0
+    z_first, z_last = zs + z == 0, zs + z == nz - 1
+    den = f32(1.0) + lt
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        for _ in range(K):
+            # step 1
+            u = smem[su + s]
+            dx = np.where(x_last, smem[su + s - 1], smem[su + s + 1]) - u
+            dy = np.where(y_last, smem[su + s - 32], smem[su + s + 32]) - u
+            q = [duals_as_stored(smem[sp1 + s]) + sigma * dx,
+                 duals_as_stored(smem[sp2 + s]) + sigma * dy, np.zeros_like(u)]
+            if three:
+                below = np.concatenate([u[:1], u[:-1]])  # z > 0 ? u[z - 1] : u
+                above = np.concatenate([u[1:], u[-1:]])  # z + 1 < ZC ? u[z + 1] : u
+                q[2] = p3 + sigma * (np.where(z_last, below, above) - u)
+            if iso:
+                denom = q[0] * q[0] + q[1] * q[1]
+                if three:
+                    denom = denom + q[2] * q[2]
+                rs = torch.rsqrt(torch.from_numpy(np.maximum(denom, f32(1e-30)))).numpy()
+                scale = np.where(denom > 1, rs, f32(1))
+                q = [c * scale for c in q]
+            else:
+                q = [c / np.maximum(np.abs(c), f32(1)) for c in q]
+            smem[sp1 + s] = q[0]
+            smem[sp2 + s] = q[1]
+            p3 = q[2]
+            # step 2
+            div = np.where(x_first, smem[sp1 + s], smem[sp1 + s] - smem[sp1 + s - 1])
+            div = div + np.where(y_first, smem[sp2 + s], smem[sp2 + s] - smem[sp2 + s - 32])
+            if three:
+                below = np.concatenate([np.zeros_like(p3[:1]), p3[:-1]])
+                div = div + np.where(z_first, p3, p3 - below)
+            uc = np.maximum(smem[su + s], f32(0)) if nonneg else smem[su + s]
+            un = ((uc + tau * div) + lt * dat) / den
+            smem[su + s] = (un + theta * (un - uc)).astype(f32)
+            p3 = duals_as_stored(p3)
+    keep = (inside & (lx >= K) & (lx < 32 - K) & (ly >= K) & (ly < HY - K)
+            & (z >= z_lo) & (z < z_hi))
+    where = (gz[keep], gy_c[keep], gx_c[keep])
+    u_out[where] = smem[su + s][keep]
+    stored[where] += 1
+    if not last:
+        for i, c in enumerate((smem[sp1 + s], smem[sp2 + s], p3)[: 3 if three else 2]):
+            p_out[i][where] = duals_as_stored(c)[keep]
+
+
+def pd_emulated(data, lam, iterations, mtv, nonneg, lc, bf16=False):
+    """pd_tv() on a CUDA tensor: the wrapper's launches, each block by block."""
+    nz, ny, nx = data.shape
+    consts = PDT.pd_tv_constants(lam, lc)
+    ZC, CY, TYT, zi = pd_tile(nz)
+    HY = TYT * CY
+    u_prev, p_prev = None, None
+    n_launches = 0
+    for K, first, last in PDT.launch_plan(iterations, pd_fuse(nz)):
+        assert 2 * K < 32 and 2 * K < HY and (zi == nz or zi + 2 * K <= ZC)
+        u_out = np.full(data.shape, np.nan, dtype=f32)
+        p_out = [np.full(data.shape, np.nan, dtype=f32) for _ in range(3)]
+        stored = np.zeros(data.shape, dtype=np.int64)
+        for bz in range((nz + zi - 1) // zi):
+            for by in range((ny + HY - 2 * K - 1) // (HY - 2 * K)):
+                for bx in range((nx + 32 - 2 * K - 1) // (32 - 2 * K)):
+                    pd_block(data, u_prev, p_prev, u_out, p_out, stored, bx, by, bz, K,
+                             first, last, consts, mtv == 0, nonneg, bf16)
+        assert np.all(stored == 1)  # every voxel belongs to one inner tile
+        u_prev, p_prev = u_out, p_out
+        n_launches += 1
+    return (data.copy() if u_prev is None else u_prev), n_launches
+
+
+def pd_case(nz, ny, nx, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:ny, 0:nx]
+    disc = ((yy - ny / 2) ** 2 + (xx - nx / 2) ** 2 < (min(ny, nx) / 3) ** 2).astype(f32)
+    return (disc[None] * np.linspace(0.5, 1.5, nz, dtype=f32)[:, None, None]
+            + f32(0.2) * rng.standard_normal((nz, ny, nx)).astype(f32))
+
+
+def pd_check(data, iterations, mtv, nonneg, bf16=False, tol=1e-6):
+    got, n_launches = pd_emulated(data, 0.05, iterations, mtv, nonneg, 12.0, bf16)
+    ref = PDT.pd_tv_plain(torch.as_tensor(data), 0.05, iterations, mtv, nonneg, 12.0, bf16).numpy()
+    assert np.isfinite(got).all()  # nothing unwritten reached an inner tile
+    assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
+    assert n_launches == -(-iterations // pd_fuse(data.shape[0]))
+
+
+@pytest.mark.parametrize("mtv,nonneg", [(0, 0), (0, 1), (1, 0), (1, 1)],
+                         ids=["iso", "iso-nonneg", "aniso", "aniso-nonneg"])
+@pytest.mark.parametrize("nz,ny,nx", [(1, 300, 40), (3, 70, 50), (8, 50, 70), (2, 130, 30)],
+                         ids=["nz1", "nz3", "nz8", "nz2"])
+def test_pd_emulation_against_plain(nz, ny, nx, mtv, nonneg):
+    """PD's tiles, halos, levels and boundary rules, with NaN in every
+    shared-memory word a block did not write: 20 iterations (five launches
+    of 4) on volumes that the inner tiles do not divide, with more than one
+    tile along x and y, within 1e-6 of the maximum of the plain version."""
+    pd_check(pd_case(nz, ny, nx, seed=nz + nx), 20, mtv, nonneg)
+
+
+@pytest.mark.parametrize("iterations", [1, PD_K - 1, PD_K, PD_K + 1, 2 * PD_K + 1])
+@pytest.mark.parametrize("nz", [1, 8])
+def test_pd_emulation_any_iteration_count(nz, iterations):
+    """Counts that K does not divide end with a shorter launch, whose halo
+    and inner tile follow its own count; one launch is first and last."""
+    pd_check(pd_case(nz, 60, 60, seed=iterations), iterations, 0, 1)
+
+
+@pytest.mark.parametrize("nz", [9, 16, 20, 41])
+def test_pd_emulation_many_slices(nz):
+    """Up to 16 slices are one chunk, a column of 16 per thread; more are
+    cut into chunks with a halo in z, fewer iterations per launch."""
+    pd_check(pd_case(nz, 20, 30, seed=nz), 5, 0, 1)
+    if nz > PD_ZMAX:
+        assert pd_fuse(nz) == PD_KZ and pd_tile(nz)[3] == PD_ZMAX - 2 * PD_KZ
+
+
+@pytest.mark.parametrize("nz", [1, 3, 8])
+def test_pd_emulation_bf16_duals(nz):
+    """bfloat16 duals are rounded after every iteration, inside a launch
+    too.  The rounding amplifies one-ulp differences, hence 1e-3."""
+    data = pd_case(nz, 40, 40, seed=nz)
+    pd_check(data, 9, 0, 1, bf16=True, tol=1e-3)
+    full = PDT.pd_tv_plain(torch.as_tensor(data), 0.05, 9, 0, 1, 12.0).numpy()
+    half, _ = pd_emulated(data, 0.05, 9, 0, 1, 12.0, True)
+    assert np.abs(half - full).max() > 1e-5 * np.abs(full).max()  # the rounding is there
+
+
+@pytest.mark.parametrize("iterations,fuse,counts", [
+    (0, 4, []), (1, 4, [1]), (4, 4, [4]), (5, 4, [4, 1]), (20, 4, [4] * 5),
+    (20, 7, [7, 7, 6]), (3, 2, [2, 1])])
+def test_pd_launch_plan(iterations, fuse, counts):
+    plan = PDT.launch_plan(iterations, fuse)
+    assert [k for k, _, _ in plan] == counts
+    assert [first for _, first, _ in plan] == [i == 0 for i in range(len(counts))]
+    assert [last for _, _, last in plan] == [i == len(counts) - 1 for i in range(len(counts))]

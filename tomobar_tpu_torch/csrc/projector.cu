@@ -19,19 +19,19 @@
 // Design.  Every kernel is a gather, so none needs atomics and every
 // result is deterministic.  The TPU kernels scattered with lane rolls and
 // banded MXU matmuls (bf16x3 operand split); here every tap is an fp32 load
-// and an fp32 multiply-add.  In K2, K3 and K4 one thread owns one output
-// element.  K1 is built for this card (its own note stands above it).
-// The y-driven angle group runs K1 on one transposed copy of the volume
-// (as the JAX package does) and K4 with y and x swapped by index mapping.
+// and an fp32 multiply-add.  In K2 and K3 one thread owns one output
+// element.  K1 and K4 are built for this card (each has its own note above
+// it).  The y-driven angle group runs K1 on one transposed copy of the
+// volume (as the JAX package does) and K4 with y and x swapped by index
+// mapping.
 //
 // What bounds them on an H100.  K1 and K4 do two taps of two products and
 // two sums for each (angle, slice, row, u) term and read every volume or q
 // element many times, so they are bound by operations (fp32 instruction
-// and on-chip load rate), not by HBM traffic.  K4 makes two L1 loads per angle
-// for each voxel.  K2 and K3 read at most two taps per output and are bound
-// by HBM traffic on their inputs and outputs.  Neighbouring threads sit on
-// neighbouring u (K1, K3), t (K2) or x (K4), so the loads and stores of a
-// warp coalesce.
+// and shared-memory load rate), not by HBM traffic.  K2 and K3 read at most
+// two taps per output and are bound by HBM traffic on their inputs and
+// outputs.  Neighbouring threads sit on neighbouring u (K1, K3), t (K2) or
+// column (K4), so the loads of a warp coalesce.
 //
 // Float semantics follow the Pallas kernels: the row shift is
 // shift = beta * (r - cy) in fp32, o = U0 - floor(shift), f = shift - floor;
@@ -381,34 +381,230 @@ __global__ void resample_bp_kernel(const float* __restrict__ p,
   q[idx] = acc;
 }
 
+// ---------------------------------------------------------------------------
 // K4: vol[z, Y, X] (+)= sum_a (1-f) q[a, z, o+col] + f q[a, z, o+col-1]
-// with (row, col) = (Y, X), or (X, Y) for the swapped (y-driven) group.
-__global__ void unshear_bp_kernel(const float* __restrict__ q,
-                                  const float* __restrict__ beta,
-                                  float* __restrict__ vol, int A, int nz,
-                                  int ny, int nx, int LU, int U0, int swap,
-                                  int accumulate) {
-  const long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (idx >= static_cast<long long>(nz) * ny * nx) return;
-  const int X = static_cast<int>(idx % nx);
-  const long long zy = idx / nx;
-  const int Y = static_cast<int>(zy % ny);
-  const int z = static_cast<int>(zy / ny);
-  const int row = swap ? X : Y;
-  const int col = swap ? Y : X;
-  const float cy = 0.5f * static_cast<float>((swap ? nx : ny) - 1);
-  float acc = 0.f;
-  for (int a = 0; a < A; ++a) {
-    int o;
-    float f;
-    row_shift(beta[a], row, cy, U0, o, f);
-    const float* line = q + (static_cast<long long>(a) * nz + z) * LU;
-    const int u = o + col;
-    const float q0 = (u >= 0 && u < LU) ? line[u] : 0.f;
-    const float q1 = (u >= 1 && u - 1 < LU) ? line[u - 1] : 0.f;
-    acc = __fadd_rn(acc, lerp_taps(f, q0, q1));
+// with (row, col) = (Y, X), or (X, Y) for the swapped (y-driven) group, over
+// the n_rows driven rows of row_len columns of every slice.
+//
+// What bounds it.  The same count of terms as K1 (a group of 91 angles x 8
+// slices x 2560^2 voxels: 4.8e9 terms of two products and two sums, rounded
+// one by one), 0.29 ms at the card's fp32 peak against 0.06 ms for reading q
+// and writing the volume once.  A thread that owns one voxel and fetches
+// both taps through L1 with a row shift of its own for every angle spends
+// ~30 instructions per term.  The design below is K1's, turned round: the
+// block walks the angles, not the rows.
+//
+//  * A block owns kK4R = 8 consecutive driven rows (one warp each) x
+//    kK4C = 256 columns of Z slices (two where nz is even, else one).  A thread owns kK4J = 8 columns 32
+//    apart (a warp covers 32 consecutive ones, so its shared-memory reads
+//    are conflict-free) and computes the row shift once per (row, angle) for
+//    all of them and for every slice of the block.
+//  * The angles go by in batches of kK4AZ / Z.  For one angle the block's 8 rows
+//    read one window of q: the shifts o_r of 8 consecutive rows differ by at
+//    most 8 when |beta| <= 1, so kK4C + 9 values.  The block stages the
+//    windows of a batch with 16-byte cp.async copies that zero-fill outside
+//    [0, LU); the window start is rounded down to a multiple of 4 so that
+//    source and destination are 16-byte aligned.  Two buffers: the copies of
+//    batch b + 1 are in flight while batch b is summed, one barrier per
+//    batch.  The threads that share an angle's copies work out its window
+//    once per batch.
+//  * An angle whose window does not fit (|beta| > 1, never from the
+//    driven-group split), or every angle when q's lines are not 16-byte
+//    aligned (LU % 4 != 0), is summed from global memory with the same
+//    arithmetic.  Rows past n_rows and columns past row_len are masked.
+//  * The y-driven group writes vol[z, col, row] (no transpose is made): the
+//    block turns its 8 x 256 tile in shared memory and every thread stores
+//    runs of 8 rows, whole 32-byte sectors, instead of 4 bytes of each.
+//
+// Per voxel the angles are summed in ascending order with lerp_taps'
+// rounding, and a zero-filled tap adds +0, so K4 equals its plain version
+// bit for bit and stays the exact transpose of K1.
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W the two groups of an OS subset of
+// the 1801 x 8 x 2560^2 flagship take 1.52 / 1.60 ms (x- / y-driven)
+// against 4.58 / 4.54 ms for one thread per voxel: the two 4-byte shared-
+// memory loads per term set the pace, as in K1 (1.3 ms at the full rate of
+// 32 lanes per clock and SM).  One slice per block took 1.65 / 1.73 ms, four
+// no less than two, 4 columns per thread 1.94 / 2.10 ms, 64 windows per
+// batch (one block per SM) 2.22 / 2.41 ms, and the y-driven group's store
+// without the turn 1.96 ms (2.42 against 1.73 ms when it adds into the
+// volume).
+// ---------------------------------------------------------------------------
+
+constexpr int kK4R = 8;              // driven rows per block, one warp each
+constexpr int kK4J = 8;              // columns per thread
+constexpr int kK4C = 32 * kK4J;      // columns per block
+constexpr int kK4AZ = 32;            // windows (angles x slices) staged per batch
+constexpr int kK4W = kK4C + 16;      // q window per angle, floats
+constexpr int kK4Threads = 32 * kK4R;
+constexpr int kK4Buf = kK4AZ * kK4W;  // one window buffer, floats
+constexpr int kK4Global = INT_MIN;   // base of an angle that is read from global memory
+static_assert(kK4Buf >= kK4C * (kK4R + 1), "the turned tile must fit a window buffer");
+static_assert(kK4Threads % kK4AZ == 0 && kK4AZ % 2 == 0 && kK4R % 4 == 0,
+              "thread and store layout");
+
+// start the copies of angle batch b's windows into `dst`, laid out
+// [slice of the block][angle of the batch][kK4W], and note each angle's
+// beta and window start u (base[i], or kK4Global) for the threads that sum
+template <int Z>
+__device__ __forceinline__ void k4_stage(const float* __restrict__ q,
+                                         const float* __restrict__ beta,
+                                         float* dst, float* sbeta, int* base,
+                                         int b, int A, int nz, int z0, int LU,
+                                         int r0, int c0, float cy, int U0,
+                                         int aligned) {
+  constexpr int kK4A = kK4AZ / Z;          // angles per batch
+  constexpr int kPer = kK4Threads / kK4A;  // threads that share an angle
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const int i = tid / kPer;
+  const int a = b * kK4A + i;
+  if (a >= A) return;
+  const float bt = beta[a];
+  int o_first, o_last;
+  float f;
+  row_shift(bt, r0, cy, U0, o_first, f);
+  row_shift(bt, r0 + kK4R - 1, cy, U0, o_last, f);
+  // taps u - 1 and u of u = o + col: from min o + c0 - 1 to max o + c0 + kK4C - 1
+  const int lo4 = (min(o_first, o_last) + c0 - 1) & ~3;
+  const bool fits = aligned && max(o_first, o_last) + c0 + kK4C - 1 - lo4 < kK4W;
+  if (tid % kPer == 0) {
+    sbeta[i] = bt;
+    base[i] = fits ? lo4 : kK4Global;
   }
-  vol[idx] = accumulate ? __fadd_rn(vol[idx], acc) : acc;
+  if (!fits) return;
+  for (int zz = 0; zz < Z; ++zz) {  // Z divides nz
+    const float* line = q + (static_cast<long long>(a) * nz + z0 + zz) * LU;
+    float* d = dst + (zz * kK4A + i) * kK4W;
+    for (int c = tid % kPer; c < kK4W / 4; c += kPer) {
+      const int u = lo4 + 4 * c;  // u % 4 == 0 and LU % 4 == 0
+      const bool ok = u >= 0 && u < LU;
+      cp_async16(d + 4 * c, ok ? line + u : q, ok ? 16 : 0);
+    }
+  }
+}
+
+// Thread (x, y) of a block: driven row r0 + y, columns c0 + x + 32 k for
+// k < kK4J, slices z0 .. z0 + Z - 1.  Dynamic shared memory: two window
+// buffers of kK4Buf floats (the first is reused to turn the tile of the
+// y-driven group), then beta and the window start per angle of a batch,
+// twice.
+template <int Z>
+__global__ void __launch_bounds__(kK4Threads)
+unshear_bp_kernel(const float* __restrict__ q, const float* __restrict__ beta,
+                  float* __restrict__ vol, int A, int nz, int ny, int nx,
+                  int LU, int U0, int swap, int accumulate, int aligned,
+                  int vol_aligned) {
+  extern __shared__ __align__(16) float k4_smem[];
+  constexpr int kK4A = kK4AZ / Z;  // angles per batch
+  float* sbeta = k4_smem + 2 * kK4Buf;
+  int* sbase = reinterpret_cast<int*>(sbeta + 2 * kK4A);
+  const int n_rows = swap ? nx : ny;
+  const int row_len = swap ? ny : nx;
+  const int c0 = blockIdx.x * kK4C;
+  const int r0 = blockIdx.y * kK4R;
+  const int z0 = blockIdx.z * Z;
+  const int row = r0 + threadIdx.y;
+  const float cy = 0.5f * static_cast<float>(n_rows - 1);
+  const int n_batches = (A + kK4A - 1) / kK4A;
+
+  float acc[Z][kK4J];
+#pragma unroll
+  for (int zz = 0; zz < Z; ++zz)
+#pragma unroll
+    for (int k = 0; k < kK4J; ++k) acc[zz][k] = 0.f;
+
+  if (n_batches > 0)
+    k4_stage<Z>(q, beta, k4_smem, sbeta, sbase, 0, A, nz, z0, LU, r0, c0, cy, U0, aligned);
+  cp_async_commit();
+  for (int b = 0; b < n_batches; ++b) {
+    const int parity = b & 1;
+    cp_async_wait_all();
+    __syncthreads();  // batch b has landed; batch b - 1's buffer is free
+    if (b + 1 < n_batches)
+      k4_stage<Z>(q, beta, k4_smem + (parity ^ 1) * kK4Buf, sbeta + (parity ^ 1) * kK4A,
+               sbase + (parity ^ 1) * kK4A, b + 1, A, nz, z0, LU, r0, c0, cy, U0, aligned);
+    cp_async_commit();
+    const int na = min(kK4A, A - b * kK4A);
+    const float* buf = k4_smem + parity * kK4Buf;
+    for (int i = 0; i < na; ++i) {
+      int o;
+      float f;
+      row_shift(sbeta[parity * kK4A + i], row, cy, U0, o, f);
+      const float g = __fsub_rn(1.f, f);
+      const int u = o + c0 + static_cast<int>(threadIdx.x);  // tap u of column c0 + x
+      const int lo4 = sbase[parity * kK4A + i];
+      if (lo4 != kK4Global) {
+        const float* w = buf + i * kK4W + (u - lo4);
+#pragma unroll
+        for (int zz = 0; zz < Z; ++zz)
+#pragma unroll
+          for (int k = 0; k < kK4J; ++k)
+            acc[zz][k] = __fadd_rn(acc[zz][k],
+                                   lerp_taps_g(g, f, w[zz * kK4A * kK4W + 32 * k],
+                                               w[zz * kK4A * kK4W + 32 * k - 1]));
+      } else {
+#pragma unroll
+        for (int zz = 0; zz < Z; ++zz) {
+          const float* line = q + (static_cast<long long>(b * kK4A + i) * nz + z0 + zz) * LU;
+#pragma unroll
+          for (int k = 0; k < kK4J; ++k) {
+            const int uk = u + 32 * k;
+            const float q0 = (uk >= 0 && uk < LU) ? line[uk] : 0.f;
+            const float q1 = (uk >= 1 && uk - 1 < LU) ? line[uk - 1] : 0.f;
+            acc[zz][k] = __fadd_rn(acc[zz][k], lerp_taps_g(g, f, q0, q1));
+          }
+        }
+      }
+    }
+  }
+
+  const long long slice = static_cast<long long>(ny) * nx;
+  if (!swap) {
+    if (row >= n_rows) return;
+#pragma unroll
+    for (int zz = 0; zz < Z; ++zz) {
+      float* out = vol + (z0 + zz) * slice + static_cast<long long>(row) * nx;
+#pragma unroll
+      for (int k = 0; k < kK4J; ++k) {
+        const int col = c0 + threadIdx.x + 32 * k;
+        if (col < row_len) out[col] = accumulate ? __fadd_rn(out[col], acc[zz][k]) : acc[zz][k];
+      }
+    }
+    return;
+  }
+  // y-driven: vol[z, col, row].  Turn the tile in shared memory, [col][row]
+  // with rows padded to kK4R + 1 floats, then thread t stores the kK4R rows
+  // of column c0 + t, which lie along memory.
+  float* turn = k4_smem;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+#pragma unroll
+  for (int zz = 0; zz < Z; ++zz) {
+    __syncthreads();  // the last batch, or the slice before, has been read
+#pragma unroll
+    for (int k = 0; k < kK4J; ++k)
+      turn[(threadIdx.x + 32 * k) * (kK4R + 1) + threadIdx.y] = acc[zz][k];
+    __syncthreads();
+    const int col = c0 + tid;
+    if (col >= row_len) continue;
+    float* out = vol + (z0 + zz) * slice + static_cast<long long>(col) * nx + r0;
+    const float* t = turn + tid * (kK4R + 1);
+    if (vol_aligned && r0 + kK4R <= n_rows) {  // nx % 4 == 0: 16-byte stores
+#pragma unroll
+      for (int i = 0; i < kK4R; i += 4) {
+        float4 v = make_float4(t[i], t[i + 1], t[i + 2], t[i + 3]);
+        float4* o4 = reinterpret_cast<float4*>(out + i);
+        if (accumulate) {
+          const float4 old = *o4;
+          v = make_float4(__fadd_rn(old.x, v.x), __fadd_rn(old.y, v.y),
+                          __fadd_rn(old.z, v.z), __fadd_rn(old.w, v.w));
+        }
+        *o4 = v;
+      }
+    } else {
+      for (int i = 0; i < kK4R && r0 + i < n_rows; ++i)
+        out[i] = accumulate ? __fadd_rn(out[i], t[i]) : t[i];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -424,10 +620,11 @@ __global__ void unshear_bp_kernel(const float* __restrict__ q,
 // differ by at most 8 for one angle (|beta| <= 1).
 //
 // What bounds them.  Per (row, angle, output) term both do two shared-
-// memory loads and five fp32 operations; K4 adds a global (L1) load pair
-// and the row shift o, f of the (row, angle) to every term and takes ~30
-// instructions per term.  The shift is the same for every output of
-// a row and an angle, so here a thread owns kPJ outputs 32 apart (a warp
+// memory loads and five fp32 operations; a thread that owns one output adds
+// a global (L1) load pair and the row shift o, f of the (row, angle) to
+// every term and takes ~30 instructions per term.  The shift is the same
+// for every output of a row and an angle, so here a thread owns kPJ outputs
+// 32 apart (a warp
 // covers 32 consecutive ones, so shared-memory reads are conflict-free),
 // computes the shift once and reuses it kPJ times.  The kernels are bound
 // by issue rate; device memory sees each row band or q window once per
@@ -690,10 +887,23 @@ int tt_resample_bp(const float* p, const float* alpha, const float* gamma,
 int tt_unshear_bp(const float* q, const float* beta, float* vol, int A,
                   int nz, int ny, int nx, int LU, int U0, int swap,
                   int accumulate, cudaStream_t stream) {
-  const long long n = static_cast<long long>(nz) * ny * nx;
-  if (n == 0) return 0;
-  unshear_bp_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-      q, beta, vol, A, nz, ny, nx, LU, U0, swap, accumulate);
+  if (static_cast<long long>(nz) * ny * nx == 0) return 0;
+  const int aligned =
+      LU % 4 == 0 && reinterpret_cast<unsigned long long>(q) % 16 == 0;
+  const int vol_aligned =
+      nx % 4 == 0 && reinterpret_cast<unsigned long long>(vol) % 16 == 0;
+  const int n_rows = swap ? nx : ny, row_len = swap ? ny : nx;
+  // two slices per block where that wastes none; the row shift serves both
+  const int Z = nz % 2 == 0 ? 2 : 1;
+  const size_t smem = sizeof(float) * (2 * kK4Buf + 2 * kK4AZ) + sizeof(int) * 2 * kK4AZ;
+  const dim3 grid((row_len + kK4C - 1) / kK4C, (n_rows + kK4R - 1) / kK4R, nz / Z);
+  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = Z == 2 ? unshear_bp_kernel<2> : unshear_bp_kernel<1>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, dim3(32, kK4R), smem, stream>>>(
+      q, beta, vol, A, nz, ny, nx, LU, U0, swap, accumulate, aligned, vol_aligned);
   return static_cast<int>(cudaGetLastError());
 }
 

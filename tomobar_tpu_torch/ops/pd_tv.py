@@ -8,6 +8,10 @@ as zero, and the constants are tau = 0.1 lambda, sigma = 1 / (L tau),
 theta = 1, lt = tau / lambda, all in float32.  Volumes are ``(nz, ny, nx)``;
 ``nz == 1`` is the 2D case with no z-term.  ``half_precision`` stores the
 duals as bfloat16 between iterations.
+
+The kernel runs several iterations per launch on tiles that it keeps in
+registers and shared memory (see ``csrc/pd_tv.cu``): a prox of n iterations
+is ``ceil(n / K)`` launches, the last one shorter where K does not divide n.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 
 from tomobar_tpu_torch import _build
 
-__all__ = ["pd_tv", "pd_tv_plain", "pd_tv_constants"]
+__all__ = ["pd_tv", "pd_tv_plain", "pd_tv_constants", "launch_plan"]
 
 
 def pd_tv_constants(regularisation_parameter: float, lipschitz_const: float):
@@ -92,6 +96,16 @@ def pd_tv_plain(
     return u
 
 
+def launch_plan(iterations: int, fuse: int):
+    """The launches of one prox: ``(iterations of the launch, first, last)``
+    for each.  ``first`` starts from u = data and zero duals without reading
+    either, ``last`` writes no duals."""
+    counts = [fuse] * (iterations // fuse)
+    if iterations % fuse:
+        counts.append(iterations % fuse)
+    return [(k, i == 0, i == len(counts) - 1) for i, k in enumerate(counts)]
+
+
 def pd_tv(
     data: torch.Tensor,
     regularisation_parameter: float,
@@ -102,7 +116,8 @@ def pd_tv(
     half_precision: bool = False,
 ) -> torch.Tensor:
     """PD-TV on a (nz, ny, nx) float32 volume: the plain version for a CPU
-    tensor, one launch of the CUDA kernel per iteration for a CUDA tensor."""
+    tensor, the CUDA kernel for a CUDA tensor, several iterations per launch
+    (:func:`launch_plan`)."""
     if data.device.type == "cpu":
         return pd_tv_plain(
             data, regularisation_parameter, iterations, methodTV, nonneg,
@@ -118,29 +133,34 @@ def pd_tv(
     sigma, tau, lt, theta = pd_tv_constants(regularisation_parameter, lipschitz_const)
     nz, ny, nx = data.shape
     dual_dtype = torch.bfloat16 if half_precision else torch.float32
-    n_duals = 3 if nz > 1 else 2
-    u = [data.clone(), torch.empty_like(data)]
-    ps = [
-        [torch.zeros(data.shape, dtype=dual_dtype, device=data.device) for _ in range(n_duals)],
-        [torch.empty(data.shape, dtype=dual_dtype, device=data.device) for _ in range(n_duals)],
-    ]
     lib = _build.library()
+    plan = launch_plan(iterations, lib.tt_pd_tv_fuse(nz))
+    if not plan:
+        return data.clone()
+    # launch i reads u[(i - 1) % 2] and the duals ps[(i - 1) % 2] and writes
+    # u[i % 2] and ps[i % 2]; separate buffers, because a tile's halo is its
+    # neighbours' output.  The first launch reads neither, the last writes
+    # no duals, so short plans need fewer buffers.
+    u = [torch.empty_like(data) for _ in range(min(len(plan), 2))]
+    ps = [
+        [torch.empty(data.shape, dtype=dual_dtype, device=data.device)
+         for _ in range(3 if nz > 1 else 2)]
+        for _ in range(min(len(plan) - 1, 2))
+    ]
     stream = torch.cuda.current_stream(data.device).cuda_stream
-    cur = 0
+    unused = data.data_ptr()  # stands in for a buffer the launch does not touch
     with torch.cuda.device(data.device):
-        for _ in range(iterations):
-            src, dst = ps[cur], ps[1 - cur]
-            # 2D: the third dual is never touched; pass the first as a stand-in
-            p3_src = src[2] if n_duals == 3 else src[0]
-            p3_dst = dst[2] if n_duals == 3 else dst[0]
-            err = lib.tt_pd_tv_iter(
-                data.data_ptr(), u[cur].data_ptr(), src[0].data_ptr(),
-                src[1].data_ptr(), p3_src.data_ptr(), u[1 - cur].data_ptr(),
-                dst[0].data_ptr(), dst[1].data_ptr(), p3_dst.data_ptr(),
+        for i, (k, first, last) in enumerate(plan):
+            src = [unused] * 3 if first else [p.data_ptr() for p in ps[(i - 1) % 2]]
+            dst = [unused] * 3 if last else [p.data_ptr() for p in ps[i % 2]]
+            # 2D: the third dual is never touched; the second stands in for it
+            err = lib.tt_pd_tv(
+                data.data_ptr(), unused if first else u[(i - 1) % 2].data_ptr(),
+                src[0], src[1], src[-1], u[i % 2].data_ptr(), dst[0], dst[1], dst[-1],
                 nz, ny, nx, sigma, tau, lt, theta, int(methodTV == 0),
-                int(bool(nonneg)), int(half_precision), stream,
+                int(bool(nonneg)), int(half_precision), k, int(first), int(last),
+                stream,
             )
             _build.check("PD", err)
             _build.launch_counts["PD"] += 1
-            cur = 1 - cur
-    return u[cur]
+    return u[(len(plan) - 1) % 2]

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the K1 and F kernels of tomobar_tpu_torch at their flagship shapes,
-for several source trees in one call, in turns, on one NVIDIA GPU.
+"""Time the K1, K4, PD and F kernels of tomobar_tpu_torch at their flagship
+shapes, for several source trees in one call, in turns, on one NVIDIA GPU.
 
 Two versions of a kernel can be compared only inside one call on one card,
 so this script takes any number of trees and runs them alternately::
@@ -12,15 +12,21 @@ so this script takes any number of trees and runs them alternately::
     # this checkout against variants of its kernels' compile-time constants
     python3 tools/torch_kernel_times.py --repo . --set kK1R=4,kK1W=512 --set kK1U=4
 
+    # only some kernels
+    python3 tools/torch_kernel_times.py --repo . --repo _archive/parent --kernels PD,K4
+
 A tree is timed through the package's public wrappers (``shear_fp``,
-``shear_fp_packed``, ``fft_axis2``), whose signatures do not change with
-the kernels behind them, in a process of its own (the kernel library is
+``shear_fp_packed``, ``unshear_bp``, ``unshear_bp_packed``, ``pd_tv``,
+``fft_axis2``), whose signatures do not change with the kernels behind
+them, in a process of its own (the kernel library is
 built from that tree's sources at first use).  ``--set`` copies this
 checkout's package into ``_archive/variants/`` with ``constexpr int NAME =
 value;`` lines of its CUDA sources replaced.
 
-Shapes: K1 on both driven groups of OS subset 0 of the 3D flagship (1801
-angles, OS10, 8 x 2560^2) and at one slice beside K1p; F at 4 x 5120 x 5120
+Shapes: K1 and K4 on both driven groups of OS subset 0 of the 3D flagship
+(1801 angles, OS10, 8 x 2560^2) and at one slice beside K1p and K4p; PD as
+one prox of 20 iterations (lambda 5e-4, L 12, iso, nonneg) on 8 x 2560^2
+and on 1 x 2560^2; F at 4 x 5120 x 5120
 (sign +1), 8192 x 7208 and 2560 x 7208 (sign -1), beside its plain version
 (``torch.fft`` with the complex pack and split) and ``torch.fft`` alone on
 an already complex tensor.  Times are means of CUDA-event timings in ms;
@@ -40,13 +46,14 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def worker(repo: str) -> dict:
+def worker(repo: str, kernels) -> dict:
     sys.path.insert(0, os.path.abspath(repo))
     import numpy as np
     import torch
 
     from tomobar_tpu_torch.geometry import Geometry
     from tomobar_tpu_torch.ops import fft_kernels as FK
+    from tomobar_tpu_torch.ops import pd_tv as PDT
     from tomobar_tpu_torch.ops import projector_kernels as K
     from tomobar_tpu_torch.ops.projector import Projector
 
@@ -69,19 +76,40 @@ def worker(repo: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     angles = np.linspace(0.0, np.pi, 1801, endpoint=False)
     vol = torch.randn((NZ, N, N), generator=gen, device=dev)
-    sub0 = Projector(Geometry(N, NZ, angles, 0.0, N, os_number=10))._sub_plans[0]
-    for g in sub0.groups(N, N, dev):
-        tag = "y" if g.swap else "x"
-        out[f"K1 {tag} 8 slices"] = ms(lambda: K.shear_fp(vol, g.beta, g.prm.U0, g.prm.LU, g.swap), 10)
     one = vol[:1].contiguous()
-    for g in sub0.groups(N, N, dev, True):
-        tag = "y" if g.swap else "x"
-        rows = one.transpose(1, 2).contiguous() if g.swap else one
-        out[f"K1 {tag} 1 slice"] = ms(lambda: K.shear_fp(one, g.beta, g.prm.U0, g.prm.LU, g.swap), 20)
-        out[f"K1p {tag} 1 slice"] = ms(lambda: K.shear_fp_packed(rows, g.beta, g.prm.U0, g.prm.LU), 20)
-    del vol
+    sub0 = Projector(Geometry(N, NZ, angles, 0.0, N, os_number=10))._sub_plans[0]
+    if "K1" in kernels:
+        for g in sub0.groups(N, N, dev):
+            tag = "y" if g.swap else "x"
+            out[f"K1 {tag} 8 slices"] = ms(lambda: K.shear_fp(vol, g.beta, g.prm.U0, g.prm.LU, g.swap), 10)
+        for g in sub0.groups(N, N, dev, True):
+            tag = "y" if g.swap else "x"
+            rows = one.transpose(1, 2).contiguous() if g.swap else one
+            out[f"K1 {tag} 1 slice"] = ms(lambda: K.shear_fp(one, g.beta, g.prm.U0, g.prm.LU, g.swap), 20)
+            out[f"K1p {tag} 1 slice"] = ms(lambda: K.shear_fp_packed(rows, g.beta, g.prm.U0, g.prm.LU), 20)
+    if "K4" in kernels:
+        for g in sub0.groups(N, N, dev):
+            tag = "y" if g.swap else "x"
+            q = torch.randn((g.prm.A, NZ, g.prm.LU), generator=gen, device=dev)
+            out[f"K4 {tag} 8 slices"] = ms(lambda: K.unshear_bp(q, g.beta, g.prm.U0, N, N, g.swap), 10)
+            out[f"K4 {tag} 8 slices, accumulate"] = ms(
+                lambda: K.unshear_bp(q, g.beta, g.prm.U0, N, N, g.swap, out=vol), 10)
+        for g in sub0.groups(N, N, dev, True):
+            tag = "y" if g.swap else "x"
+            q = torch.randn((g.prm.A, 1, g.prm.LU), generator=gen, device=dev)
+            out[f"K4 {tag} 1 slice"] = ms(lambda: K.unshear_bp(q, g.beta, g.prm.U0, N, N, g.swap), 20)
+            out[f"K4p {tag} 1 slice"] = ms(lambda: K.unshear_bp_packed(q, g.beta, g.prm.U0, N, g.swap), 20)
+        del q
+    if "PD" in kernels:
+        torch.abs_(vol)
+        out["PD 20 iterations 8 slices"] = ms(lambda: PDT.pd_tv(vol, 5e-4, 20, 0, 1, 12.0), 5)
+        out["PD 20 iterations 1 slice"] = ms(lambda: PDT.pd_tv(one, 5e-4, 20, 0, 1, 12.0), 20)
+        out["PD 1 iteration 8 slices"] = ms(lambda: PDT.pd_tv(vol, 5e-4, 1, 0, 1, 12.0), 10)
+    del vol, one
     rows = NZ * 1802 // 2
     for shape, sign in (((4, 2 * N, 2 * N), 1), ((8192, rows), -1), ((N, rows), -1)):
+        if "F" not in kernels:
+            break
         re_ = torch.randn(shape, generator=gen, device=dev)
         im_ = torch.randn(shape, generator=gen, device=dev)
         xc = torch.complex(re_, im_)
@@ -123,10 +151,11 @@ def main() -> int:
     ap.add_argument("--set", action="append", default=[], dest="sets", metavar="NAME=VALUE,...",
                     help="a variant of this checkout with constexpr ints replaced")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kernels", default="K1,K4,PD,F", help="comma-separated: K1, K4, PD, F")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print("RESULT " + json.dumps(worker(args.worker)))
+        print("RESULT " + json.dumps(worker(args.worker, args.kernels.split(","))))
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
@@ -134,7 +163,8 @@ def main() -> int:
     results = {name: [] for name, _ in trees}
     for rnd in range(args.rounds):
         for name, path in (trees if rnd % 2 == 0 else trees[::-1]):
-            run = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", path],
+            run = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", path,
+                                  "--kernels", args.kernels],
                                  capture_output=True, text=True)
             line = [x for x in run.stdout.splitlines() if x.startswith("RESULT ")]
             if run.returncode != 0 or not line:
@@ -144,7 +174,7 @@ def main() -> int:
     keys = list(next(iter(results.values()))[0])
     print("ms per call; one column per round: " + " | ".join(name for name, _ in trees))
     for k in keys:
-        print(f"{k:>28}: " + " | ".join(
+        print(f"{k:>32}: " + " | ".join(
             " ".join(f"{r[k]:8.3f}" for r in results[name]) for name, _ in trees))
     return 0
 
