@@ -36,23 +36,36 @@ Phases, in order; any failure raises and exits non-zero:
    subset 0, PD-TV for one prox of 20 iterations on the whole volume, and
    for one iteration), and one OS subset of the FISTA step by stage.
 7. the direct path: G (USFFT gridding) against its plain version at
-   n=512, 2 z-pairs, 360 angles with 0 and pi/2 (both driven groups), F
+   n=512, 2 z-pairs, 360 angles with 0 and pi/2 (both driven groups), at
+   n=500 (tiles that the grid does not fill) with 5 z-pairs (an odd count
+   above one block's four), for one angle and for angles beyond 360
+   degrees, two calls on the same input bit for bit equal; F
    (axis-(-2) FFT) at n = 2560, 5120, 8192 (its compile-time stage plans)
    and n = 3000 (the run-time plan) and both signs; FOURIER_INV and
    3D FBP at 256^2 x 4 x 90 on the CPU and on the GPU; then on phase 6's
    clean 1801 x 8 x 2560 sinogram: FOURIER_INV and FBP times after a
    warm-up call, G/F launch counts per path, both paths' time by stage,
    its correlation with a Ram-Lak FBP inside the inscribed circle, peak
-   memory, and G and F beside their plain versions at the flagship shapes.
+   memory, and G and F beside their plain versions at the flagship shapes
+   (G against a float64 plain sum, and twice for bit-equal grids).
 8. the 2D path: K1p/K4p (the packed nz = 1 pair) against their plain
    versions at N=512, 2D, 180 angles (scalar CoR 3.5 and a per-angle CoR
-   vector, both driven groups) and the pair's adjointness; 2D FBP and 2D
+   vector, both driven groups; K1p bit for bit against the plain sum in the
+   same runs of rows), K1p also at rows of 510 (not 16-byte aligned), at
+   200 x 520 and for 10 sparse angles, and the pair's adjointness; 2D FBP and 2D
    FISTA (OS5, LS, PD-TV 20) at 256^2 x 90 on the CPU and on the GPU; then
    one 2560^2 slice x 1801 angles: 2D FORWPROJ and FBP times, FISTA (OS10,
    LS, nonneg, PD-TV) for 1, 2 and 3 outer iterations with RMSE against
    the phantom, ADMM, SIRT, CGLS, Landweber and OSEM (residuals must
    fall), launch counts per path, peak memory, and K1p/K4p beside their
    plain versions and beside K1/K4 on the same input.
+9. the big stack: phase 6's clean sinogram repeated along z to 512 slices
+   on the device (9.4 GB): 3D FBP (every block of 8 slices must equal phase
+   7's 8-slice result bit for bit) and FOURIER_INV with default kwargs
+   (first 8 slices against phase 7's within 1e-6 rel L2), then one PD-TV
+   prox of 20 iterations on a 512 x 2560^2 volume that is constant along z
+   (13.4 GB) against the one-slice prox of the same slice (1e-5 of max); the
+   times, chunk counts and peak memory of each.
 
 The last three lines are the nvidia-smi line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.  A kernel's entry
@@ -199,9 +212,11 @@ class Errors:
         self.torch = torch
         self.abs = {k: 0.0 for k in KERNELS}
 
-    def compare(self, key: str, label: str, got, ref, tol: float = TOL_KERNEL):
+    def compare(self, key: str, label: str, got, ref, tol: float = TOL_KERNEL,
+                record: bool = True):
         """got/ref are tensors, or (re, im) pairs of tensors; tol 0 asks for
-        bit-for-bit equality."""
+        bit-for-bit equality.  ``record=False``: ``ref`` is not the kernel's
+        plain version, the error is checked but not kept."""
         self.torch.cuda.synchronize()
         if isinstance(got, tuple):
             got, ref = self.torch.stack(got), self.torch.stack(ref)
@@ -212,7 +227,8 @@ class Errors:
         rel = err / scale if scale > 0 else err
         print(f"  {key} {label}: max|kernel-plain| {err:.3e}, relative {rel:.3e} (tol {tol:g})")
         require(rel <= tol, f"{key} {label}: kernel disagrees with plain ({rel:.3e} > {tol:g})")
-        self.abs[key] = max(self.abs[key], err)
+        if record:
+            self.abs[key] = max(self.abs[key], err)
 
 
 def check_projector_kernels(torch, K, errs, geom, dev, seed: int) -> None:
@@ -386,6 +402,23 @@ def check_direct_kernels(torch, errs, dev) -> None:
         "G", "n=512, 2 z-pairs, 360 angles",
         UK.grid(g_re, g_im, 512, theta), UK.grid_plain(g_re, g_im, 512, theta),
     )
+    # tiles that the grid does not fill and an odd count of z-pairs above one
+    # block's four; one angle; angles beyond 360 degrees.  The plain sum is
+    # taken in float64 (index_add_ in float32 has an order of its own)
+    for n, pairs, th, label in (
+        (500, 5, -np.linspace(0.0, np.pi, 180, endpoint=False), "180 angles"),
+        (500, 1, np.array([-0.3]), "one angle"),
+        (256, 3, np.linspace(-0.2, 7.5, 100), "100 angles over 441 degrees"),
+    ):
+        g_re = torch.randn((pairs, th.shape[0], n), generator=gen, device=dev)
+        g_im = torch.randn((pairs, th.shape[0], n), generator=gen, device=dev)
+        got = UK.grid(g_re, g_im, n, th)
+        errs.compare("G", f"n={n}, {pairs} z-pairs, {label}, float64 plain", got,
+                     tuple(g.float() for g in UK.grid_plain(g_re.double(), g_im.double(), n, th)))
+        again = UK.grid(g_re, g_im, n, th)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"G n={n}, {label}: two calls differ")
+    print("  G: two calls on the same input gave bit-equal grids at each shape")
     for n in (2560, 5120, 8192, 3000):
         B, C = FK.best_split(n)
         re = torch.randn((2, n, 300), generator=gen, device=dev)
@@ -449,8 +482,9 @@ def fbp_by_stage(torch, rt, by_angle):
 
 
 def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
-    """7: the direct path; returns the G and F launches of its main run and
-    their launches per FOURIER_INV call."""
+    """7: the direct path; returns the G and F launches of its main run,
+    their launches per FOURIER_INV call, and the FOURIER_INV and FBP
+    results (what the big stack of phase 9 is held against)."""
     from tomobar_tpu_torch import RecToolsDIRCuPy
     from tomobar_tpu_torch.geometry import Geometry
     from tomobar_tpu_torch.ops import fft_kernels as FK
@@ -503,7 +537,7 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     print("[7] FBP (sinc) by stage (ms): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
     rel = rel_l2(torch, fbp_staged, fbp)
     require(rel <= TOL_KERNEL, f"staged FBP differs from the call: {rel:.3e}")
-    del fbp, fbp_staged
+    del fbp_staged
 
     ramlak = rt.FBP(by_angle, filter_type="ram-lak")
     yy, xx = np.mgrid[0:N, 0:N]
@@ -513,7 +547,7 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     print(f"[7] FOURIER_INV vs FBP(ram-lak) correlation inside the inscribed circle, "
           f"per slice: min {min(corr):.6f}, max {max(corr):.6f} (min {MIN_CORR})")
     require(min(corr) >= MIN_CORR, f"FOURIER_INV vs FBP correlation {min(corr):.4f} < {MIN_CORR}")
-    del fi, ramlak, fi_staged
+    del ramlak, fi_staged
 
     # ---- 7d. G and F beside their plain versions at the flagship shapes -----
     # G: one call on the spectra FOURIER_INV gives it.  About 1e4 polar
@@ -527,9 +561,13 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     theta = -np.asarray(angles, dtype=np.float64)
     sre, sim = spectra
     del spectra
-    errs.compare("G", f"flagship, {NZ // 2} z-pairs x {NA} x {N}, float64 plain",
-                 UK.grid(sre, sim, N, theta),
+    got = UK.grid(sre, sim, N, theta)
+    errs.compare("G", f"flagship, {NZ // 2} z-pairs x {NA} x {N}, float64 plain", got,
                  tuple(g.float() for g in UK.grid_plain(sre.double(), sim.double(), N, theta)))
+    require(all(torch.equal(a, b) for a, b in zip(got, UK.grid(sre, sim, N, theta))),
+            "G flagship: two calls differ")
+    print("[7] G flagship: two calls gave bit-equal grids")
+    del got
     measure("G", f"{NZ // 2} z-pairs x {NA} x {N}", lambda: UK.grid(sre, sim, N, theta),
             lambda: UK.grid_plain(sre, sim, N, theta), work_grid(NZ // 2, NA, N),
             reps=3, plain_reps=1, check=False)
@@ -553,7 +591,7 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     return {
         "G": launches["FOURIER_INV"].get("G", 0),
         "F": launches["FOURIER_INV"].get("F", 0) + launches["FBP (sinc)"].get("F", 0),
-    }, per_call
+    }, per_call, {"FOURIER_INV": fi, "FBP": fbp}
 
 
 def check_packed_kernels(torch, K, errs, geom, dev, seed: int) -> None:
@@ -568,8 +606,9 @@ def check_packed_kernels(torch, K, errs, geom, dev, seed: int) -> None:
         U0, LU, A = g.prm.U0, g.prm.LU, g.prm.A
         tag = f"{'y' if g.swap else 'x'}-driven, {A} angles"
         rows = vol.transpose(1, 2).contiguous() if g.swap else vol
-        errs.compare("K1p", tag, K.shear_fp_packed(rows, g.beta, U0, LU),
-                     K.shear_fp_packed_plain(rows, g.beta, U0, LU))
+        errs.compare("K1p", tag + f", {K.packed_splits(rows.shape[1], A)} runs of rows",
+                     K.shear_fp_packed(rows, g.beta, U0, LU),
+                     K.shear_fp_packed_plain(rows, g.beta, U0, LU), tol=0.0)
         q = torch.randn((A, 1, LU), generator=gen, device=dev)
         errs.compare("K4p", tag, K.unshear_bp_packed(q, g.beta, U0, n, g.swap),
                      K.unshear_bp_packed_plain(q, g.beta, U0, n, g.swap))
@@ -579,6 +618,31 @@ def check_packed_kernels(torch, K, errs, geom, dev, seed: int) -> None:
             K.unshear_bp_packed(q, g.beta, U0, n, g.swap, out=base.clone()),
             K.unshear_bp_packed_plain(q, g.beta, U0, n, g.swap, out=base.clone()),
         )
+
+
+def check_k1p_shapes(torch, K, errs, dev) -> None:
+    """K1p against its plain version (the same runs of rows), bit for bit:
+    rows that are not 16-byte aligned (read from global memory), ny != nx,
+    1, 2 and 5 runs, and 10 sparse angles (windows too wide to stage)."""
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops.projector import Projector
+
+    gen = torch.Generator(device=dev).manual_seed(83)
+    for ny, nx, n_angles in ((512, 510, 90), (200, 520, 90), (512, 512, 10), (1024, 1024, 10)):
+        n = max(ny, nx)
+        angles = np.linspace(0.0, np.pi, n_angles, endpoint=False)
+        vol = torch.randn((1, ny, nx), generator=gen, device=dev)
+        for g in Projector(Geometry(n, 1, angles, 3.5, n))._plan.groups(ny, nx, dev, True):
+            if not g.prm.packed:
+                continue
+            rows = vol.transpose(1, 2).contiguous() if g.swap else vol
+            for splits in (None, 1, 5):
+                runs = K.packed_splits(rows.shape[1], g.prm.A) if splits is None else splits
+                errs.compare(
+                    "K1p", f"{ny}x{nx}, {'y' if g.swap else 'x'}-driven, {g.prm.A} of "
+                           f"{n_angles} angles, {runs} runs of rows",
+                    K.shear_fp_packed(rows, g.beta, g.prm.U0, g.prm.LU, splits),
+                    K.shear_fp_packed_plain(rows, g.beta, g.prm.U0, g.prm.LU, splits), tol=0.0)
 
 
 def residual(torch, rt, x, b) -> float:
@@ -609,6 +673,8 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
         rel = abs(lhs - rhs) / abs(lhs)
         print(f"[8] adjointness of the nz=1 pair, {label}: {rel:.3e} (tol {TOL_ADJOINT:g})")
         require(rel <= TOL_ADJOINT, f"2D adjointness {rel:.3e} > {TOL_ADJOINT:g}")
+    print("[8] K1p at other row lengths, ny != nx, run counts and sparse angles, cor 3.5:")
+    check_k1p_shapes(torch, K, errs, dev)
 
     # ---- 8b. 2D FBP and FISTA on the CPU and on the card -------------------
     angles90 = np.linspace(0.0, np.pi, 90, endpoint=False)
@@ -775,13 +841,17 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
             def k4():
                 return K.unshear_bp(q, g.beta, U0, N, N, g.swap)
 
-            errs.compare("K1p", f"flagship, {label}, against K1", k1p(), k1())
+            # K1 sums the rows in one ascending run, K1p in runs added in
+            # order: two float32 sums of 2560 mostly same-signed terms, each
+            # within ~2560 eps / 2 = 7.6e-5 of the exact sum
+            errs.compare("K1p", f"flagship, {label}, against K1", k1p(), k1(), tol=1e-4,
+                         record=False)
             errs.compare("K4p", f"flagship, {label}, against K4", k4p(), k4())
             if tag == "OS subset 0":
-                measure("K1p", label, k1p, k1p_plain, work_shear(A, 1, N, N, LU))
+                measure("K1p", label, k1p, k1p_plain, work_shear(A, 1, N, N, LU), tol=0.0)
                 measure("K4p", label, k4p, k4p_plain, work_unshear(A, 1, N, LU), tol=0.0)
             else:
-                errs.compare("K1p", f"flagship, {label}", k1p(), k1p_plain())
+                errs.compare("K1p", f"flagship, {label}", k1p(), k1p_plain(), tol=0.0)
                 errs.compare("K4p", f"flagship, {label}", k4p(), k4p_plain())
                 print(f"[8] K1p shear_fp_packed, {label}: kernel {time_cuda(torch, k1p, 5):.3f} ms, "
                       f"plain {time_cuda(torch, k1p_plain, 1):.3f} ms")
@@ -791,6 +861,89 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
                   f"K4 at nz=1: {time_cuda(torch, k4, 5):.3f} ms")
     return {k: sum(launches[p].get(k, 0) for p in ("FORWPROJ", "FBP (sinc 1.1)", "FISTA"))
             for k in TWO_D}, per_call
+
+
+def big_stack(torch, dev, clean, angles, small) -> dict:
+    """9: a stack deeper than one launch can take (512 slices: the 2560^2
+    volume has 3.4e9 voxels, the sinogram 2.4e9 samples), through the public
+    entry points.  ``clean`` is phase 6's (8, angles, detX) sinogram, ``small``
+    phase 7's 8-slice FOURIER_INV and FBP results.  Returns the launches."""
+    from tomobar_tpu_torch import RecToolsDIRCuPy, _build
+    from tomobar_tpu_torch.ops import pd_tv as PDT
+    from tomobar_tpu_torch.ops import projector as P
+    from tomobar_tpu_torch.ops import usfft as US
+    from tomobar_tpu_torch.regularisers import PD_TV
+
+    NZ8, NA, N = clean.shape
+    REP = 64
+    NZ = NZ8 * REP
+    sino = clean.repeat(REP, 1, 1)  # made on the device, never on the host
+    rt = RecToolsDIRCuPy(N, 0, NZ, 0.0, angles, N, device=dev)
+    groups = rt.Atools._plan.groups(N, N, dev)
+    chunks = rt.Atools._plan._z_chunks(NZ, groups, N * N, NA * N)
+    print(f"[9] sinogram {NZ}x{NA}x{N}: {sino.numel() * 4 / 2**30:.2f} GiB, "
+          f"{sino.numel()} samples; volume {NZ * N * N} voxels (2^31 = {2**31}); "
+          f"projector z-chunks: {len(chunks)} of at most {chunks[0][1]} slices "
+          f"({P.CHUNK_BYTES / 2**30:.0f} GiB of u-lines)")
+    require(sino.numel() > 2**31 and NZ * N * N > 2**31, "the stack fits one launch")
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"[9] {label}: {start.elapsed_time(end):.1f} ms; peak device memory "
+              f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
+              f"{held / 2**30:.2f} GiB held before the call")
+        require(tuple(out.shape) == (NZ, N, N), f"{label}: shape {tuple(out.shape)}")
+        return out
+
+    _build.reset_launch_counts()
+    rec = run(f"3D FBP (sinc) {NA}x{NZ}x{N}", lambda: rt.FBP(sino.transpose(0, 1)))
+    for z0 in range(0, NZ, NZ8):
+        require(torch.equal(rec[z0 : z0 + NZ8], small["FBP"]),
+                f"FBP on {NZ} slices: slices {z0}..{z0 + NZ8 - 1} differ from the 8-slice result")
+    print(f"[9] FBP: every block of {NZ8} slices equals phase 7's {NZ8}-slice result bit for bit")
+    del rec
+    n_chunks = US._fourier_inv_memory_chunks(NZ, N, {}, dev)
+    rec = run(f"FOURIER_INV {NA}x{NZ}x{N}, default kwargs ({n_chunks} z-chunks from the free memory)",
+              lambda: rt.FOURIER_INV(sino))
+    require(bool(torch.isfinite(rec).all()), "FOURIER_INV on the big stack: non-finite result")
+    rel = rel_l2(torch, rec[:NZ8], small["FOURIER_INV"])
+    rel_last = rel_l2(torch, rec[-NZ8:], small["FOURIER_INV"])
+    print(f"[9] FOURIER_INV: first and last {NZ8} slices against phase 7's result, rel L2 "
+          f"{rel:.3e}, {rel_last:.3e} (tol 1e-6)")
+    require(max(rel, rel_last) <= 1e-6, f"FOURIER_INV on {NZ} slices differs: {rel:.3e}, {rel_last:.3e}")
+    del rec, sino
+
+    # PD-TV: a volume constant along z, so the z term vanishes and every
+    # slice must be the 2D prox of that slice
+    one = small["FBP"][:1].contiguous()
+    vol = one.expand(NZ, N, N).contiguous()
+    args = (5e-4, 20, 0, 1, 12.0)
+    from tomobar_tpu_torch.utils.tools import free_device_bytes
+
+    zc = PDT.z_chunks(NZ, N, N, 20, free_device_bytes(dev) // 2)
+    print(f"[9] PD-TV volume {NZ}x{N}x{N}: {vol.numel() * 4 / 2**30:.2f} GiB; {len(zc)} z-chunks of "
+          f"up to {max(h1 - h0 for _, _, h0, h1 in zc)} slices with their halo of 20")
+    out = run(f"PD-TV prox, 20 iterations, {NZ}x{N}x{N}", lambda: PD_TV(vol, *args))
+    ref = PD_TV(one, *args)
+    scale = float(ref.abs().max())
+    err = max(float((out[z0 : z0 + 32] - ref).abs().max()) for z0 in range(0, NZ, 32))
+    print(f"[9] PD-TV: max|slice - one-slice prox| {err:.3e}, relative {err / scale:.3e} (tol {TOL_KERNEL:g})")
+    require(bool(torch.isfinite(out).all()), "PD-TV on the big stack: non-finite result")
+    require(err <= TOL_KERNEL * scale, f"PD-TV on {NZ} slices differs from the one-slice prox")
+    launches = {k: v for k, v in _build.launch_counts.items() if v}
+    print(f"[9] launch counts of the phase: {json.dumps(launches)}")
+    for k in ("K3", "K4", "F", "G", "PD"):
+        require(launches.get(k, 0) > 0, f"kernel {k} was not launched by the big stack")
+    return launches
 
 
 def main() -> int:
@@ -1056,14 +1209,18 @@ def main() -> int:
     del x, recs, data, truth
 
     # ---- 7. the direct path ------------------------------------------------
-    for part, whole in zip(direct_path(torch, errs, measure, dev, clean, angles),
-                           (launches, per_call)):
+    *parts, small = direct_path(torch, errs, measure, dev, clean, angles)
+    for part, whole in zip(parts, (launches, per_call)):
         whole.update(part)
-    del clean
 
     # ---- 8. the 2D path ----------------------------------------------------
     for part, whole in zip(two_d_path(torch, K, errs, measure, dev), (launches, per_call)):
         whole.update(part)
+
+    # ---- 9. the big stack -------------------------------------------------
+    for k, v in big_stack(torch, dev, clean, angles, small).items():
+        launches[k] += v
+    del clean, small
 
     summary = {
         "kernels": [

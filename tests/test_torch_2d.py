@@ -122,7 +122,8 @@ def test_packed_stages_match_pallas(pallas_interpret, driven, cor):
 
 def test_packed_wrappers_are_the_plain_sums_on_the_cpu():
     """On CPU tensors the packed wrappers are K1/K4's sums at nz = 1, added
-    into ``out`` where given."""
+    into ``out`` where given (a slice this small takes K1p's rows in one
+    run, which is K1's sum bit for bit)."""
     geom = geometry_from_reference(_jax_geom(cor=1.5))
     gen = torch.Generator().manual_seed(22)
     vol = torch.randn((1, N, N), generator=gen)

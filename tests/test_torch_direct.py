@@ -232,3 +232,50 @@ def test_convert_takes_the_dir_geometry():
             assert getattr(got, field) == getattr(pg, field)
         np.testing.assert_array_equal(got.angles, pg.angles)
         np.testing.assert_array_equal(got.cor_horizontal, pg.cor_horizontal)
+
+
+def test_version_and_geom_detY_match_jax():
+    import tomobar_tpu
+
+    assert tomobar_tpu_torch.__version__ == tomobar_tpu.__version__
+    angles = np.linspace(0, np.pi, 8, endpoint=False)
+    for dim_v in (None, 0, 3):
+        port = RecToolsDIR(32, 0, dim_v, 0.0, angles, 32, device="cpu")
+        assert port.geom_detY is JaxDIRhost(32, 0, dim_v, 0.0, angles, 32).geom_detY
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"filter_type": "ram-lak"}])
+def test_fbp_3d_z_chunks_equal_unchunked(monkeypatch, jax_pallas, kwargs):
+    """3D FBP with the projector's byte budget lowered to one slice per
+    chunk equals the single-chunk result bit for bit, and the JAX package's
+    (interpret-mode Pallas projector) within the projector's tolerance."""
+    from tomobar_tpu_torch.ops import projector as P
+
+    n, nz = 40, 5
+    angles = np.linspace(0, np.pi, 20, endpoint=False)
+    _, sino = _phantom_sino(n, nz, angles, cor=1.0)
+    data = np.ascontiguousarray(np.swapaxes(sino, 0, 1))
+    rt = RecToolsDIRCuPy(n, 0, nz, 1.0, angles, n, device="cpu")
+    whole = rt.FBP(data, **kwargs)
+    monkeypatch.setattr(P, "CHUNK_BYTES", 1)
+    got = rt.FBP(data, **kwargs)
+    assert torch.equal(got, whole)
+    _close(got, JaxDIR(n, 0, nz, 1.0, angles, n).FBP(jnp.asarray(data), **kwargs), TOL_PROJ)
+
+
+def test_fourier_inv_chunk_model_on_the_cpu_is_the_jax_package_s():
+    """On the CPU the chunk count comes from ``mem_budget_gb`` (default 8)
+    and only when asked for, as in the JAX package; a chunked call equals
+    the unchunked one within the pipeline's tolerance."""
+    from tomobar_tpu_torch.ops import usfft as PU
+
+    for kw in ({}, {"min_mem_usage_ifft2": True}, {"min_mem_usage_filter": True, "mem_budget_gb": 1.0},
+               {"chunk_count": 3}):
+        assert PU._fourier_inv_memory_chunks(512, 2560, kw, torch.device("cpu")) == \
+            JU._fourier_inv_memory_chunks(512, 2560, kw)
+    angles = np.linspace(0, np.pi, 24, endpoint=False)
+    _, sino = _phantom_sino(32, 6, angles)
+    rt = RecToolsDIRCuPy(32, 0, 6, 0.0, angles, 32, device="cpu")
+    whole = rt.FOURIER_INV(sino)
+    _close(rt.FOURIER_INV(sino, chunk_count=3), whole.numpy(), 1e-6)
+    _close(rt.FOURIER_INV(sino[:5], chunk_count=2), rt.FOURIER_INV(sino[:5]).numpy(), 1e-6)

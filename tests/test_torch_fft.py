@@ -129,3 +129,21 @@ def test_fft_pairs_match_jax():
         JFR.ifft_pairs(JFR.jnp.asarray(re), JFR.jnp.asarray(im)),
     ):
         np.testing.assert_allclose(mine.numpy(), np.asarray(ref), rtol=0, atol=TOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 96), (1280, 64)])
+def test_fft2_pairs_match_jax(jax_fused, shape):
+    """``fft2_pairs``/``ifft2_pairs`` against the JAX package's (its axis-2
+    pass is the fused Pallas pass at 256 and 1280)."""
+    re, im = _pair(shape, 8)
+    for port_fn, jax_fn in ((PFR.fft2_pairs, JFR.fft2_pairs), (PFR.ifft2_pairs, JFR.ifft2_pairs)):
+        mine = port_fn(torch.from_numpy(re), torch.from_numpy(im))
+        ref = jax_fn(JFR.jnp.asarray(re), JFR.jnp.asarray(im))
+        scale = max(np.abs(np.asarray(r)).max() for r in ref)
+        for m, r in zip(mine, ref):
+            np.testing.assert_allclose(m.numpy(), np.asarray(r), rtol=0, atol=TOL * scale)
+    mine = PFR.fft2_pairs(torch.from_numpy(re))
+    ref = JFR.fft2_pairs(JFR.jnp.asarray(re))
+    for m, r in zip(mine, ref):
+        np.testing.assert_allclose(m.numpy(), np.asarray(r), rtol=0,
+                                   atol=TOL * np.abs(np.asarray(ref[0])).max())

@@ -71,3 +71,13 @@ def test_filter_sino_classic_matches_jax(ftype, prm, shape):
     ref = np.asarray(JF.filter_sino_classic(jnp.asarray(sino), ftype, prm, 0.9))
     got = PF.filter_sino_classic(torch.from_numpy(sino), ftype, prm, 0.9).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=TOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("ftype", ["shepp", "hann"])
+def test_calc_filter_tensor_equals_jax(ftype):
+    """The tensor-returning ``calc_filter`` of both packages: float32, the
+    same values bit for bit."""
+    got = PF.calc_filter(512, ftype, 0.8)
+    want = JF.calc_filter(512, ftype, 0.8)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -106,7 +106,10 @@ def k1_stage(slice_, dst, lo4, w4, b):
                 dst[i, 4 * c : 4 * c + 4] = 0.0
 
 
-def k1_block(rows, beta, s, bx, by, z, U0, LU, aligned, stats):
+def k1_block(rows, beta, s, bx, by, z, U0, LU, aligned, stats, bands=None):
+    """shear_fp_block(): one block of K1 (every band of slice z into
+    s[:, z]) or of K1p (the bands [bands[0], bands[1]) of the one slice
+    into the run's partial u-lines ``s``)."""
     slice_ = rows[z]
     n_rows, row_len = slice_.shape
     u0 = bx * K1_TILE
@@ -115,12 +118,13 @@ def k1_block(rows, beta, s, bx, by, z, U0, LU, aligned, stats):
         return  # a spare tile
     cy = f32(0.5) * f32(n_rows - 1)
     n_bands = (n_rows + K1_R - 1) // K1_R
-    bounds = [k1_band_bounds(beta, a_base, a_end, b, u0, cy, U0, row_len, aligned)
-              for b in range(n_bands)]
-    alive = [b for b in range(n_bands) if bounds[b][1] != 0]
+    band_lo, band_hi = bands or (0, n_bands)
+    bounds = {b: k1_band_bounds(beta, a_base, a_end, b, u0, cy, U0, row_len, aligned)
+              for b in range(band_lo, band_hi)}
+    alive = [b for b in range(band_lo, band_hi) if bounds[b][1] != 0]
     lanes = np.arange(32)[None, :] + 32 * np.arange(K1_U)[:, None]  # [k, x]
     acc = np.zeros((K1_A, K1_U, 32), dtype=f32)
-    stats["skipped"] += n_bands  # bands before the first and after the last live one
+    stats["skipped"] += band_hi - band_lo  # bands before the first and after the last live one
     if alive:
         b_first, b_last = alive[0], alive[-1]
         stats["skipped"] -= b_last - b_first + 1
@@ -256,6 +260,106 @@ def test_k1_wrapper_on_cpu_is_the_plain_version():
         t = torch.as_tensor(vol)
         assert torch.equal(PK.shear_fp(t, g.beta, g.prm.U0, g.prm.LU, g.swap),
                            PK.shear_fp_plain(t, g.beta, g.prm.U0, g.prm.LU, g.swap))
+
+
+# ---------------------------------------------------------------------------
+# K1p: csrc/projector.cu, shear_fp_packed_kernel + shear_fp_packed_sum_kernel
+# ---------------------------------------------------------------------------
+
+
+def k1p_emulated(rows, beta, U0, LU, splits):
+    """shear_fp_packed() on a CUDA tensor: K1's block on runs of whole bands
+    (blockIdx.z), then the runs' partial sums added in ascending order."""
+    _, n_rows, row_len = rows.shape
+    A = beta.shape[0]
+    aligned = row_len % 4 == 0
+    n_bands = (n_rows + K1_R - 1) // K1_R
+    per = (n_bands + splits - 1) // splits
+    part = np.full((splits, A, 1, LU), np.nan, dtype=f32)
+    stats = {"skipped": 0, "global": 0, "staged": 0}
+    for z in range(splits):
+        band_lo = min(z * per, n_bands)
+        bands = (band_lo, min(band_lo + per, n_bands))
+        for by in range((A + K1_A - 1) // K1_A + K1_SPLITS):
+            for bx in range((LU + K1_TILE - 1) // K1_TILE):
+                k1_block(rows, beta, part[z], bx, by, 0, U0, LU, aligned, stats, bands)
+    if splits == 1:
+        return part[0], stats
+    acc = part[0].copy()
+    for z in range(1, splits):
+        acc = acc + part[z]
+    return acc, stats
+
+
+def test_k1p_shares_k1s_block_shape():
+    """The emulation walks K1p with K1's constants: they must be equal."""
+    assert [cu_const("projector.cu", n) for n in ("kP1U", "kP1A", "kP1R", "kP1W")] == [
+        K1_U, K1_A, K1_R, K1_W]
+    assert cu_const("projector.cu", "kP1R") == PK.K1P_BAND
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+@pytest.mark.parametrize("group", ["x-driven", "y-driven"])
+@pytest.mark.parametrize("cor", [2.5, "per-angle"], ids=["scalar-cor", "per-angle-cor"])
+@pytest.mark.parametrize("ny,nx", [(40, 40), (38, 44), (42, 38)],
+                         ids=["rows%8==0", "rows%8!=0", "unaligned-rows"])
+def test_k1p_emulation_bit_exact(ny, nx, cor, group, splits):
+    """K1p's blocks and its second pass equal ``shear_fp_packed_plain`` with
+    the same number of runs bit for bit, over the cases of
+    ``test_k1_emulation_bit_exact`` at one slice; one run is K1's sum."""
+    vol, groups = k1_case(1, ny, nx, 24, cor, seed=ny + splits)
+    g = groups[0 if group == "x-driven" else 1]
+    rows = np.ascontiguousarray(vol.transpose(0, 2, 1) if g.swap else vol)
+    ref = PK.shear_fp_packed_plain(torch.as_tensor(rows), g.beta, g.prm.U0, g.prm.LU, splits).numpy()
+    got, stats = k1p_emulated(rows, g.prm.beta, g.prm.U0, g.prm.LU, splits)
+    assert np.array_equal(got, ref)
+    assert stats["skipped"] > 0
+    k1 = PK.shear_fp_plain(torch.as_tensor(vol), g.beta, g.prm.U0, g.prm.LU, g.swap).numpy()
+    if splits == 1:
+        assert np.array_equal(got, k1)
+    else:
+        assert np.abs(got - k1).max() <= 1e-6 * np.abs(k1).max()
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+def test_k1p_emulation_beta_jump_and_window_too_wide(splits):
+    """A driven group whose beta jumps between its two ends (angle tiles end
+    there) and a tile of sparse angles whose outer bands need a window wider
+    than the staged one (read from global memory), in runs."""
+    rng = np.random.default_rng(6)
+    n_rows, row_len = 800, 64
+    rows = rng.standard_normal((1, n_rows, row_len)).astype(f32)
+    beta = np.array([-0.9, -0.95, 0.9, 0.85, -1.0, -0.6, -0.2, 0.2, 0.6, 1.0])
+    theta = -np.arctan(beta)
+    prm = PK.driven_params(np.cos(theta), np.sin(theta), np.zeros_like(theta),
+                           row_len, n_rows, row_len, packed=True)
+    ref = PK.shear_fp_packed_plain(torch.as_tensor(rows), torch.as_tensor(prm.beta),
+                                   prm.U0, prm.LU, splits).numpy()
+    got, stats = k1p_emulated(rows, prm.beta, prm.U0, prm.LU, splits)
+    assert np.array_equal(got, ref)
+    assert stats["global"] > 0 and stats["staged"] > 0 and stats["skipped"] > 0
+
+
+@pytest.mark.parametrize("n_rows,n_angles,splits", [
+    (64, 90, 1), (248, 90, 1), (256, 90, 1), (512, 90, 2), (1024, 90, 4), (2560, 91, 8),
+    (2560, 256, 8), (2560, 257, 4), (2560, 901, 4), (4096, 900, 4), (512, 900, 2)])
+def test_k1p_splits_rule(n_rows, n_angles, splits):
+    assert PK.packed_splits(n_rows, n_angles) == splits
+
+
+def test_k1p_wrapper_on_cpu_is_the_plain_version():
+    rng = np.random.default_rng(7)
+    rows = torch.from_numpy(rng.standard_normal((1, 512, 40)).astype(f32))
+    theta = np.linspace(-0.7, 0.7, 5)
+    prm = PK.driven_params(np.cos(theta), np.sin(theta), np.zeros(5), 40, 512, 40, packed=True)
+    beta = torch.as_tensor(prm.beta)
+    assert PK.packed_splits(512, 5) == 2
+    got = PK.shear_fp_packed(rows, beta, prm.U0, prm.LU)
+    assert torch.equal(got, PK.shear_fp_packed_plain(rows, beta, prm.U0, prm.LU, 2))
+    one = PK.shear_fp_packed(rows, beta, prm.U0, prm.LU, splits=1)
+    assert torch.equal(one, PK.shear_fp_plain(rows, beta, prm.U0, prm.LU))
+    assert not torch.equal(got, one)
+    assert (got - one).abs().max() <= 1e-6 * one.abs().max()
 
 
 # ---------------------------------------------------------------------------
@@ -882,3 +986,235 @@ def test_pd_launch_plan(iterations, fuse, counts):
     assert [k for k, _, _ in plan] == counts
     assert [first for _, first, _ in plan] == [i == 0 for i in range(len(counts))]
     assert [last for _, _, last in plan] == [i == len(counts) - 1 for i in range(len(counts))]
+
+
+# ---------------------------------------------------------------------------
+# G: csrc/usfft_grid.cu, usfft_grid_kernel (the grid cell owns the sum)
+# ---------------------------------------------------------------------------
+
+from tomobar_tpu_torch.ops import usfft_kernels as UK  # noqa: E402
+
+G_TX, G_TY, G_PAIRS = (cu_const("usfft_grid.cu", n) for n in ("kTileX", "kTileY", "kPairs"))
+G_THREADS = G_TX * G_TY  # samples per batch, angles per round
+
+
+def g_rho_interval(c2, xa, xb):
+    """rho_interval() on float32 arrays of c2."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        a, b = f32(xa) / c2, f32(xb) / c2
+    lo, hi = np.fmin(a, b), np.fmax(a, b)
+    zero = c2 == 0
+    every = xa <= 0 <= xb
+    lo = np.where(zero, f32(-3.0e38) if every else f32(3.0e38), lo).astype(f32)
+    hi = np.where(zero, f32(3.0e38) if every else f32(-3.0e38), hi).astype(f32)
+    return lo, hi
+
+
+def g_sample_runs(cs, sn, n, m, cl, ch, rl, rh):
+    """sample_run() for an array of angles: (r_lo, count)."""
+    lo0, hi0 = g_rho_interval(f32(2) * cs, cl - m - 1, ch + m + 2)
+    lo1, hi1 = g_rho_interval(f32(-2) * sn, rl - m - 1, rh + m + 2)
+    half = f32(0.5) * f32(n)
+    lo = np.maximum(np.maximum(lo0, lo1), -half - f32(1))
+    hi = np.minimum(np.minimum(hi0, hi1), half + f32(1))
+    ok = lo <= hi
+    lo, hi = np.where(ok, lo, f32(0)), np.where(ok, hi, f32(0))
+    r_lo = np.maximum(np.floor(lo + half).astype(np.int64) - 1, 0)
+    r_hi = np.minimum(np.floor(hi + half).astype(np.int64) + 2, n)
+    return np.where(ok, r_lo, 0), np.where(ok, np.maximum(r_hi - r_lo, 0), 0)
+
+
+def g_tile(g_re, g_im, cos_t, sin_t, fre, fim, ty, tx, p0, n, prm, R, stats):
+    """grid_tile(): one block.  Sums in float64 (the index arithmetic is
+    what is emulated; the order of the float32 sum has its own test)."""
+    nz2, nproj, _ = g_re.shape
+    two_n, m = 2 * n, prm.m
+    i0 = tx * G_TX + np.arange(G_TX)
+    i1 = ty * G_TY + np.arange(G_TY)
+    valid = (i1 < two_n)[:, None] & (i0 < two_n)[None, :]
+    cl, ch = tx * G_TX - n, min(tx * G_TX + G_TX, two_n) - 1 - n
+    rl, rh = ty * G_TY - n, min(ty * G_TY + G_TY, two_n) - 1 - n
+    centre = cl < R and cl + G_TX > -R and rl < R and rl + G_TY > -R
+    stats["compensated" if centre else "plain"] += 1
+    live = [p0 + j < nz2 for j in range(G_PAIRS)]
+    acc = np.zeros((2 * G_PAIRS, G_TY, G_TX))
+    # two batch buffers; what was never staged is NaN / a huge corner
+    e0b = np.full((2, G_THREADS), 2**40, dtype=np.int64)
+    e1b = np.full((2, G_THREADS), 2**40, dtype=np.int64)
+    x0b = np.full((2, G_THREADS), np.nan, dtype=f32)
+    y0b = np.full((2, G_THREADS), np.nan, dtype=f32)
+    gb = np.full((2, 2 * G_PAIRS, G_THREADS), np.nan, dtype=f32)
+
+    def stage(buf, b, a_base, total, r_lo, offs):
+        i = b * G_THREADS + np.arange(G_THREADS)
+        ok = i < total
+        i = i[ok]
+        ang_l = np.searchsorted(offs, i, side="right") - 1  # last angle with offs <= i
+        assert (ang_l >= 0).all() and (ang_l < G_THREADS).all()
+        r = r_lo[ang_l] + (i - offs[ang_l])
+        ang = a_base + ang_l
+        assert (ang < nproj).all() and (r >= 0).all() and (r < n).all()
+        c = (r.astype(f32) - f32(0.5) * f32(n)) / f32(n)
+        x0 = np.minimum(c * cos_t[ang], prm.clamp)
+        y0 = np.minimum(-c * sin_t[ang], prm.clamp)
+        k = int(ok.sum())
+        e0b[buf, :k] = np.floor(f32(two_n) * x0).astype(np.int64) - m
+        e1b[buf, :k] = np.floor(f32(two_n) * y0).astype(np.int64) - m
+        x0b[buf, :k], y0b[buf, :k] = x0, y0
+        for j in range(G_PAIRS):
+            gb[buf, j, :k] = g_re[p0 + j, ang, r] if live[j] else 0
+            gb[buf, G_PAIRS + j, :k] = g_im[p0 + j, ang, r] if live[j] else 0
+        e0b[buf, k:], e1b[buf, k:] = -2**40, -2**40  # the dummy a late thread stages
+
+    for s1 in (0, 1, -1):
+        if (s1 > 0 and rl > -n + m - 1) or (s1 < 0 and rh < n - m):
+            continue
+        for s0 in (0, 1, -1):
+            if (s0 > 0 and cl > -n + m - 1) or (s0 < 0 and ch < n - m):
+                continue
+            stats["copies"] += (s0, s1) != (0, 0)
+            L0 = np.where(valid, (i0 - n + s0 * two_n)[None, :], 2**30)
+            L1 = np.where(valid, (i1 - n + s1 * two_n)[:, None], 2**30)
+            q0 = L0.astype(f32) / f32(two_n)
+            q1 = L1.astype(f32) / f32(two_n)
+            for a_base in range(0, nproj, G_THREADS):
+                na = min(G_THREADS, nproj - a_base)
+                r_lo = np.zeros(G_THREADS, dtype=np.int64)
+                count = np.zeros(G_THREADS, dtype=np.int64)
+                r_lo[:na], count[:na] = g_sample_runs(
+                    cos_t[a_base : a_base + na], sin_t[a_base : a_base + na], n, m,
+                    cl + s0 * two_n, ch + s0 * two_n, rl + s1 * two_n, rh + s1 * two_n)
+                offs = np.concatenate([[0], np.cumsum(count)])
+                total = int(offs[-1])
+                stats["staged"] += total
+                n_batches = -(-total // G_THREADS)
+                if n_batches:
+                    stage(0, 0, a_base, total, r_lo, offs)
+                for b in range(n_batches):
+                    if b + 1 < n_batches:
+                        stage((b + 1) & 1, b + 1, a_base, total, r_lo, offs)
+                    buf = b & 1
+                    cnt = min(G_THREADS, total - b * G_THREADS)
+                    e0, e1 = e0b[buf, :cnt], e1b[buf, :cnt]
+                    hit = ((L1[..., None] - e1 >= 0) & (L1[..., None] - e1 <= 2 * m)
+                           & (L0[..., None] - e0 >= 0) & (L0[..., None] - e0 <= 2 * m))
+                    stats["taps"] += int(hit.sum())
+                    w0 = q0[..., None] - x0b[buf, :cnt]
+                    w1 = q1[..., None] - y0b[buf, :cnt]
+                    w = prm.coeff0 * np.exp(prm.coeff1 * (w0 * w0 + w1 * w1))
+                    for j in range(2 * G_PAIRS):
+                        term = w.astype(np.float64) * gb[buf, j, :cnt]
+                        acc[j] += np.where(hit, term, 0.0).sum(axis=-1)
+    ys, xs = np.nonzero(valid)
+    for j in range(G_PAIRS):
+        if live[j]:
+            fre[p0 + j, i1[ys], i0[xs]] = acc[j][ys, xs]
+            fim[p0 + j, i1[ys], i0[xs]] = acc[G_PAIRS + j][ys, xs]
+
+
+def g_emulated(g_re, g_im, n, theta, R=UK.CENTRE_HALF_WIDTH):
+    """grid() on CUDA tensors, block by block, in the wrapper's tile order."""
+    prm = UK.grid_params(n)
+    nz2 = g_re.shape[0]
+    cos_t, sin_t = np.cos(theta).astype(f32), np.sin(theta).astype(f32)
+    fre = np.full((nz2, 2 * n, 2 * n), np.nan)
+    fim = np.full_like(fre, np.nan)
+    stats = {"taps": 0, "staged": 0, "copies": 0, "compensated": 0, "plain": 0}
+    order = UK.tile_order(n, G_TY, G_TX)
+    nt_x = -(-2 * n // G_TX)
+    assert sorted(order) == list(range(nt_x * -(-2 * n // G_TY)))
+    for p0 in range(0, nz2, G_PAIRS):
+        for tile in order:
+            g_tile(g_re, g_im, cos_t, sin_t, fre, fim, tile // nt_x, tile % nt_x, p0, n,
+                   prm, R, stats)
+    return fre, fim, stats
+
+
+G_ANGLES = {
+    "180": lambda: -np.linspace(0.0, np.pi, 36, endpoint=False),  # 0 and -pi/2 included
+    "360": lambda: -np.linspace(0.0, 2 * np.pi, 40, endpoint=False),
+    "one": lambda: np.array([-0.3]),
+    "over-360": lambda: np.linspace(-0.2, 7.5, 23),
+}
+
+
+@pytest.mark.parametrize("nz2", [1, 4, 5])
+@pytest.mark.parametrize("angles", list(G_ANGLES))
+@pytest.mark.parametrize("n", [32, 50, 64])
+def test_g_emulation_against_plain(n, angles, nz2):
+    """The tile-owner gridding equals the scatter ``grid_plain`` in float64
+    (1e-6 of max: the weights are float32 on both sides, the sums float64):
+    tiles that the grid does not fill (n = 50), footprints that wrap round
+    the rim (every n: a sample at c = -0.5 sits on the border), one angle,
+    angles beyond 360 degrees, more z-pairs than one block takes.  Every
+    sample's (2m+1)^2 taps are counted exactly once, so the per-angle runs
+    are supersets and no wrap-around copy counts twice."""
+    theta = G_ANGLES[angles]()
+    rng = np.random.default_rng(n + nz2)
+    g_re = rng.standard_normal((nz2, theta.shape[0], n)).astype(f32)
+    g_im = rng.standard_normal((nz2, theta.shape[0], n)).astype(f32)
+    want = UK.grid_plain(torch.from_numpy(g_re).double(), torch.from_numpy(g_im).double(), n, theta)
+    fre, fim, stats = g_emulated(g_re, g_im, n, theta, R=8)
+    m = UK.grid_params(n).m
+    assert stats["taps"] == -(-nz2 // G_PAIRS) * theta.shape[0] * n * (2 * m + 1) ** 2
+    assert stats["copies"] > 0 and stats["compensated"] > 0
+    assert stats["plain"] > 0 or 2 * n <= 2 * G_TX
+    scale = max(float(want[0].abs().max()), float(want[1].abs().max()))
+    for got, ref in ((fre, want[0]), (fim, want[1])):
+        assert np.isfinite(got).all()  # every cell stored, nothing unstaged read
+        assert np.abs(got - ref.numpy()).max() <= 1e-6 * scale
+
+
+def test_g_runs_are_tight():
+    """Far from the centre a tile stages a small multiple of the samples
+    whose footprints meet it, not whole lines."""
+    n = 64
+    theta = -np.linspace(0.0, np.pi, 90, endpoint=False)
+    g = np.ones((1, 90, n), dtype=f32)
+    _, _, stats = g_emulated(g, g, n, theta)
+    m = UK.grid_params(n).m
+    tiles = (2 * n // G_TX) * (2 * n // G_TY)
+    assert stats["staged"] < 0.6 * tiles * 90 * n
+    assert stats["taps"] == 90 * n * (2 * m + 1) ** 2
+
+
+def test_g_centre_sum_needs_compensation():
+    """The centre cell's sum in the kernel's order (ascending angle, then
+    r), in float32: Kahan's compensation stays within 1e-6 of the float64
+    sum where the plain running sum of same-signed terms drifts."""
+    n, nproj = 64, 1801
+    prm = UK.grid_params(n)
+    theta = -np.linspace(0.0, np.pi, nproj, endpoint=False)
+    x0, y0, ell0, ell1 = UK._sample_positions(n, theta, prm.clamp)
+    hit = (np.abs(ell0) <= prm.m) & (np.abs(ell1) <= prm.m)  # footprints over cell l = (0, 0)
+    w = prm.coeff0 * np.exp(prm.coeff1 * ((f32(0) - x0) ** 2 + (f32(0) - y0) ** 2))
+    g = (1.0 + 0.1 * np.random.default_rng(0).standard_normal(w.shape)).astype(f32)
+    terms = (g * w)[hit].astype(f32)  # row-major: ascending angle, then r
+    assert terms.shape[0] > 4 * nproj
+    exact = terms.astype(np.float64).sum()
+    s = c = f32(0)
+    for t in terms:
+        y = f32(t - c)
+        tot = f32(s + y)
+        c = f32(f32(tot - s) - y)
+        s = tot
+    assert abs(float(s) - exact) <= 1e-6 * abs(exact)
+
+
+def test_g_wrapper_on_cpu_is_the_plain_version():
+    theta = -np.linspace(0.0, np.pi, 12, endpoint=False)
+    rng = np.random.default_rng(2)
+    g_re, g_im = (torch.from_numpy(rng.standard_normal((2, 12, 32)).astype(f32)) for _ in range(2))
+    for got, ref in zip(UK.grid(g_re, g_im, 32, theta), UK.grid_plain(g_re, g_im, 32, theta)):
+        assert torch.equal(got, ref)
+
+
+def test_g_source_has_no_atomics():
+    import os
+
+    import tomobar_tpu_torch
+
+    path = os.path.join(os.path.dirname(tomobar_tpu_torch.__file__), "csrc", "usfft_grid.cu")
+    with open(path) as fh:
+        code = [ln.split("//")[0] for ln in fh]
+    assert not any("atomic" in ln for ln in code)

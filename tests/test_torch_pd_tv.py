@@ -96,3 +96,56 @@ def test_cpu_pd_tv_launches_no_kernel():
     _build.reset_launch_counts()
     PD_TV(torch.from_numpy(_vol(2, seed=11)), LAM, 2)
     assert _build.launch_counts["PD"] == 0
+
+
+# ---------------------------------------------------------------------------
+# z-chunks with a halo: a deep stack in bounded memory, the same result
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("half", [False, True], ids=["f32-duals", "bf16-duals"])
+@pytest.mark.parametrize("mtv,nn", [(0, 1), (1, 0)])
+@pytest.mark.parametrize("nz", [5, 20, 41])
+def test_pd_tv_z_chunks_equal_unchunked(monkeypatch, nz, mtv, nn, half):
+    """With the byte budget lowered to 16 slices (and to 3, where a chunk
+    keeps one slice), PD_TV on nz slices equals the single-chunk result bit
+    for bit: a chunk runs with a halo of the iteration count on each side
+    and keeps only its own slices."""
+    from tomobar_tpu_torch.ops import pd_tv as P
+
+    iters = 6
+    rng = np.random.default_rng(nz)
+    v = torch.from_numpy(rng.standard_normal((nz, 12, 20)).astype(np.float32))
+    args = (LAM, iters, mtv, nn, LC, half)
+    whole = PD_TV(v, *args)
+    assert len(P.z_chunks(nz, 12, 20, iters, P.CHUNK_BYTES)) == 1
+    for deep in (16, 3):
+        monkeypatch.setattr(P, "CHUNK_BYTES", 32 * 12 * 20 * deep)
+        chunks = P.z_chunks(nz, 12, 20, iters, P.CHUNK_BYTES)
+        assert len(chunks) == (1 if deep >= nz else -(-nz // max(deep - 2 * iters, 1)))
+        assert [c[:2] for c in chunks][0][0] == 0 and chunks[-1][1] == nz
+        assert all(h1 - h0 <= max(deep, 1 + 2 * iters) for _, _, h0, h1 in chunks)
+        assert torch.equal(PD_TV(v, *args), whole)
+
+
+def test_pd_tv_element_cap_cuts_chunks(monkeypatch):
+    """The element cap is a second limit on a chunk, never an error."""
+    from tomobar_tpu_torch.ops import pd_tv as P
+
+    v = torch.from_numpy(_vol(9))
+    whole = PD_TV(v, LAM, 3, 0, 1, LC)
+    monkeypatch.setattr(P, "MAX_ELEMENTS", 16 * 128 * 8)
+    assert len(P.z_chunks(9, 16, 128, 3, P.CHUNK_BYTES)) == 5
+    assert torch.equal(PD_TV(v, LAM, 3, 0, 1, LC), whole)
+
+
+def test_pd_tv_z_chunks_match_xla(monkeypatch):
+    """The chunked port against the JAX package's XLA PD_TV."""
+    from tomobar_tpu_torch.ops import pd_tv as P
+
+    v = _vol(12)
+    monkeypatch.setattr(P, "CHUNK_BYTES", 32 * 16 * 128 * 10)
+    assert len(P.z_chunks(12, 16, 128, 4, P.CHUNK_BYTES)) == 6
+    port = PD_TV(torch.from_numpy(v), LAM, 4, 0, 1, LC).numpy()
+    xla = np.asarray(jax_PD_TV(jnp.asarray(v), LAM, 4, 0, 1, LC))
+    np.testing.assert_allclose(port, xla, rtol=2e-5, atol=2e-6)

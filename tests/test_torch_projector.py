@@ -243,3 +243,88 @@ def test_cpu_tensors_launch_no_kernel():
     vol = torch.randn((NZ, N, N), generator=torch.Generator().manual_seed(6))
     radon_bp(radon_fp(vol, g), g)
     assert all(v == 0 for v in _build.launch_counts.values())
+
+
+# ---------------------------------------------------------------------------
+# (f) z-chunks: any nz in bounded memory, bit for bit the unchunked result
+# ---------------------------------------------------------------------------
+
+
+def _vcor(n_ang):
+    return np.stack(
+        [np.linspace(-1.5, 1.5, n_ang), np.linspace(-0.7, 1.3, n_ang)], axis=1
+    )
+
+
+@pytest.mark.parametrize("limit", ["bytes", "elements"])
+@pytest.mark.parametrize("vertical", [False, True], ids=["no-vcor", "vcor"])
+@pytest.mark.parametrize("op", ["fp", "bp"])
+def test_z_chunks_equal_unchunked(monkeypatch, op, vertical, limit):
+    """FP and BP with the byte budget or the element cap lowered, so that a
+    7-slice stack goes through in chunks of 2 (and a last one of 1), equal
+    the single-chunk result bit for bit, with and without a vertical CoR
+    (whose z shift runs on the whole sinogram, in runs of angles)."""
+    from tomobar_tpu_torch.ops import projector as P
+
+    nz, n_ang = 7, 18
+    g = _port_geom(cor=_vcor(n_ang) if vertical else 1.5, n_ang=n_ang, nz=nz)
+    rng = np.random.default_rng(40)
+    x = torch.from_numpy(
+        rng.standard_normal((nz, N, N) if op == "fp" else (nz, n_ang, N)).astype(np.float32)
+    )
+    run = radon_fp if op == "fp" else radon_bp
+    whole = run(x, g)
+    plan = P._Plan(g)
+    groups = plan.groups(N, N, x.device)
+    lines = max(gr.prm.A * gr.prm.LU for gr in groups)
+    assert plan._z_chunks(nz, groups, N * N, n_ang * N) == [(0, nz)]
+    if limit == "bytes":
+        monkeypatch.setattr(P, "CHUNK_BYTES", 4 * lines * 2)
+    else:
+        monkeypatch.setattr(P, "MAX_ELEMENTS", 2 * lines + 1)
+    assert plan._z_chunks(nz, groups, N * N, n_ang * N) == [(0, 2), (2, 4), (4, 6), (6, 7)]
+    assert torch.equal(run(x, g), whole)
+
+
+def test_z_chunks_match_pallas(pallas_interpret, monkeypatch):
+    """The chunked port against the JAX package's interpret-mode Pallas
+    projector (which cuts z into chunks of its own)."""
+    from tomobar_tpu_torch.ops import projector as P
+
+    nz = 5
+    jg = _jax_geom(cor=2.0, nz=nz)
+    g = geometry_from_reference(jg)
+    monkeypatch.setattr(P, "CHUNK_BYTES", 1)  # one slice per chunk
+    assert len(P._Plan(g)._z_chunks(nz, P._Plan(g).groups(N, N, torch.device("cpu")))) == nz
+    rng = np.random.default_rng(41)
+    vol = rng.standard_normal((nz, N, N)).astype(np.float32)
+    sino = rng.standard_normal((nz, N_ANG, N)).astype(np.float32)
+    _close(radon_fp(torch.from_numpy(vol), g), PP.radon_fp_pallas(jnp.asarray(vol), jg))
+    _close(radon_bp(torch.from_numpy(sino), g), PP.radon_bp_pallas(jnp.asarray(sino), jg))
+
+
+def test_no_element_cap_error_from_the_public_pair(monkeypatch):
+    """With the element cap far below the stack's size the public pair still
+    runs (one slice per chunk): the cap is never an error of an entry point."""
+    from tomobar_tpu_torch.ops import projector as P
+
+    g = _port_geom(nz=3, n_ang=8)
+    monkeypatch.setattr(P, "MAX_ELEMENTS", 10)
+    vol = torch.ones((3, N, N))
+    assert radon_bp(radon_fp(vol, g), g).shape == (3, N, N)
+
+
+def test_unshear_bp_overwrites_or_adds():
+    """``accumulate=False`` writes over ``out`` (the first group of a
+    chunk), the default adds into it (the second)."""
+    from tomobar_tpu_torch.ops.projector import _Plan
+
+    g = _Plan(_port_geom()).groups(N, N, torch.device("cpu"))[0]
+    rng = np.random.default_rng(42)
+    q = torch.from_numpy(rng.standard_normal((g.prm.A, NZ, g.prm.LU)).astype(np.float32))
+    new = K.unshear_bp(q, g.beta, g.prm.U0, N, N)
+    out = torch.full((NZ, N, N), 3.0)
+    assert K.unshear_bp(q, g.beta, g.prm.U0, N, N, out=out, accumulate=False) is out
+    assert torch.equal(out, new)
+    K.unshear_bp(q, g.beta, g.prm.U0, N, N, out=out)
+    assert torch.equal(out, new + new)

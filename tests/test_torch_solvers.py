@@ -168,3 +168,22 @@ def test_sirt_cgls_landweber_reduce_the_residual():
             res.append(float(torch.linalg.vector_norm(
                 radon_fp(x[0], rt._geometry) - torch.from_numpy(sino))))
         assert res[1] < res[0], (method, res)
+
+
+@pytest.mark.parametrize("os_number", [1, 4])
+def test_ax_atb_match_jax(jax_pallas, os_number):
+    """``_Ax``/``_Atb`` of the iterative class (whole operator and one OS
+    subset) against the JAX package's on its interpret-mode Pallas pair."""
+    nz = 2
+    rng = np.random.default_rng(50)
+    x = rng.standard_normal((nz, N, N)).astype(np.float32)
+    port = RecToolsIRCuPy(N, 0, nz, 0.0, _angles(), N, OS_number=os_number, device="cpu")
+    ref = JaxIR(N, 0, nz, 0.0, _angles(), N, OS_number=os_number)
+    for sub, os in ((1, False),) + (((2, True),) if os_number > 1 else ()):
+        ax = port._Ax(torch.from_numpy(x), sub, os)
+        want = np.asarray(ref._Ax(jnp.asarray(x), sub, os))
+        assert ax.shape == want.shape
+        np.testing.assert_allclose(ax.numpy(), want, rtol=0, atol=5e-5 * np.abs(want).max())
+        atb = port._Atb(ax, sub, os)
+        want = np.asarray(ref._Atb(jnp.asarray(ax.numpy()), sub, os))
+        np.testing.assert_allclose(atb.numpy(), want, rtol=0, atol=5e-5 * np.abs(want).max())

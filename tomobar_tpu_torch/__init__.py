@@ -27,6 +27,8 @@ from tomobar_tpu_torch.models.iterative import RecToolsIRTPU
 RecToolsDIRCuPy = RecToolsDIRTPU
 RecToolsIRCuPy = RecToolsIRTPU
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Geometry",
     "RecToolsDIR",

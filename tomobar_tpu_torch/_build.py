@@ -50,11 +50,13 @@ _SIGNATURES = {
     "tt_resample_fp": [_P] * 4 + [_I] * 5 + [_P],
     "tt_resample_bp": [_P] * 4 + [_I] * 5 + [_P],
     "tt_unshear_bp": [_P] * 3 + [_I] * 8 + [_P],
-    "tt_shear_fp_packed": [_P] * 3 + [_I] * 5 + [_P],
+    "tt_shear_fp_packed": [_P] * 4 + [_I] * 6 + [_P],
+    "tt_shear_fp_packed_band": [],
     "tt_unshear_bp_packed": [_P] * 3 + [_I] * 6 + [_P],
     "tt_pd_tv": [_P] * 9 + [_I] * 3 + [_F] * 4 + [_I] * 6 + [_P],
     "tt_pd_tv_fuse": [_I],
-    "tt_usfft_grid": [_P] * 8 + [_I] * 5 + [_F] * 3 + [_P],
+    "tt_usfft_grid": [_P] * 7 + [_I] * 5 + [_F] * 3 + [_P],
+    "tt_usfft_grid_tile": [_I],
     "tt_fft_axis2": [_P] * 5 + [_I] * 4 + [_P, _I, _P],
 }
 

@@ -92,7 +92,7 @@ __device__ __forceinline__ float lerp_taps_g(float g, float f, float a, float b)
 // and the four roundings, and spreads the rest over many terms.  What is
 // left is the rate of shared-memory loads (two 4-byte loads per term):
 //
-//  * A block owns kK1Tile = 256 consecutive u of up to kK1A = 8 consecutive
+//  * A block owns 32 kK1U = 256 consecutive u of up to kK1A = 8 consecutive
 //    angles (one warp each) of one slice.  A thread owns kK1U = 8 u-values
 //    32 apart (a warp covers 32 consecutive ones, so its shared-memory
 //    reads are conflict-free): the row shift is computed once for 8 terms,
@@ -128,18 +128,29 @@ __device__ __forceinline__ float lerp_taps_g(float g, float f, float a, float b)
 // ---------------------------------------------------------------------------
 
 constexpr int kK1U = 8;             // u-values per thread
-constexpr int kK1Tile = 32 * kK1U;  // u per block
 constexpr int kK1A = 8;             // angles per block, one warp each
 constexpr int kK1R = 8;             // driven rows per band
 constexpr int kK1W = 768;           // staged window, floats per row
-constexpr int kK1Buf = kK1R * kK1W; // one window buffer, floats
-constexpr int kK1Threads = 32 * kK1A;
 constexpr float kK1Jump = 0.5f;     // |beta[a] - beta[a-1]| that ends an angle tile
 constexpr int kK1Splits = 8;        // such jumps honoured per group
 
+// The shape of a block: K1 and K1p run one schedule at their own sizes.
+template <int U_, int A_, int R_, int W_>
+struct ShearShape {
+  static constexpr int kU = U_;           // u-values per thread
+  static constexpr int kTile = 32 * U_;   // u per block
+  static constexpr int kA = A_;           // angles per block, one warp each
+  static constexpr int kR = R_;           // driven rows per band
+  static constexpr int kW = W_;           // staged window, floats per row
+  static constexpr int kBuf = R_ * W_;    // one window buffer, floats
+  static constexpr int kThreads = 32 * A_;
+};
+using K1Shape = ShearShape<kK1U, kK1A, kK1R, kK1W>;
+
 // Angle range [a0, a1) of angle tile `tile`: the angles are cut at the first
-// kK1Splits jumps of beta, each run into tiles of kK1A.  Every lane of the
+// kK1Splits jumps of beta, each run into tiles of kA.  Every lane of the
 // calling warp returns the same range; a tile past the last one is empty.
+template <int kA>
 __device__ __forceinline__ void k1_angle_tile(const float* __restrict__ beta,
                                               int A, int tile, int& a0, int& a1) {
   int start = 0, tiles_before = 0, splits = 0;
@@ -151,18 +162,18 @@ __device__ __forceinline__ void k1_angle_tile(const float* __restrict__ beta,
       const int j = base + __ffs(m) - 1;  // the run [start, j) ends here
       m &= m - 1;
       ++splits;
-      const int n_tiles = (j - start + kK1A - 1) / kK1A;
+      const int n_tiles = (j - start + kA - 1) / kA;
       if (tile < tiles_before + n_tiles) {
-        a0 = start + (tile - tiles_before) * kK1A;
-        a1 = min(a0 + kK1A, j);
+        a0 = start + (tile - tiles_before) * kA;
+        a1 = min(a0 + kA, j);
         return;
       }
       tiles_before += n_tiles;
       start = j;
     }
   }
-  a0 = min(start + (tile - tiles_before) * kK1A, A);  // the last run [start, A)
-  a1 = min(a0 + kK1A, A);
+  a0 = min(start + (tile - tiles_before) * kA, A);  // the last run [start, A)
+  a1 = min(a0 + kA, A);
 }
 
 // 16-byte asynchronous copy to shared memory; bytes beyond `bytes` (0 or
@@ -182,7 +193,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // start the copies of band b's window (lo4, w4 from `bounds`) of slice
-// `slice` (n_rows x row_len) into `dst`, laid out [row of the band][kK1W]
+// `slice` (n_rows x row_len) into `dst`, laid out [row of the band][kW]
+template <class S>
 __device__ __forceinline__ void k1_stage(const float* __restrict__ slice,
                                          float* dst, const int* bounds, int b,
                                          int n_rows, int row_len) {
@@ -190,11 +202,11 @@ __device__ __forceinline__ void k1_stage(const float* __restrict__ slice,
   if (w4 <= 0) return;  // skipped, or summed from global memory
   const int lo4 = bounds[2 * b];
   const int n_chunks = w4 >> 2;
-  for (int i = threadIdx.y; i < kK1R; i += kK1A) {
-    const int r = b * kK1R + i;
+  for (int i = threadIdx.y; i < S::kR; i += S::kA) {
+    const int r = b * S::kR + i;
     const bool row_ok = r < n_rows;
     const float* src = slice + static_cast<long long>(row_ok ? r : 0) * row_len;
-    float* d = dst + i * kK1W;
+    float* d = dst + i * S::kW;
     for (int c = threadIdx.x; c < n_chunks; c += 32) {
       const int j = lo4 + 4 * c;  // j % 4 == 0 and row_len % 4 == 0
       const bool ok = row_ok && j >= 0 && j < row_len;
@@ -203,31 +215,30 @@ __device__ __forceinline__ void k1_stage(const float* __restrict__ slice,
   }
 }
 
-// Thread (x, y) of a block: angle a_base + y of angle tile blockIdx.y,
-// slice blockIdx.z, u = u0 + x + 32 k for k < kK1U.  Dynamic shared memory:
-// two window buffers of kK1Buf floats, then (lo4, w4) per band.
-__global__ void __launch_bounds__(kK1Threads, 4)
-shear_fp_kernel(const float* __restrict__ rows, const float* __restrict__ beta,
-                float* __restrict__ s, int A, int nz, int n_rows, int row_len,
-                int U0, int LU, int aligned) {
-  extern __shared__ __align__(16) float k1_smem[];
-  int* bounds = reinterpret_cast<int*>(k1_smem + 2 * kK1Buf);
+// One block of the shear sum: thread (x, y) is angle a_base + y of angle
+// tile `tile`, u = u0 + x + 32 k for k < kU, and sums the bands
+// [band_lo, band_hi) of `slice` (n_rows x row_len) in ascending order into
+// out[a * out_stride + u].  `smem`: two window buffers of kBuf floats, then
+// (lo4, w4) per band of the slice.
+template <class S>
+__device__ __forceinline__ void shear_fp_block(
+    const float* __restrict__ slice, const float* __restrict__ beta,
+    float* __restrict__ out, long long out_stride, int A, int tile, int n_rows,
+    int row_len, int U0, int LU, int aligned, int band_lo, int band_hi, float* smem) {
+  int* bounds = reinterpret_cast<int*>(smem + 2 * S::kBuf);
   __shared__ int live_bands[2];  // first and last band with a tap in the rows
   __shared__ int angle_tile[2];
   const int tid = threadIdx.y * 32 + threadIdx.x;
-  const int u0 = blockIdx.x * kK1Tile;
-  const int z = blockIdx.z;
-  const float* slice = rows + static_cast<long long>(z) * n_rows * row_len;
+  const int u0 = blockIdx.x * S::kTile;
   const float cy = 0.5f * static_cast<float>(n_rows - 1);
-  const int n_bands = (n_rows + kK1R - 1) / kK1R;
   if (threadIdx.y == 0) {
     int a0, a1;
-    k1_angle_tile(beta, A, blockIdx.y, a0, a1);
+    k1_angle_tile<S::kA>(beta, A, tile, a0, a1);
     if (threadIdx.x == 0) {
       angle_tile[0] = a0;
       angle_tile[1] = a1;
-      live_bands[0] = n_bands;
-      live_bands[1] = -1;
+      live_bands[0] = band_hi;
+      live_bands[1] = band_lo - 1;
     }
   }
   __syncthreads();
@@ -238,29 +249,29 @@ shear_fp_kernel(const float* __restrict__ rows, const float* __restrict__ beta,
   const bool live = a < a_end;
   const float b_a = live ? beta[a] : 0.f;
 
-  for (int b = tid; b < n_bands; b += kK1Threads) {
+  for (int b = band_lo + tid; b < band_hi; b += S::kThreads) {
     int omin = INT_MAX, omax = INT_MIN;
     for (int k = a_base; k < a_end; ++k) {
       const float bk = beta[k];
       int o;
       float f;
-      row_shift(bk, b * kK1R, cy, U0, o, f);
+      row_shift(bk, b * S::kR, cy, U0, o, f);
       omin = min(omin, o);
       omax = max(omax, o);
-      row_shift(bk, b * kK1R + kK1R - 1, cy, U0, o, f);
+      row_shift(bk, b * S::kR + S::kR - 1, cy, U0, o, f);
       omin = min(omin, o);
       omax = max(omax, o);
     }
-    const int lo = u0 - omax;            // lowest tap j = u - o of the block
-    const int hi = u0 + kK1Tile - omin;  // highest tap j + 1
-    const int lo4 = lo & ~3;             // floor to a multiple of 4
-    int w4 = (hi - lo4 + 4) & ~3;        // hi - lo4 + 1 rounded up to 4
+    const int lo = u0 - omax;             // lowest tap j = u - o of the block
+    const int hi = u0 + S::kTile - omin;  // highest tap j + 1
+    const int lo4 = lo & ~3;              // floor to a multiple of 4
+    int w4 = (hi - lo4 + 4) & ~3;         // hi - lo4 + 1 rounded up to 4
     if (hi < 0 || lo >= row_len) {
       w4 = 0;  // every tap is outside the rows
     } else {
       atomicMin(&live_bands[0], b);
       atomicMax(&live_bands[1], b);
-      if (!aligned || w4 > kK1W) w4 = -1;
+      if (!aligned || w4 > S::kW) w4 = -1;
     }
     bounds[2 * b] = lo4;
     bounds[2 * b + 1] = w4;
@@ -269,37 +280,37 @@ shear_fp_kernel(const float* __restrict__ rows, const float* __restrict__ beta,
   const int b_first = live_bands[0];
   const int b_last = live_bands[1];
 
-  float acc[kK1U];
+  float acc[S::kU];
 #pragma unroll
-  for (int k = 0; k < kK1U; ++k) acc[k] = 0.f;
+  for (int k = 0; k < S::kU; ++k) acc[k] = 0.f;
 
-  if (b_first <= b_last) k1_stage(slice, k1_smem, bounds, b_first, n_rows, row_len);
+  if (b_first <= b_last) k1_stage<S>(slice, smem, bounds, b_first, n_rows, row_len);
   cp_async_commit();
   for (int b = b_first; b <= b_last; ++b) {
     const int parity = (b - b_first) & 1;
     cp_async_wait_all();
     __syncthreads();  // band b has landed; band b - 1's buffer is free
     if (b < b_last)
-      k1_stage(slice, k1_smem + (parity ^ 1) * kK1Buf, bounds, b + 1, n_rows, row_len);
+      k1_stage<S>(slice, smem + (parity ^ 1) * S::kBuf, bounds, b + 1, n_rows, row_len);
     cp_async_commit();
     const int w4 = bounds[2 * b + 1];
     if (w4 == 0 || !live) continue;
-    const int r0 = b * kK1R;
+    const int r0 = b * S::kR;
     if (w4 > 0) {
-      const float* win = k1_smem + parity * kK1Buf + (u0 + threadIdx.x - bounds[2 * b]);
+      const float* win = smem + parity * S::kBuf + (u0 + threadIdx.x - bounds[2 * b]);
 #pragma unroll
-      for (int i = 0; i < kK1R; ++i) {
+      for (int i = 0; i < S::kR; ++i) {
         int o;
         float f;
         row_shift(b_a, r0 + i, cy, U0, o, f);
         const float g = __fsub_rn(1.f, f);
-        const float* w = win + i * kK1W - o;  // tap j of u0 + x
+        const float* w = win + i * S::kW - o;  // tap j of u0 + x
 #pragma unroll
-        for (int k = 0; k < kK1U; ++k)
+        for (int k = 0; k < S::kU; ++k)
           acc[k] = __fadd_rn(acc[k], lerp_taps_g(g, f, w[32 * k], w[32 * k + 1]));
       }
     } else {
-      for (int i = 0; i < kK1R && r0 + i < n_rows; ++i) {
+      for (int i = 0; i < S::kR && r0 + i < n_rows; ++i) {
         int o;
         float f;
         row_shift(b_a, r0 + i, cy, U0, o, f);
@@ -307,7 +318,7 @@ shear_fp_kernel(const float* __restrict__ rows, const float* __restrict__ beta,
         const int j0 = u0 + threadIdx.x - o;
         const float* row = slice + static_cast<long long>(r0 + i) * row_len;
 #pragma unroll
-        for (int k = 0; k < kK1U; ++k) {
+        for (int k = 0; k < S::kU; ++k) {
           const int j = j0 + 32 * k;
           // j = -1 is the f * row[0] tap (the Pallas kernel's wrapped roll lane)
           const float v0 = (j >= 0 && j < row_len) ? row[j] : 0.f;
@@ -319,11 +330,25 @@ shear_fp_kernel(const float* __restrict__ rows, const float* __restrict__ beta,
   }
   if (live) {
 #pragma unroll
-    for (int k = 0; k < kK1U; ++k) {
+    for (int k = 0; k < S::kU; ++k) {
       const int u = u0 + threadIdx.x + 32 * k;
-      if (u < LU) s[(static_cast<long long>(a) * nz + z) * LU + u] = acc[k];
+      if (u < LU) out[a * out_stride + u] = acc[k];
     }
   }
+}
+
+// K1: angle tile blockIdx.y, slice blockIdx.z, every band of the slice.
+__global__ void __launch_bounds__(K1Shape::kThreads, 4)
+shear_fp_kernel(const float* __restrict__ rows, const float* __restrict__ beta,
+                float* __restrict__ s, int A, int nz, int n_rows, int row_len,
+                int U0, int LU, int aligned) {
+  extern __shared__ __align__(16) float k1_smem[];
+  const int z = blockIdx.z;
+  const int n_bands = (n_rows + K1Shape::kR - 1) / K1Shape::kR;
+  shear_fp_block<K1Shape>(rows + static_cast<long long>(z) * n_rows * row_len, beta,
+                          s + static_cast<long long>(z) * LU,
+                          static_cast<long long>(nz) * LU, A, blockIdx.y, n_rows,
+                          row_len, U0, LU, aligned, 0, n_bands, k1_smem);
 }
 
 // K2: p[z, a, t] = |alpha| (hat(pos - i) s[i] + hat(pos - i - 1) s[i+1]),
@@ -610,148 +635,96 @@ unshear_bp_kernel(const float* __restrict__ q, const float* __restrict__ beta,
 // ---------------------------------------------------------------------------
 // K1p / K4p: the pair for one slice (nz == 1), driven rows in bands of 8.
 //
-// They compute K1's and K4's sums at nz == 1 in the same order and with the
-// same rounding, so each equals its plain version (and K1/K4) bit for bit
-// and the nz == 1 pair stays an exact adjoint with K2/K3.  The Pallas
+// They compute K1's and K4's sums at nz == 1 with the same rounding of every
+// term, so the nz == 1 pair stays an exact adjoint with K2/K3.  The Pallas
 // kernels packed 8 image rows onto the sublanes and placed each row's two
 // taps with a one-hot MXU matmul and a strided lane roll (K4p on d-rolled
 // copies of q); none of that has a counterpart here.  What carries over is
 // the unit of work: a band of 8 consecutive driven rows, whose shifts o_r
 // differ by at most 8 for one angle (|beta| <= 1).
 //
-// What bounds them.  Per (row, angle, output) term both do two shared-
-// memory loads and five fp32 operations; a thread that owns one output adds
-// a global (L1) load pair and the row shift o, f of the (row, angle) to
-// every term and takes ~30 instructions per term.  The shift is the same
-// for every output of a row and an angle, so here a thread owns kPJ outputs
-// 32 apart (a warp
-// covers 32 consecutive ones, so shared-memory reads are conflict-free),
-// computes the shift once and reuses it kPJ times.  The kernels are bound
-// by issue rate; device memory sees each row band or q window once per
-// block.
+// K1p.  What bounds it: one slice gives K1's schedule too few blocks.  A
+// group of 91 angles x 2560 rows x LU 5888 is 23 u-tiles x 12 angle tiles =
+// 276 blocks of 8 warps, and fewer than half of them have any live band
+// (LU is over twice a row's live taps): ~4 warps per scheduler on 132 SMs,
+// each waiting for its own shared-memory loads, so K1 at nz == 1 runs at a
+// quarter of the instruction rate it reaches on 8 slices.  A block per (u-tile,
+// angle tile) cannot be made smaller without losing what makes K1 fast
+// (one row shift for a thread's 8 terms, a staged window shared by 8
+// angles), so K1p keeps K1's block (shear_fp_block: zero-filling 16-byte
+// cp.async into two window buffers, one barrier per band, the live bands
+// and their windows worked out before the loop, angle tiles that end at
+// the jumps of beta) and takes its parallelism from the rows:
 //
-// K1p: a block owns 32 * kPJ u-values of 8 consecutive angles (one warp
-// per angle).  Per band it stages in shared memory, with coalesced loads,
-// the part of the 8 rows its taps can touch (j from u0 - max o to
-// u0 + 32 kPJ - min o over its angles), and every tap is read from there.
-// Neighbouring angles shift a row by similar amounts, so the window is a
-// little wider than the u-tile; where it would exceed kP1W (a block that
-// straddles the two ends of the x-driven group) that band is read from
-// global memory with the same arithmetic.  Bands whose window misses the
-// rows add nothing and are skipped.  The caller passes the y-driven group
-// the transposed slice, so its loads coalesce like the x-driven group's
-// (as K1's wrapper gives K1 the transposed volume).
+//  * The driven rows are cut into `splits` runs of whole bands
+//    (blockIdx.z); a block sums one run in ascending order into a partial
+//    u-line, partial[split][a][u].
+//  * A second pass adds the partials in ascending order of the run,
+//    s = ((p0 + p1) + p2) + ..., one thread per output.  The order is fixed,
+//    so the result is the same from run to run; it is the plain version's
+//    order when that is given the same `splits` (one run is K1's single
+//    ascending sum, bit for bit).
+//  * The caller passes the y-driven group the transposed slice, so its
+//    loads lie along memory like the x-driven group's (as K1's wrapper
+//    gives K1 the transposed volume).
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W a group of 91 angles of one 2560^2
+// slice takes 0.52 ms in 1 run, 0.49 in 2, 0.33 in 4, 0.29 in 8 and 0.28 in
+// 16 (the kernel before it, 128 u per block staged with scalar loads:
+// 1.20 ms); a group of 901 angles 2.38 / 2.25 / 2.22 / 2.28 / 2.43 ms (4.75
+// before): there the card is full without runs.  The wrapper takes up to 8
+// runs for at most 256 angles, 4 above.  A 512-float window with 6 blocks
+// per SM took 0.39 ms against 0.33 (4 runs).
 //
 // K4p: a block owns an 8-row x 32 kPJ4-column tile, one warp per row.
 // For one angle the tile's 8 rows read one window of q of width
 // 32 kPJ4 + 9 (the Pallas kernel's ten diagonals); the block stages the
 // windows of kP4A angles in shared memory with coalesced loads, then sums
-// from there.  A step whose shifts would not fit the window (|beta| > 1,
-// never from the driven-group split) reads q from global memory instead.
-// The y-driven group writes vol[col, row] (K4's index mapping), so no
-// transpose is made.
+// from there.  A thread owns kPJ4 columns 32 apart and computes the row
+// shift of a (row, angle) once for all of them.  A step whose shifts would
+// not fit the window (|beta| > 1, never from the driven-group split) reads
+// q from global memory instead.  The y-driven group writes vol[col, row]
+// (K4's index mapping), so no transpose is made.  K4p equals its plain
+// version (and K4) bit for bit.
 
-constexpr int kPJ = 4;              // K1p: u-values per thread
-constexpr int kP1U = 32 * kPJ;      // K1p: u per block
-constexpr int kP1W = 1024;          // K1p: staged row window, floats per row
+constexpr int kP1U = 8;             // K1p: u-values per thread
+constexpr int kP1A = 8;             // K1p: angles per block, one warp each
+constexpr int kP1R = 8;             // K1p: driven rows per band
+constexpr int kP1W = 768;           // K1p: staged row window, floats per row
+constexpr int kP1Blocks = 4;        // K1p: blocks an SM is asked to hold
+using K1pShape = ShearShape<kP1U, kP1A, kP1R, kP1W>;
 constexpr int kPJ4 = 8;             // K4p: columns per thread
 constexpr int kP4C = 32 * kPJ4;     // K4p: columns per block
 constexpr int kP4A = 32;            // K4p: angles staged per step
 constexpr int kP4W = kP4C + 16;     // K4p: q window per angle (kP4C + 9 used)
 
-// K1p: s[a, u] = sum_r (1-f) row_r[u-o] + f row_r[u-o+1] over the n_rows
-// rows of one slice, rows[r * row_len + c] (n_rows % 8 == 0).  Thread
-// (x, y) of a block: angle a_base + y, u = u0 + x + 32 k for k < kPJ.
-__global__ void __launch_bounds__(256)
+// K1p, first pass: part[split, a, u] = sum over the rows of run `split`
+// (bands [split * bands_per_split, ...)) of (1-f) row_r[u-o] + f row_r[u-o+1]
+// on one slice rows[r * row_len + c].  Angle tile blockIdx.y, run blockIdx.z.
+__global__ void __launch_bounds__(K1pShape::kThreads, kP1Blocks)
 shear_fp_packed_kernel(const float* __restrict__ rows,
-                       const float* __restrict__ beta, float* __restrict__ s,
-                       int A, int n_rows, int row_len, int U0, int LU) {
-  __shared__ float win[8][kP1W];
-  // window bounds [lo, hi] of j per band, double-buffered by band parity
-  // so that a band which is skipped needs no second barrier
-  __shared__ int bounds[2][2];
-  const int tid = threadIdx.y * 32 + threadIdx.x;
-  const int u0 = blockIdx.x * kP1U;
-  const int a_base = blockIdx.y * 8;
-  const int a = a_base + threadIdx.y;
-  const bool live = a < A;
-  const float b = live ? beta[a] : 0.f;
-  const float cy = 0.5f * static_cast<float>(n_rows - 1);
-  float acc[kPJ];
-#pragma unroll
-  for (int k = 0; k < kPJ; ++k) acc[k] = 0.f;
-  for (int r0 = 0; r0 < n_rows; r0 += 8) {
-    int* bd = bounds[(r0 >> 3) & 1];
-    if (tid < 32) {
-      // lanes 2k, 2k+1: angle a_base + k at the band's first and last row;
-      // o_r is monotone in r, so they bound the band's shifts
-      const int k = tid >> 1;
-      int omin = INT_MAX, omax = INT_MIN;
-      if (k < 8 && a_base + k < A) {
-        int o;
-        float f;
-        row_shift(beta[a_base + k], r0 + (tid & 1) * 7, cy, U0, o, f);
-        omin = omax = o;
-      }
-      for (int m = 16; m > 0; m >>= 1) {
-        omin = min(omin, __shfl_xor_sync(0xffffffffu, omin, m));
-        omax = max(omax, __shfl_xor_sync(0xffffffffu, omax, m));
-      }
-      if (tid == 0) {
-        bd[0] = u0 - omax;         // lowest tap j = u - o of the block
-        bd[1] = u0 + kP1U - omin;  // highest tap j + 1
-      }
-    }
-    __syncthreads();
-    const int lo = bd[0], hi = bd[1];
-    if (hi < 0 || lo >= row_len) continue;  // every tap is outside the rows
-    const int width = hi - lo + 1;
-    const bool staged = width <= kP1W;
-    const float* band = rows + static_cast<long long>(r0) * row_len;
-    if (staged) {
-      for (int k = tid; k < 8 * width; k += 256) {
-        const int i = k / width;
-        const int c = k - i * width;
-        const int j = lo + c;
-        win[i][c] = (j >= 0 && j < row_len)
-                        ? band[static_cast<long long>(i) * row_len + j]
-                        : 0.f;
-      }
-    }
-    __syncthreads();
-    if (live) {
-      for (int i = 0; i < 8; ++i) {
-        int o;
-        float f;
-        row_shift(b, r0 + i, cy, U0, o, f);
-        const int j0 = u0 + threadIdx.x - o;  // tap j of u0 + x
-        if (staged) {
-          const float* w = &win[i][j0 - lo];
-#pragma unroll
-          for (int k = 0; k < kPJ; ++k)
-            acc[k] = __fadd_rn(acc[k], lerp_taps(f, w[32 * k], w[32 * k + 1]));
-        } else {
-          // j = -1 is the f * row[0] tap, as in K1
-          const float* row = band + static_cast<long long>(i) * row_len;
-#pragma unroll
-          for (int k = 0; k < kPJ; ++k) {
-            const int j = j0 + 32 * k;
-            const float v0 = (j >= 0 && j < row_len) ? row[j] : 0.f;
-            const float v1 = (j + 1 >= 0 && j + 1 < row_len) ? row[j + 1] : 0.f;
-            acc[k] = __fadd_rn(acc[k], lerp_taps(f, v0, v1));
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (live) {
-#pragma unroll
-    for (int k = 0; k < kPJ; ++k) {
-      const int u = u0 + threadIdx.x + 32 * k;
-      if (u < LU) s[static_cast<long long>(a) * LU + u] = acc[k];
-    }
-  }
+                       const float* __restrict__ beta, float* __restrict__ part,
+                       int A, int n_rows, int row_len, int U0, int LU,
+                       int aligned, int bands_per_split) {
+  extern __shared__ __align__(16) float k1p_smem[];
+  const int n_bands = (n_rows + K1pShape::kR - 1) / K1pShape::kR;
+  const int band_lo = min(static_cast<int>(blockIdx.z) * bands_per_split, n_bands);
+  const int band_hi = min(band_lo + bands_per_split, n_bands);
+  shear_fp_block<K1pShape>(rows, beta,
+                           part + static_cast<long long>(blockIdx.z) * A * LU, LU, A,
+                           blockIdx.y, n_rows, row_len, U0, LU, aligned, band_lo,
+                           band_hi, k1p_smem);
+}
+
+// K1p, second pass: s[i] = ((part[0][i] + part[1][i]) + ...) over the runs
+__global__ void shear_fp_packed_sum_kernel(const float* __restrict__ part,
+                                           float* __restrict__ s, long long n,
+                                           int splits) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  float acc = part[i];
+  for (int k = 1; k < splits; ++k) acc = __fadd_rn(acc, part[k * n + i]);
+  s[i] = acc;
 }
 
 // K4p: vol[row, col] (+)= sum_a (1-f) q[a, o+col] + f q[a, o+col-1] on one
@@ -845,21 +818,22 @@ const char* tt_error_string(int err) {
 
 int tt_shear_fp(const float* rows, const float* beta, float* s, int A, int nz,
                 int n_rows, int row_len, int U0, int LU, cudaStream_t stream) {
+  using S = K1Shape;
   if (A == 0 || nz == 0 || LU == 0) return 0;
   const int aligned =
       row_len % 4 == 0 && reinterpret_cast<unsigned long long>(rows) % 16 == 0;
-  const int n_bands = (n_rows + kK1R - 1) / kK1R;
+  const int n_bands = (n_rows + S::kR - 1) / S::kR;
   const size_t smem =
-      sizeof(float) * 2 * kK1Buf + sizeof(int) * 2 * static_cast<size_t>(n_bands);
+      sizeof(float) * 2 * S::kBuf + sizeof(int) * 2 * static_cast<size_t>(n_bands);
   // angle tiles: kK1Splits spare ones for the jumps of beta
-  const dim3 grid((LU + kK1Tile - 1) / kK1Tile, (A + kK1A - 1) / kK1A + kK1Splits, nz);
+  const dim3 grid((LU + S::kTile - 1) / S::kTile, (A + S::kA - 1) / S::kA + kK1Splits, nz);
   if (smem > 227 * 1024 || grid.y > 65535 || grid.z > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       shear_fp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  shear_fp_kernel<<<grid, dim3(32, kK1A), smem, stream>>>(
+  shear_fp_kernel<<<grid, dim3(32, S::kA), smem, stream>>>(
       rows, beta, s, A, nz, n_rows, row_len, U0, LU, aligned);
   return static_cast<int>(cudaGetLastError());
 }
@@ -907,13 +881,37 @@ int tt_unshear_bp(const float* q, const float* beta, float* vol, int A,
   return static_cast<int>(cudaGetLastError());
 }
 
-int tt_shear_fp_packed(const float* rows, const float* beta, float* s, int A,
-                       int n_rows, int row_len, int U0, int LU,
-                       cudaStream_t stream) {
+// rows per band of K1p: the runs of `splits` are whole bands
+int tt_shear_fp_packed_band() { return K1pShape::kR; }
+
+// `part`: scratch of splits * A * LU floats (not used when splits == 1).
+// The runs are ceil(bands / splits) bands each, in order.
+int tt_shear_fp_packed(const float* rows, const float* beta, float* s,
+                       float* part, int A, int n_rows, int row_len, int U0,
+                       int LU, int splits, cudaStream_t stream) {
+  using S = K1pShape;
   if (A == 0 || LU == 0) return 0;
-  const dim3 grid((LU + kP1U - 1) / kP1U, (A + 7) / 8);
-  shear_fp_packed_kernel<<<grid, dim3(32, 8), 0, stream>>>(
-      rows, beta, s, A, n_rows, row_len, U0, LU);
+  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int aligned =
+      row_len % 4 == 0 && reinterpret_cast<unsigned long long>(rows) % 16 == 0;
+  const int n_bands = (n_rows + S::kR - 1) / S::kR;
+  const int bands_per_split = (n_bands + splits - 1) / splits;
+  const size_t smem =
+      sizeof(float) * 2 * S::kBuf + sizeof(int) * 2 * static_cast<size_t>(n_bands);
+  const dim3 grid((LU + S::kTile - 1) / S::kTile, (A + S::kA - 1) / S::kA + kK1Splits, splits);
+  if (smem > 227 * 1024 || grid.y > 65535 || grid.z > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      shear_fp_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  shear_fp_packed_kernel<<<grid, dim3(32, S::kA), smem, stream>>>(
+      rows, beta, splits == 1 ? s : part, A, n_rows, row_len, U0, LU, aligned,
+      bands_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long n = static_cast<long long>(A) * LU;
+  shear_fp_packed_sum_kernel<<<blocks_for(n), kThreads, 0, stream>>>(part, s, n, splits);
   return static_cast<int>(cudaGetLastError());
 }
 

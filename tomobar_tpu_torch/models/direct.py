@@ -91,6 +91,7 @@ class RecToolsDIR:
             recon_size=int(ObjSize),
             detectors_x_pad=int(DetectorsDimH_pad),
         )
+        self.geom_detY = self.geom.is_2d is False  # 3D: a vertical detector
         self.detectors_x_pad = self.geom.detectors_x_pad
         self.angles_vec = self.geom.angles
         self.centre_of_rotation = CenterRotOffset

@@ -117,6 +117,12 @@ class RecToolsIRTPU:
 
     # -------------------------------------------------------------- helpers
 
+    def _Ax(self, x, sub_ind: int = 1, os: bool = False):
+        return self.Atools.fp_sub(x, sub_ind) if os else self.Atools.fp(x)
+
+    def _Atb(self, b, sub_ind: int = 1, os: bool = False):
+        return self.Atools.bp_sub(b, sub_ind) if os else self.Atools.bp(b)
+
     def _prep_data(self, _data_, _algorithm_, _regularisation_, method_run):
         d, a, r = dicts_check(self, _data_, _algorithm_, _regularisation_, method_run)
         d["projection_data"] = apply_horiz_detector_padding(

@@ -29,6 +29,8 @@ from tomobar_tpu_torch.ops.fft_kernels import (
 __all__ = [
     "fft_pairs",
     "ifft_pairs",
+    "fft2_pairs",
+    "ifft2_pairs",
     "apply_freq_filter_real",
     "use_fused_axis2",
 ]
@@ -61,6 +63,21 @@ def ifft_pairs(re: torch.Tensor, im: torch.Tensor):
     """Inverse FFT along the last axis (includes the 1/n scale)."""
     y = torch.fft.ifft(torch.complex(re.float(), im.float()), dim=-1)
     return y.real.contiguous(), y.imag.contiguous()
+
+
+def fft2_pairs(re: torch.Tensor, im=None):
+    """Forward 2-D FFT over the last two axes (rows by ``torch.fft``, columns
+    by the axis-(-2) transform)."""
+    re1, im1 = fft_pairs(re, im)
+    return _fft_axis2(re1, im1, -1)
+
+
+def ifft2_pairs(re: torch.Tensor, im: torch.Tensor):
+    """Inverse 2-D FFT over the last two axes (includes 1/(n1*n2))."""
+    re1, im1 = ifft_pairs(re, im)  # includes 1/n2
+    re2, im2 = _fft_axis2(re1, im1, +1)
+    s = 1.0 / re.shape[-2]
+    return re2 * s, im2 * s
 
 
 def apply_freq_filter_real(

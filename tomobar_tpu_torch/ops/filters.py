@@ -24,9 +24,14 @@ __all__ = [
     "classic_filter_half",
     "hermitian_extend_real",
     "calc_filter_np",
+    "calc_filter",
     "FILTER_TYPES",
     "CLASSIC_FILTER_TYPES",
 ]
+
+# input bytes of one pass of the CUDA filter route (its temporaries are a few
+# times that)
+FILTER_CHUNK_BYTES = 2**30
 
 FILTER_TYPES = (
     "none",
@@ -75,7 +80,15 @@ def _apply_half_filter(sino: torch.Tensor, half: np.ndarray) -> torch.Tensor:
     full = torch.as_tensor(hermitian_extend_real(half, det_x), device=sino.device)
     squeeze = sino.dim() == 2
     x = sino[None] if squeeze else sino
-    out = apply_freq_filter_real(x, full)
+    # slices are filtered independently: a deep stack goes by in runs of
+    # slices of at most FILTER_CHUNK_BYTES, which bounds the temporaries
+    step = max(FILTER_CHUNK_BYTES // max(4 * x.shape[1] * x.shape[2], 1), 1)
+    if step >= x.shape[0]:
+        out = apply_freq_filter_real(x, full)
+    else:
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        for z0 in range(0, x.shape[0], step):
+            out[z0 : z0 + step] = apply_freq_filter_real(x[z0 : z0 + step], full)
     return (out[0] if squeeze else out).to(sino.dtype)
 
 
@@ -277,3 +290,10 @@ def calc_filter_np(
     wfa = 2 * wfa * (wfa >= 0)
     wfa[0] *= 2
     return np.asarray(wfa, dtype=np.float32)
+
+
+def calc_filter(
+    n: int, filter_type: str = "shepp", cutoff_freq: float = 1.0, device=None
+) -> torch.Tensor:
+    """:func:`calc_filter_np` as a float32 tensor (on ``device``)."""
+    return torch.as_tensor(calc_filter_np(n, filter_type, cutoff_freq), device=device)

@@ -20,8 +20,22 @@ import numpy as np
 import torch
 
 from tomobar_tpu_torch import _build
+from tomobar_tpu_torch.utils.tools import free_device_bytes
 
-__all__ = ["pd_tv", "pd_tv_plain", "pd_tv_constants", "launch_plan"]
+__all__ = ["pd_tv", "pd_tv_plain", "pd_tv_constants", "launch_plan", "z_chunks",
+           "CHUNK_BYTES", "MAX_ELEMENTS"]
+
+# A prox holds eight volumes beside its input and output (u and three duals,
+# twice), so a deep stack goes through in z-chunks.  n iterations widen a
+# voxel's dependence cone by n slices, so a chunk is run with a halo of n
+# slices on each inner side and only its own slices are kept: every kept
+# voxel sees exactly the values it would see in the whole volume, and the
+# result does not depend on the chunks.  A chunk with its halo keeps those
+# eight volumes under the byte budget (CHUNK_BYTES; on a CUDA device a
+# volume that needs more gets half of the free memory) and each of them
+# under MAX_ELEMENTS.
+CHUNK_BYTES = 8 * 2**30
+MAX_ELEMENTS = 2**31 - 1
 
 
 def pd_tv_constants(regularisation_parameter: float, lipschitz_const: float):
@@ -66,8 +80,18 @@ def pd_tv_plain(
     lipschitz_const: float = 8.0,
     half_precision: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch PD-TV on a (nz, ny, nx) float32 volume."""
+    """Plain PyTorch PD-TV on a (nz, ny, nx) float32 volume (a deep one in
+    z-chunks, see :func:`z_chunks`)."""
     _check_shape(data)
+    return _chunked(
+        lambda v: _pd_tv_plain(v, regularisation_parameter, iterations, methodTV,
+                               nonneg, lipschitz_const, half_precision),
+        data, iterations,
+    )
+
+
+def _pd_tv_plain(data, regularisation_parameter, iterations, methodTV, nonneg,
+                 lipschitz_const, half_precision):
     sigma, tau, lt, theta = pd_tv_constants(regularisation_parameter, lipschitz_const)
     dual_dtype = torch.bfloat16 if half_precision else torch.float32
     # P1 <-> x (dim 2), P2 <-> y (dim 1), P3 <-> z (dim 0, 3D only)
@@ -106,6 +130,36 @@ def launch_plan(iterations: int, fuse: int):
     return [(k, i == 0, i == len(counts) - 1) for i, k in enumerate(counts)]
 
 
+def z_chunks(nz: int, ny: int, nx: int, iterations: int, budget_bytes: int):
+    """``(z0, z1, h0, h1)`` per chunk: the slices [z0, z1) it keeps and the
+    slices [h0, h1) it is run on (a halo of ``iterations`` slices on each
+    side, cut at the volume's ends)."""
+    per_slice = max(ny * nx, 1)
+    deep = min(budget_bytes // (8 * 4 * per_slice), MAX_ELEMENTS // per_slice)
+    if deep >= nz:
+        return [(0, nz, 0, nz)]
+    keep = max(deep - 2 * iterations, 1)
+    return [
+        (z0, min(z0 + keep, nz), max(z0 - iterations, 0), min(z0 + keep + iterations, nz))
+        for z0 in range(0, nz, keep)
+    ]
+
+
+def _chunked(fn, data: torch.Tensor, iterations: int) -> torch.Tensor:
+    """``fn(volume)`` (one prox) over the z-chunks of ``data``."""
+    nz, ny, nx = data.shape
+    budget = CHUNK_BYTES
+    if data.device.type == "cuda" and 32 * data.numel() > budget:
+        budget = free_device_bytes(data.device) // 2
+    chunks = z_chunks(nz, ny, nx, iterations, budget)
+    if len(chunks) == 1:
+        return fn(data)
+    out = torch.empty_like(data)
+    for z0, z1, h0, h1 in chunks:
+        out[z0:z1] = fn(data[h0:h1])[z0 - h0 : z1 - h0]
+    return out
+
+
 def pd_tv(
     data: torch.Tensor,
     regularisation_parameter: float,
@@ -128,8 +182,18 @@ def pd_tv(
         raise ValueError(f"PD: data on {data.device}; the kernel takes CUDA tensors")
     if data.dtype != torch.float32 or not data.is_contiguous():
         raise ValueError("PD: data must be contiguous float32")
-    if data.numel() > 2**31 - 1:
-        raise ValueError("PD: volume exceeds int32 indexing")
+    return _chunked(
+        lambda v: _pd_tv_cuda(v, regularisation_parameter, iterations, methodTV,
+                              nonneg, lipschitz_const, half_precision),
+        data, iterations,
+    )
+
+
+def _pd_tv_cuda(data, regularisation_parameter, iterations, methodTV, nonneg,
+                lipschitz_const, half_precision):
+    """One prox on a contiguous float32 CUDA volume, :func:`launch_plan`'s
+    launches of the kernel."""
+    assert data.numel() <= MAX_ELEMENTS  # z_chunks keeps a chunk below the cap
     sigma, tau, lt, theta = pd_tv_constants(regularisation_parameter, lipschitz_const)
     nz, ny, nx = data.shape
     dual_dtype = torch.bfloat16 if half_precision else torch.float32

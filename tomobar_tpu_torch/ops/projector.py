@@ -34,12 +34,24 @@ from tomobar_tpu_torch.ops.projector_kernels import (
 )
 
 __all__ = [
+    "CHUNK_BYTES",
+    "MAX_ELEMENTS",
     "radon_fp",
     "radon_bp",
     "forward_project",
     "back_project",
     "Projector",
 ]
+
+
+# A stack of any depth goes through the kernels in z-chunks (slices are
+# independent in FP and BP, so the chunks change no bit of the result).  A
+# chunk keeps a group's u-lines ``s``/``q`` (A x chunk x LU floats, the
+# largest intermediate) under CHUNK_BYTES, which bounds the memory of a call
+# beside its input and output, and every tensor a kernel sees under
+# MAX_ELEMENTS, the kernels' element cap.
+CHUNK_BYTES = 2 * 2**30
+MAX_ELEMENTS = 2**31 - 1
 
 
 def _angle_partition(angles: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -58,20 +70,30 @@ def _angle_partition(angles: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _vshift_sino(sino: torch.Tensor, dz: np.ndarray) -> torch.Tensor:
-    """out[v, a, t] = lin-interp of sino at (v + dz[a], a, t), zero outside."""
+    """out[v, a, t] = lin-interp of sino at (v + dz[a], a, t), zero outside.
+    Angles are independent, so they go by in runs that keep the gather and
+    its temporaries under ``CHUNK_BYTES`` and ``MAX_ELEMENTS`` each; the
+    result does not depend on the runs."""
     nz, A, det_x = sino.shape
     dzt = torch.as_tensor(np.asarray(dz), dtype=sino.dtype, device=sino.device)
     kf = torch.floor(dzt)
     f = (dzt - kf)[None, :, None]
     i0 = torch.arange(nz, device=sino.device)[:, None] + kf.to(torch.int64)[None, :]
-    out = None
-    for i, w in ((i0, 1.0 - f), (i0 + 1, f)):
-        valid = ((i >= 0) & (i < nz))[:, :, None]
-        g = torch.gather(
-            sino, 0, torch.clamp(i, 0, nz - 1)[:, :, None].expand(nz, A, det_x)
-        )
-        term = w * torch.where(valid, g, 0.0)
-        out = term if out is None else out + term
+    per_angle = max(nz * det_x, 1)
+    step = max(min(CHUNK_BYTES // (4 * per_angle), MAX_ELEMENTS // per_angle), 1)
+    out = torch.empty_like(sino)
+    for a0 in range(0, A, step):
+        a1 = min(a0 + step, A)
+        part = sino[:, a0:a1]
+        acc = None
+        for i, w in ((i0[:, a0:a1], 1.0 - f[:, a0:a1]), (i0[:, a0:a1] + 1, f[:, a0:a1])):
+            valid = ((i >= 0) & (i < nz))[:, :, None]
+            g = torch.gather(
+                part, 0, torch.clamp(i, 0, nz - 1)[:, :, None].expand(nz, a1 - a0, det_x)
+            )
+            term = w * torch.where(valid, g, 0.0)
+            acc = term if acc is None else acc + term
+        out[:, a0:a1] = acc
     return out
 
 
@@ -144,6 +166,18 @@ class _Plan:
             sino = _vshift_sino(sino, -np.asarray(dzv))
         return self._bp_core(sino)
 
+    def _z_chunks(self, nz: int, groups: List[_Group], *per_slice: int):
+        """(z0, z1) runs of slices: each keeps the largest group's u-lines
+        under CHUNK_BYTES and these, and the other per-slice element counts
+        of the caller, under MAX_ELEMENTS.  Runs of more than one slice are
+        even where nz allows it (K4 takes two slices per block)."""
+        lines = max((g.prm.A * g.prm.LU for g in groups), default=1)
+        widest = max(lines, *per_slice, 1)
+        zc = max(min(CHUNK_BYTES // (4 * lines), MAX_ELEMENTS // widest, nz), 1)
+        if 1 < zc < nz:
+            zc -= zc % 2
+        return [(z0, min(z0 + zc, nz)) for z0 in range(0, nz, zc)]
+
     def _fp_core(self, vol: torch.Tensor) -> torch.Tensor:
         squeeze = vol.dim() == 2
         if squeeze:
@@ -151,27 +185,35 @@ class _Plan:
         vol = vol.to(torch.float32).contiguous()
         nz, ny, nx = vol.shape
         det_x = self.geom.detectors_x_total
+        n_angles = self.geom.n_angles
         groups = self.groups(ny, nx, vol.device, nz == 1)
+        if not groups:
+            out = torch.zeros((nz, 0, det_x), dtype=torch.float32, device=vol.device)
+            return out[0] if squeeze else out
+        chunks = self._z_chunks(nz, groups, ny * nx, n_angles * det_x)
         out = None
-        for g in groups:
-            if g.prm.packed:
-                # the y-driven group reads one explicit transpose of the slice
-                rows = vol.transpose(1, 2).contiguous() if g.swap else vol
-                s = shear_fp_packed(rows, g.beta, g.prm.U0, g.prm.LU)
-            else:
-                s = shear_fp(vol, g.beta, g.prm.U0, g.prm.LU, g.swap)
-            p = resample_fp(s, g.alpha, g.gamma, g.prm.U0, det_x)
-            if len(groups) == 1:
-                out = p
-            else:
+        for z0, z1 in chunks:
+            part = vol[z0:z1]
+            for g in groups:
+                if g.prm.packed:
+                    # the y-driven group reads one explicit transpose of the slice
+                    rows = part.transpose(1, 2).contiguous() if g.swap else part
+                    s = shear_fp_packed(rows, g.beta, g.prm.U0, g.prm.LU)
+                else:
+                    s = shear_fp(part, g.beta, g.prm.U0, g.prm.LU, g.swap)
+                p = resample_fp(s, g.alpha, g.gamma, g.prm.U0, det_x)
+                del s
+                if len(groups) == 1 and len(chunks) == 1:
+                    out = p
+                    break
                 if out is None:
                     out = torch.empty(
-                        (nz, self.geom.n_angles, det_x), dtype=torch.float32,
-                        device=vol.device,
+                        (nz, n_angles, det_x), dtype=torch.float32, device=vol.device,
                     )
-                out[:, g.idx] = p
-        if out is None:
-            out = torch.zeros((nz, 0, det_x), dtype=torch.float32, device=vol.device)
+                if len(groups) == 1:
+                    out[z0:z1] = p
+                else:
+                    out[z0:z1, g.idx] = p
         return out[0] if squeeze else out
 
     def _bp_core(self, sino: torch.Tensor) -> torch.Tensor:
@@ -179,19 +221,26 @@ class _Plan:
         if squeeze:
             sino = sino[None]
         sino = sino.to(torch.float32).contiguous()
-        nz = sino.shape[0]
+        nz, n_angles, det_x = sino.shape
         n = self.geom.recon_size
         groups = self.groups(n, n, sino.device, nz == 1)
-        vol = None
-        for g in groups:
-            p = sino if len(groups) == 1 else sino[:, g.idx]
-            q = resample_bp(p, g.alpha, g.gamma, g.prm.U0, g.prm.LU)
-            if g.prm.packed:
-                vol = unshear_bp_packed(q, g.beta, g.prm.U0, n, g.swap, out=vol)
-            else:
-                vol = unshear_bp(q, g.beta, g.prm.U0, n, n, g.swap, out=vol)
-        if vol is None:
+        if not groups:
             vol = torch.zeros((nz, n, n), dtype=torch.float32, device=sino.device)
+            return vol[0] if squeeze else vol
+        vol = torch.empty((nz, n, n), dtype=torch.float32, device=sino.device)
+        for z0, z1 in self._z_chunks(nz, groups, n * n, n_angles * det_x):
+            part = sino[z0:z1]
+            for k, g in enumerate(groups):
+                p = part if len(groups) == 1 else part[:, g.idx]
+                q = resample_bp(p, g.alpha, g.gamma, g.prm.U0, g.prm.LU)
+                # the first group writes the chunk's slices, the others add
+                if g.prm.packed:
+                    unshear_bp_packed(q, g.beta, g.prm.U0, n, g.swap, out=vol[z0:z1],
+                                      accumulate=k > 0)
+                else:
+                    unshear_bp(q, g.beta, g.prm.U0, n, n, g.swap, out=vol[z0:z1],
+                               accumulate=k > 0)
+                del q
         return vol[0] if squeeze else vol
 
 

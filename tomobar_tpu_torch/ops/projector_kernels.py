@@ -18,7 +18,9 @@ in the JAX package:
     K1p shear_fp_packed    rows (1, n_rows, row_len) -> s (A, 1, LU)
     K4p unshear_bp_packed  q (A, 1, LU)              -> vol (1, n, n)
 
-the same sums as K1/K4 at nz == 1 with kernels designed for one slice.
+the same sums as K1/K4 at nz == 1 with kernels designed for one slice
+(K1p cuts the driven rows into runs that are summed side by side and then
+added in order, see :func:`packed_splits`).
 ``U0``, ``NXP`` and ``LU`` are the JAX package's own (``packed`` widens
 NXP, hence LU, by 128 as there), so ``s`` and ``q`` line up index for
 index with the Pallas stages; the TPU-only glue (angle padding to block
@@ -48,6 +50,7 @@ __all__ = [
     "unshear_bp",
     "shear_fp_packed",
     "unshear_bp_packed",
+    "packed_splits",
     "shear_fp_plain",
     "resample_fp_plain",
     "resample_bp_plain",
@@ -57,6 +60,15 @@ __all__ = [
 ]
 
 _INT32_MAX = 2**31 - 1
+
+# K1p sums the driven rows in up to K1P_SPLITS runs (K1P_SPLITS_FEW for at
+# most K1P_FEW_ANGLES angles, an OS subset's group) of at least
+# K1P_MIN_BANDS bands of K1P_BAND rows each (the kernel's band)
+K1P_SPLITS = 4
+K1P_SPLITS_FEW = 8
+K1P_FEW_ANGLES = 256
+K1P_MIN_BANDS = 32
+K1P_BAND = 8
 
 
 def _round_up(x: int, m: int) -> int:
@@ -149,13 +161,20 @@ def _det_taps(alpha: torch.Tensor, gamma: torch.Tensor, U0: int, det_x: int):
 def shear_fp_plain(vol, beta, U0: int, LU: int, swap: bool = False):
     """K1: s[a, z, u] = sum_r (1-f) row_r[u-o] + f row_r[u-o+1]."""
     rows = vol.transpose(1, 2) if swap else vol  # (nz, n_rows, row_len)
-    nz, n_rows, row_len = rows.shape
-    A = beta.shape[0]
-    o, f = _row_shifts(beta, n_rows, U0)
+    o, f = _row_shifts(beta, rows.shape[1], U0)
+    return _shear_rows(rows, o, f, 0, rows.shape[1], LU)
+
+
+def _shear_rows(rows, o, f, r0: int, r1: int, LU: int):
+    """The shear sum over rows [r0, r1) of (nz, n_rows, row_len) ``rows``, in
+    ascending order from zero, with the shifts ``o``/``f`` of
+    :func:`_row_shifts`: (A, nz, LU)."""
+    nz, _, row_len = rows.shape
+    A = o.shape[0]
     rowp = torch.nn.functional.pad(rows, (1, 1))  # rowp[.., 1 + j] = row[j]
-    u = torch.arange(LU, device=vol.device)
-    s = torch.zeros((nz, A, LU), dtype=torch.float32, device=vol.device)
-    for r in range(n_rows):
+    u = torch.arange(LU, device=rows.device)
+    s = torch.zeros((nz, A, LU), dtype=torch.float32, device=rows.device)
+    for r in range(r0, r1):
         j = u[None, :] - o[:, r : r + 1]  # (A, LU)
         i0 = torch.clamp(j + 1, 0, row_len + 1).reshape(-1)
         i1 = torch.clamp(j + 2, 0, row_len + 1).reshape(-1)
@@ -195,9 +214,9 @@ def resample_bp_plain(p, alpha, gamma, U0: int, LU: int):
 
 
 def unshear_bp_plain(q, beta, U0: int, ny: int, nx: int, swap: bool = False,
-                     out: Optional[torch.Tensor] = None):
-    """K4: vol_row[j] = sum_a (1-f) q[a, o+j] + f q[a, o+j-1]; adds into
-    ``out`` when given, else returns a new volume."""
+                     out: Optional[torch.Tensor] = None, accumulate: bool = True):
+    """K4: vol_row[j] = sum_a (1-f) q[a, o+j] + f q[a, o+j-1]; returns a new
+    volume, or adds into ``out`` (overwrites it with ``accumulate=False``)."""
     A, nz, LU = q.shape
     n_rows, row_len = (nx, ny) if swap else (ny, nx)
     o, f = _row_shifts(beta, n_rows, U0)
@@ -215,20 +234,54 @@ def unshear_bp_plain(q, beta, U0: int, ny: int, nx: int, swap: bool = False,
     vol = acc.transpose(1, 2) if swap else acc
     if out is None:
         return vol.contiguous()
-    out += vol
+    if accumulate:
+        out += vol
+    else:
+        out.copy_(vol)
     return out
 
 
-def shear_fp_packed_plain(rows, beta, U0: int, LU: int):
+def packed_splits(n_rows: int, n_angles: int) -> int:
+    """Runs into which K1p cuts ``n_rows`` driven rows: one slice gives the
+    card too few blocks, so the rows are summed in runs side by side and the
+    partial sums added in order.  The fewer the angles (hence blocks), the
+    more runs pay; a small slice takes one run."""
+    n_bands = -(-n_rows // K1P_BAND)
+    most = K1P_SPLITS_FEW if n_angles <= K1P_FEW_ANGLES else K1P_SPLITS
+    return max(1, min(most, n_bands // K1P_MIN_BANDS))
+
+
+def shear_fp_packed_plain(rows, beta, U0: int, LU: int, splits: Optional[int] = None):
     """K1p: K1 on one slice whose rows are the driven rows (the y-driven
-    group passes the transposed slice)."""
-    return shear_fp_plain(rows, beta, U0, LU)
+    group passes the transposed slice), summed as the kernel sums them: the
+    rows in ``splits`` runs of ceil(bands / splits) bands (default
+    :func:`packed_splits`), each run in ascending order from zero, then the
+    runs' sums added in ascending order.  One run is K1's sum bit for bit;
+    more runs differ from it in the last bits only."""
+    _, n_rows, row_len = rows.shape
+    splits = packed_splits(n_rows, beta.shape[0]) if splits is None else int(splits)
+    if splits < 1:
+        raise ValueError(f"K1p: splits must be >= 1, got {splits}")
+    if splits == 1:
+        return shear_fp_plain(rows, beta, U0, LU)
+    per = -(-(-(-n_rows // K1P_BAND)) // splits) * K1P_BAND  # rows of a run
+    o, f = _row_shifts(beta, n_rows, U0)
+    s = None
+    for r0 in range(0, per * splits, per):
+        r1 = min(r0 + per, n_rows)
+        if r0 >= r1:
+            part = torch.zeros((beta.shape[0], 1, LU), dtype=torch.float32, device=rows.device)
+        else:
+            # the run's rows with their shifts: row r of the slice keeps its r
+            part = _shear_rows(rows, o, f, r0, r1, LU)
+        s = part if s is None else s + part
+    return s
 
 
 def unshear_bp_packed_plain(q, beta, U0: int, n: int, swap: bool = False,
-                            out: Optional[torch.Tensor] = None):
+                            out: Optional[torch.Tensor] = None, accumulate: bool = True):
     """K4p: K4 on one n x n slice."""
-    return unshear_bp_plain(q, beta, U0, n, n, swap, out)
+    return unshear_bp_plain(q, beta, U0, n, n, swap, out, accumulate)
 
 
 # ---------------------------------------------------------------------------
@@ -247,8 +300,8 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: expected float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
-        if t.numel() > _INT32_MAX:
-            raise ValueError(f"{name}: {t.numel()} elements exceed int32")
+        # the projector's z-chunks keep every tensor below the cap
+        assert t.numel() <= _INT32_MAX, f"{name}: a tensor of {t.numel()} elements"
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -333,11 +386,12 @@ def resample_bp(p, alpha, gamma, U0: int, LU: int):
 
 
 def unshear_bp(q, beta, U0: int, ny: int, nx: int, swap: bool = False,
-               out: Optional[torch.Tensor] = None):
+               out: Optional[torch.Tensor] = None, accumulate: bool = True):
     """K4 (see :func:`unshear_bp_plain`).  q (A, nz, LU) -> vol (nz, ny, nx),
-    added into ``out`` when given."""
+    added into ``out`` when given (written over it with
+    ``accumulate=False``)."""
     if q.device.type == "cpu":
-        return unshear_bp_plain(q, beta, U0, ny, nx, swap, out)
+        return unshear_bp_plain(q, beta, U0, ny, nx, swap, out, accumulate)
     _check_cuda("K4", q, beta)
     if q.dim() != 3:
         raise ValueError("K4: q must be (A, nz, LU)")
@@ -354,7 +408,7 @@ def unshear_bp(q, beta, U0: int, ny: int, nx: int, swap: bool = False,
     with torch.cuda.device(q.device):
         err = lib.tt_unshear_bp(
             q.data_ptr(), beta.data_ptr(), vol.data_ptr(), A, nz, ny, nx, LU,
-            U0, int(swap), int(out is not None), _stream(q),
+            U0, int(swap), int(out is not None and accumulate), _stream(q),
         )
     _build.check("K4", err)
     _build.launch_counts["K4"] += 1
@@ -366,11 +420,11 @@ def _packed_ok(name: str, n_rows: int) -> None:
         raise ValueError(f"{name}: {n_rows} driven rows, not a multiple of 8")
 
 
-def shear_fp_packed(rows, beta, U0: int, LU: int):
+def shear_fp_packed(rows, beta, U0: int, LU: int, splits: Optional[int] = None):
     """K1p (see :func:`shear_fp_packed_plain`).  rows (1, n_rows, row_len)
     float32 with n_rows % 8 == 0 -> s (A, 1, LU)."""
     if rows.device.type == "cpu":
-        return shear_fp_packed_plain(rows, beta, U0, LU)
+        return shear_fp_packed_plain(rows, beta, U0, LU, splits)
     _check_cuda("K1p", rows, beta)
     if rows.dim() != 3 or rows.shape[0] != 1:
         raise ValueError("K1p: rows must be (1, n_rows, row_len)")
@@ -378,13 +432,21 @@ def shear_fp_packed(rows, beta, U0: int, LU: int):
     _packed_ok("K1p", n_rows)
     A = beta.shape[0]
     _params_ok("K1p", A, beta)
+    splits = packed_splits(n_rows, A) if splits is None else int(splits)
+    if splits < 1:
+        raise ValueError(f"K1p: splits must be >= 1, got {splits}")
     s = torch.empty((A, 1, LU), dtype=torch.float32, device=rows.device)
-    _check_cuda("K1p", s)
+    # the runs' partial sums; one run writes s itself
+    part = s if splits == 1 else torch.empty(
+        (splits, A, LU), dtype=torch.float32, device=rows.device)
+    _check_cuda("K1p", s, part)
     lib = _build.library()
+    if lib.tt_shear_fp_packed_band() != K1P_BAND:
+        raise RuntimeError("K1p: the kernel's band differs from K1P_BAND")
     with torch.cuda.device(rows.device):
         err = lib.tt_shear_fp_packed(
-            rows.data_ptr(), beta.data_ptr(), s.data_ptr(), A, n_rows,
-            row_len, U0, LU, _stream(rows),
+            rows.data_ptr(), beta.data_ptr(), s.data_ptr(), part.data_ptr(), A,
+            n_rows, row_len, U0, LU, splits, _stream(rows),
         )
     _build.check("K1p", err)
     _build.launch_counts["K1p"] += 1
@@ -392,11 +454,12 @@ def shear_fp_packed(rows, beta, U0: int, LU: int):
 
 
 def unshear_bp_packed(q, beta, U0: int, n: int, swap: bool = False,
-                      out: Optional[torch.Tensor] = None):
+                      out: Optional[torch.Tensor] = None, accumulate: bool = True):
     """K4p (see :func:`unshear_bp_packed_plain`).  q (A, 1, LU) -> vol
-    (1, n, n) with n % 8 == 0, added into ``out`` when given."""
+    (1, n, n) with n % 8 == 0, added into ``out`` when given (written over
+    it with ``accumulate=False``)."""
     if q.device.type == "cpu":
-        return unshear_bp_packed_plain(q, beta, U0, n, swap, out)
+        return unshear_bp_packed_plain(q, beta, U0, n, swap, out, accumulate)
     _check_cuda("K4p", q, beta)
     if q.dim() != 3 or q.shape[1] != 1:
         raise ValueError("K4p: q must be (A, 1, LU)")
@@ -414,7 +477,7 @@ def unshear_bp_packed(q, beta, U0: int, n: int, swap: bool = False,
     with torch.cuda.device(q.device):
         err = lib.tt_unshear_bp_packed(
             q.data_ptr(), beta.data_ptr(), vol.data_ptr(), A, n, LU, U0,
-            int(swap), int(out is not None), _stream(q),
+            int(swap), int(out is not None and accumulate), _stream(q),
         )
     _build.check("K4p", err)
     _build.launch_counts["K4p"] += 1

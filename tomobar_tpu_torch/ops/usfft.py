@@ -31,7 +31,11 @@ import torch
 from tomobar_tpu_torch.ops.fft_real import _fft_axis2, apply_freq_filter_real, fft_pairs
 from tomobar_tpu_torch.ops.filters import calc_filter_np
 from tomobar_tpu_torch.ops.usfft_kernels import grid
-from tomobar_tpu_torch.utils.tools import check_kwargs, data_dims_swapper
+from tomobar_tpu_torch.utils.tools import (
+    check_kwargs,
+    data_dims_swapper,
+    free_device_bytes,
+)
 
 __all__ = ["fourier_inv", "usfft_grid"]
 
@@ -204,25 +208,33 @@ def _unpad_mul_phi(
     return out[:unpad_z].contiguous()
 
 
-def _fourier_inv_memory_chunks(nz: int, n: int, kwargs: dict) -> int:
+def _fourier_inv_memory_chunks(nz: int, n: int, kwargs: dict, device=None) -> int:
     """Number of z-slice chunks for memory-bounded execution
     (``methodsDIR_CuPy.py:179-237``): an explicit ``chunk_count`` wins;
-    ``min_mem_usage_filter``/``min_mem_usage_ifft2`` pick a chunk count
-    that keeps 4 grid-sized float32 buffers per z-pair under
-    ``mem_budget_gb`` (default 8).  The JAX package derived that model from
-    XLA's memory analysis; it is kept as is, so both packages chunk alike."""
+    otherwise the chunk count keeps 4 grid-sized float32 buffer pairs per
+    z-pair under a budget.  On the CPU that is ``mem_budget_gb`` (default 8)
+    and applies only when ``min_mem_usage_filter``/``min_mem_usage_ifft2``
+    ask for it, as in the JAX package, so both packages chunk alike.  On a
+    CUDA device every call is bounded: ``mem_budget_gb`` if given, else a
+    third of the device's free memory, which leaves room for the
+    temporaries beyond the model and for the output."""
     chunk_count = kwargs.get("chunk_count")
     if chunk_count is not None:
         if not isinstance(chunk_count, int) or chunk_count < 1:
             print(f"Invalid chunk count: {chunk_count}. Set to 1")
             return 1
         return min(chunk_count, max(nz // 2, 1))
-    if kwargs.get("min_mem_usage_filter") or kwargs.get("min_mem_usage_ifft2"):
-        budget = float(kwargs.get("mem_budget_gb", 8.0)) * 1e9
-        per_pair = 4 * 2 * (2 * n) * (2 * n) * 4.0
-        pairs_per_chunk = max(int(budget // per_pair), 1)
-        return max(-(-(nz // 2) // pairs_per_chunk), 1)
-    return 1
+    on_cuda = device is not None and torch.device(device).type == "cuda"
+    asked = kwargs.get("min_mem_usage_filter") or kwargs.get("min_mem_usage_ifft2")
+    if not (asked or on_cuda):
+        return 1
+    if kwargs.get("mem_budget_gb") is not None or not on_cuda:
+        budget = float(kwargs.get("mem_budget_gb") or 8.0) * 1e9
+    else:
+        budget = free_device_bytes(device) / 3
+    per_pair = 4 * 2 * (2 * n) * (2 * n) * 4.0
+    pairs_per_chunk = max(int(budget // per_pair), 1)
+    return max(-(-(nz // 2) // pairs_per_chunk), 1)
 
 
 def fourier_inv(model, data: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -312,18 +324,22 @@ def fourier_inv(model, data: torch.Tensor, **kwargs) -> torch.Tensor:
             recon_size, mu,
         )
 
-    n_chunks = _fourier_inv_memory_chunks(nz, n, kwargs)
+    n_chunks = _fourier_inv_memory_chunks(nz, n, kwargs, data.device)
     if n_chunks <= 1:
         recon = run_block(data, nz, odd_vert)
     else:
         # pair-aligned z blocks; exact by blockwise consistency
         pairs = nz // 2
         per = -(-pairs // n_chunks)
-        parts = []
+        recon = None
         for q0 in range(0, pairs, per):
             z0, z1 = 2 * q0, min(2 * (q0 + per), nz)
-            parts.append(run_block(data[z0:z1], z1 - z0, odd_vert and z1 == nz))
-        recon = torch.cat(parts, dim=0)
+            part = run_block(data[z0:z1], z1 - z0, odd_vert and z1 == nz)
+            if recon is None:
+                recon = torch.empty(
+                    (nz - int(odd_vert), *part.shape[1:]), dtype=part.dtype, device=part.device
+                )
+            recon[z0 : z0 + part.shape[0]] = part
     if squeeze_2d:
         recon = recon[0]
     return check_kwargs(recon, recon_mask_radius=kwargs.get("recon_mask_radius"))

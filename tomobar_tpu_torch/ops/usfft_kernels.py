@@ -26,10 +26,10 @@ import torch
 
 from tomobar_tpu_torch import _build
 
-__all__ = ["GridParams", "grid_params", "grid", "grid_plain"]
+__all__ = ["GridParams", "grid_params", "grid", "grid_plain", "tile_order"]
 
-# half-width of the centre square of the grid that G accumulates in float64
-# (see csrc/usfft_grid.cu): all angles overlap there
+# half-width of the centre square of the grid whose tiles G sums with
+# compensation (see csrc/usfft_grid.cu): all angles overlap there
 CENTRE_HALF_WIDTH = 128
 
 
@@ -91,13 +91,16 @@ def grid_plain(
     fre = torch.zeros((nz2, two_n * two_n), dtype=g_re.dtype, device=dev)
     fim = torch.zeros_like(fre)
     coeff0, coeff1 = float(prm.coeff0), float(prm.coeff1)
+    # a tensor divisor: a true float32 division as the oracle's (PyTorch
+    # multiplies by the rounded reciprocal of a Python scalar on CUDA)
+    two_n_f = torch.tensor(float(two_n), dtype=torch.float32, device=dev)
     for i1 in range(2 * prm.m + 1):
         l1 = ell1 - prm.m + i1
-        w1 = l1.to(torch.float32) / two_n - y0
+        w1 = l1.to(torch.float32) / two_n_f - y0
         row = torch.remainder(l1 + n, two_n) * two_n
         for i0 in range(2 * prm.m + 1):
             l0 = ell0 - prm.m + i0
-            w0 = l0.to(torch.float32) / two_n - x0
+            w0 = l0.to(torch.float32) / two_n_f - x0
             w = coeff0 * torch.exp(coeff1 * (w0 * w0 + w1 * w1))
             idx = row + torch.remainder(l0 + n, two_n)
             fre.index_add_(1, idx, gre * w)
@@ -116,11 +119,30 @@ def _device_angles(theta_bytes: bytes, device) -> Tuple[torch.Tensor, torch.Tens
     )
 
 
+def tile_order(n: int, tile_y: int, tile_x: int) -> np.ndarray:
+    """The tiles of the (2n, 2n) grid (row-major numbers) by the distance of
+    their centres from the grid's centre, nearest first: a tile near the
+    centre holds the samples of every angle, so the kernel's blocks take
+    the heavy tiles first."""
+    ny, nx = -(-2 * n // tile_y), -(-2 * n // tile_x)
+    cy = (np.arange(ny) + 0.5) * tile_y - n
+    cx = (np.arange(nx) + 0.5) * tile_x - n
+    d2 = cy[:, None] ** 2 + cx[None, :] ** 2
+    return np.argsort(d2.ravel(), kind="stable").astype(np.int32)
+
+
+@lru_cache(maxsize=16)
+def _device_tile_order(n: int, tile_y: int, tile_x: int, device) -> torch.Tensor:
+    return torch.as_tensor(tile_order(n, tile_y, tile_x), device=device)
+
+
 def grid(
     g_re: torch.Tensor, g_im: torch.Tensor, n: int, theta: np.ndarray,
     eps: float = 1e-4,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """G (see :func:`grid_plain`).  g_re/g_im (nz2, nproj, n) float32."""
+    """G (see :func:`grid_plain`).  g_re/g_im (nz2, nproj, n) float32.  The
+    kernel stores every grid cell once, in a fixed order of the sum: two
+    calls on the same input give the same grids bit for bit."""
     theta = np.asarray(theta, dtype=np.float64)
     if g_re.device.type == "cpu":
         return grid_plain(g_re, g_im, n, theta, eps)
@@ -132,26 +154,25 @@ def grid(
     if g_re.shape != (nz2, nproj, n) or g_im.shape != g_re.shape:
         raise ValueError(f"G: spectra must be ({nz2}, {nproj}, {n}), got {tuple(g_re.shape)} and {tuple(g_im.shape)}")
     prm = grid_params(n, eps)
+    if prm.m >= n:
+        raise ValueError(f"G: n = {n} is smaller than the footprint (m = {prm.m})")
     cos_t, sin_t = _device_angles(theta.tobytes(), g_re.device)
     g_re = g_re.contiguous()
     g_im = g_im.contiguous()
-    R = min(CENTRE_HALF_WIDTH, n)
-    fre = torch.zeros((nz2, 2 * n, 2 * n), dtype=torch.float32, device=g_re.device)
-    fim = torch.zeros_like(fre)
-    cre = torch.zeros((nz2, 2 * R, 2 * R), dtype=torch.float64, device=g_re.device)
-    cim = torch.zeros_like(cre)
     lib = _build.library()
+    order = _device_tile_order(
+        n, lib.tt_usfft_grid_tile(0), lib.tt_usfft_grid_tile(1), g_re.device
+    )
+    fre = torch.empty((nz2, 2 * n, 2 * n), dtype=torch.float32, device=g_re.device)
+    fim = torch.empty_like(fre)
     with torch.cuda.device(g_re.device):
         err = lib.tt_usfft_grid(
             g_re.data_ptr(), g_im.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
-            fre.data_ptr(), fim.data_ptr(), cre.data_ptr(), cim.data_ptr(),
-            nz2, nproj, n, prm.m, R,
+            fre.data_ptr(), fim.data_ptr(), order.data_ptr(),
+            nz2, nproj, n, prm.m, CENTRE_HALF_WIDTH,
             float(prm.coeff0), float(prm.coeff1), float(prm.clamp),
             torch.cuda.current_stream(g_re.device).cuda_stream,
         )
     _build.check("G", err)
     _build.launch_counts["G"] += 1
-    # the kernel left the centre square of the fp32 grids at zero
-    fre[:, n - R : n + R, n - R : n + R] = cre
-    fim[:, n - R : n + R, n - R : n + R] = cim
     return fre, fim

@@ -20,7 +20,16 @@ __all__ = [
     "check_kwargs",
     "swap_data_axes_to_accepted",
     "data_dims_swapper",
+    "free_device_bytes",
 ]
+
+
+def free_device_bytes(device) -> int:
+    """Bytes a new tensor can still take on a CUDA device: the free memory
+    CUDA reports plus what PyTorch's allocator holds but has handed to no
+    tensor."""
+    free = torch.cuda.mem_get_info(device)[0]
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
 
 
 def _get_swap_tuple(data_axis_labels, labels_order):
