@@ -19,12 +19,14 @@ Phases, in order; any failure raises and exits non-zero:
 3. kernels: K1-K4 at N=512, nz=8, 180 angles (scalar CoR 3.5 and a
    per-angle CoR vector, both driven groups), K1 and K4 also at nz = 1 and
    3, at 500 driven rows (not a multiple of 8), at rows of 510 (not 16-byte
-   aligned) and K4 at ny != nx and adding into a volume, and PD-TV
+   aligned) and K4 at ny != nx and adding into a volume, K3 gathering each
+   group's rows from the whole sinogram through ``index`` (1, 3 and 8
+   slices, shuffled angles, an LU that is no multiple of 4), and PD-TV
    (iso/aniso x nonneg, nz 1 and 8, plus bf16 duals; iteration counts 1,
    K - 1, K + 1 and 20 for K iterations per launch; 3 x 500 x 510, which
    its tiles do not divide, and 20 slices, which it cuts into z-chunks),
-   each against its plain version on the same inputs; K1 and K4 must equal
-   their plain versions bit for bit.
+   each against its plain version on the same inputs; K1, K3 and K4 must
+   equal their plain versions bit for bit.
 4. adjointness of the kernel pair.
 5. the slice on the CPU (plain versions) and on the GPU (kernels),
    256^2 x 4 slices x 90 angles, OS5, PWLS, nonneg, PD-TV 20.
@@ -51,8 +53,10 @@ Phases, in order; any failure raises and exits non-zero:
 8. the 2D path: K1p/K4p (the packed nz = 1 pair) against their plain
    versions at N=512, 2D, 180 angles (scalar CoR 3.5 and a per-angle CoR
    vector, both driven groups; K1p bit for bit against the plain sum in the
-   same runs of rows), K1p also at rows of 510 (not 16-byte aligned), at
-   200 x 520 and for 10 sparse angles, and the pair's adjointness; 2D FBP and 2D
+   same runs of rows, K4p bit for bit, new and adding into a slice), K1p
+   also at rows of 510 (not 16-byte aligned), at 200 x 520 and for 10 sparse
+   angles, K4p at 520 and 200 columns, with lines of q that are not 16-byte
+   aligned and for 10 sparse angles, and the pair's adjointness; 2D FBP and 2D
    FISTA (OS5, LS, PD-TV 20) at 256^2 x 90 on the CPU and on the GPU; then
    one 2560^2 slice x 1801 angles: 2D FORWPROJ and FBP times, FISTA (OS10,
    LS, nonneg, PD-TV) for 1, 2 and 3 outer iterations with RMSE against
@@ -77,7 +81,9 @@ the time of one PyTorch call for the same function where there is one
 (``library_ms``: ``torch.fft`` on an already complex tensor for F) and its
 bound: the larger of its operations over 67 TFLOP/s (float32 outside the
 tensor cores) and its bytes, each input read once and each output written
-once, over 3.35 TB/s, the published peaks of an H100 SXM at 700 W.
+once, over 3.35 TB/s, the published peaks of an H100 SXM at 700 W.  K2 and
+K3 take less time than the host needs to enqueue a call, so their ``ms`` is
+the time on the device alone, of calls replayed from a CUDA graph.
 """
 
 from __future__ import annotations
@@ -140,8 +146,10 @@ def work_unshear(A, nz, n, LU):
 
 def work_resample(A, nz, LU, det_x, per_output):
     """K2 (13 operations per sinogram sample: position, two hats, two
-    weighted taps) and K3 (26 per u: four candidate positions and hats, two
-    weighted taps)."""
+    weighted taps) and K3 (26 per u, as a thread per u spends them: four
+    candidate positions and hats, two weighted taps; the rows of p that the
+    group reads are counted once, whether they were copied out or are read
+    through an index)."""
     n_out = nz * A * det_x if per_output == 13 else A * nz * LU
     return per_output * n_out, 4 * (A * nz * LU + nz * A * det_x + 2 * A)
 
@@ -248,7 +256,7 @@ def check_projector_kernels(torch, K, errs, geom, dev, seed: int) -> None:
         )
         p = torch.randn((nz, A, det), generator=gen, device=dev)
         q_p = K.resample_bp_plain(p, g.alpha, g.gamma, U0, LU)
-        errs.compare("K3", tag, K.resample_bp(p, g.alpha, g.gamma, U0, LU), q_p)
+        errs.compare("K3", tag, K.resample_bp(p, g.alpha, g.gamma, U0, LU), q_p, tol=0.0)
         errs.compare(
             "K4", tag, K.unshear_bp(q_p, g.beta, U0, n, n, g.swap),
             K.unshear_bp_plain(q_p, g.beta, U0, n, n, g.swap), tol=0.0,
@@ -305,6 +313,30 @@ def check_k4_shapes(torch, K, errs, dev) -> None:
                 K.unshear_bp_plain(q, g.beta, g.prm.U0, ny, nx, g.swap, out=base.clone()), tol=0.0)
 
 
+def check_k3_shapes(torch, K, errs, dev) -> None:
+    """K3 against its plain version, bit for bit, gathering each group's
+    angles from the whole sinogram through ``index`` (and on a copy of those
+    rows, which must give the same), at 1, 3 and 8 slices, on both driven
+    groups of a scan whose angles are shuffled (an unsorted index), and with
+    an LU that is no multiple of 4 (scalar stores)."""
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops.projector import Projector
+
+    angles = np.random.default_rng(33).permutation(np.linspace(0.0, np.pi, 90, endpoint=False))
+    gen = torch.Generator(device=dev).manual_seed(33)
+    for n, nz in ((512, 1), (512, 3), (512, 8), (500, 3)):
+        sino = torch.randn((nz, 90, n), generator=gen, device=dev)
+        for g in Projector(Geometry(n, nz, angles, 3.5, n))._plan.groups(n, n, dev, nz == 1):
+            for LU in (g.prm.LU, g.prm.LU - 2):
+                args = (g.alpha, g.gamma, g.prm.U0, LU)
+                tag = (f"{n}^2 x {nz}, {'y' if g.swap else 'x'}-driven, {g.prm.A} of 90 angles "
+                       f"by index, LU {LU}")
+                ref = K.resample_bp_plain(sino, *args, index=g.idx)
+                errs.compare("K3", tag, K.resample_bp(sino, *args, index=g.idx), ref, tol=0.0)
+                errs.compare("K3", tag + ", rows copied first",
+                             K.resample_bp(sino[:, g.idx].contiguous(), *args), ref, tol=0.0)
+
+
 def check_pd_shapes(torch, PDT, errs, dev) -> None:
     """PD against its plain version at iteration counts around the K that
     one launch fuses (a single launch, a shorter last launch), on a volume
@@ -342,6 +374,19 @@ def time_cuda(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_device(torch, fn, calls: int = 20, reps: int = 5) -> float:
+    """Mean milliseconds of one fn() on the device alone: ``calls`` calls are
+    captured in a CUDA graph and the graph is replayed, so the host's time to
+    enqueue a call, which is more than a small kernel takes, is left out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_cuda(torch, graph.replay, reps) / calls
 
 
 def outer_iteration_launches(counts_after, keys, path: str) -> dict:
@@ -611,12 +656,12 @@ def check_packed_kernels(torch, K, errs, geom, dev, seed: int) -> None:
                      K.shear_fp_packed_plain(rows, g.beta, U0, LU), tol=0.0)
         q = torch.randn((A, 1, LU), generator=gen, device=dev)
         errs.compare("K4p", tag, K.unshear_bp_packed(q, g.beta, U0, n, g.swap),
-                     K.unshear_bp_packed_plain(q, g.beta, U0, n, g.swap))
+                     K.unshear_bp_packed_plain(q, g.beta, U0, n, g.swap), tol=0.0)
         base = torch.randn((1, n, n), generator=gen, device=dev)
         errs.compare(
             "K4p", tag + ", accumulate",
             K.unshear_bp_packed(q, g.beta, U0, n, g.swap, out=base.clone()),
-            K.unshear_bp_packed_plain(q, g.beta, U0, n, g.swap, out=base.clone()),
+            K.unshear_bp_packed_plain(q, g.beta, U0, n, g.swap, out=base.clone()), tol=0.0,
         )
 
 
@@ -643,6 +688,32 @@ def check_k1p_shapes(torch, K, errs, dev) -> None:
                            f"{n_angles} angles, {runs} runs of rows",
                     K.shear_fp_packed(rows, g.beta, g.prm.U0, g.prm.LU, splits),
                     K.shear_fp_packed_plain(rows, g.beta, g.prm.U0, g.prm.LU, splits), tol=0.0)
+
+
+def check_k4p_shapes(torch, K, errs, dev) -> None:
+    """K4p against its plain version, bit for bit, new and adding into a
+    slice: 520 columns (more than one column tile), 200 (less than one),
+    lines of q that are not 16-byte aligned (an LU that is no multiple of 4:
+    read from global memory), and 10 sparse angles."""
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops.projector import Projector
+
+    gen = torch.Generator(device=dev).manual_seed(84)
+    for n, n_angles, cut in ((520, 90, 0), (200, 90, 0), (512, 90, 2), (512, 10, 0), (1024, 10, 0)):
+        angles = np.linspace(0.0, np.pi, n_angles, endpoint=False)
+        for g in Projector(Geometry(n, 1, angles, 3.5, n))._plan.groups(n, n, dev, True):
+            require(g.prm.packed, f"a {n}^2 slice must take the packed pair")
+            LU = g.prm.LU - cut
+            q = torch.randn((g.prm.A, 1, LU), generator=gen, device=dev)
+            base = torch.randn((1, n, n), generator=gen, device=dev)
+            tag = f"{n}^2, {'y' if g.swap else 'x'}-driven, {g.prm.A} of {n_angles} angles, LU {LU}"
+            errs.compare("K4p", tag, K.unshear_bp_packed(q, g.beta, g.prm.U0, n, g.swap),
+                         K.unshear_bp_packed_plain(q, g.beta, g.prm.U0, n, g.swap), tol=0.0)
+            errs.compare(
+                "K4p", tag + ", accumulate",
+                K.unshear_bp_packed(q, g.beta, g.prm.U0, n, g.swap, out=base.clone()),
+                K.unshear_bp_packed_plain(q, g.beta, g.prm.U0, n, g.swap, out=base.clone()),
+                tol=0.0)
 
 
 def residual(torch, rt, x, b) -> float:
@@ -675,6 +746,8 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
         require(rel <= TOL_ADJOINT, f"2D adjointness {rel:.3e} > {TOL_ADJOINT:g}")
     print("[8] K1p at other row lengths, ny != nx, run counts and sparse angles, cor 3.5:")
     check_k1p_shapes(torch, K, errs, dev)
+    print("[8] K4p at other sizes, unaligned lines of q and sparse angles, cor 3.5:")
+    check_k4p_shapes(torch, K, errs, dev)
 
     # ---- 8b. 2D FBP and FISTA on the CPU and on the card -------------------
     angles90 = np.linspace(0.0, np.pi, 90, endpoint=False)
@@ -846,13 +919,13 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
             # within ~2560 eps / 2 = 7.6e-5 of the exact sum
             errs.compare("K1p", f"flagship, {label}, against K1", k1p(), k1(), tol=1e-4,
                          record=False)
-            errs.compare("K4p", f"flagship, {label}, against K4", k4p(), k4())
+            errs.compare("K4p", f"flagship, {label}, against K4", k4p(), k4(), tol=0.0)
             if tag == "OS subset 0":
                 measure("K1p", label, k1p, k1p_plain, work_shear(A, 1, N, N, LU), tol=0.0)
                 measure("K4p", label, k4p, k4p_plain, work_unshear(A, 1, N, LU), tol=0.0)
             else:
                 errs.compare("K1p", f"flagship, {label}", k1p(), k1p_plain(), tol=0.0)
-                errs.compare("K4p", f"flagship, {label}", k4p(), k4p_plain())
+                errs.compare("K4p", f"flagship, {label}", k4p(), k4p_plain(), tol=0.0)
                 print(f"[8] K1p shear_fp_packed, {label}: kernel {time_cuda(torch, k1p, 5):.3f} ms, "
                       f"plain {time_cuda(torch, k1p_plain, 1):.3f} ms")
                 print(f"[8] K4p unshear_bp_packed, {label}: kernel {time_cuda(torch, k4p, 5):.3f} ms, "
@@ -1001,6 +1074,8 @@ def main() -> int:
     check_k1_shapes(torch, K, errs, dev)
     print("[3] K4 at other slice counts, row counts and ny != nx, cor 3.5, 90 angles:")
     check_k4_shapes(torch, K, errs, dev)
+    print("[3] K3 with the angle gather (index) at 1, 3 and 8 slices, shuffled angles, cor 3.5:")
+    check_k3_shapes(torch, K, errs, dev)
     print("[3] PD-TV kernel, 20 iterations, lambda 0.05, L 12:")
     rng = np.random.default_rng(3)
     for nz in (1, 8):
@@ -1139,15 +1214,21 @@ def main() -> int:
                  "bound_ms": 0.0, "library_ms": None} for k in KERNELS}
 
     def measure(key, label, kern, plain, work, reps=10, plain_reps=2, check=True,
-                tol=TOL_KERNEL, library=None):
+                tol=TOL_KERNEL, library=None, small=False):
         """Time kern() beside plain() (and library(), one PyTorch call for the
         same function) and add them, and the bound of `work` = (operations,
-        bytes), to the kernel's sums."""
+        bytes), to the kernel's sums.  ``small``: a kernel that takes less
+        than the host needs to enqueue it is timed on the device alone, from
+        a CUDA graph; the time of calls enqueued one by one is printed too."""
         phase = "6" if key in ITERATIVE else "8" if key in TWO_D else "7"
         if check:
             errs.compare(key, f"flagship, {label}", kern(), plain(), tol=tol)
         t = times[key]
         t_kern = time_cuda(torch, kern, reps)
+        if small:
+            print(f"[{phase}] {key} {KERNELS[key][0]}, {label}: {t_kern:.3f} ms per call "
+                  f"enqueued one by one (the host's pace); on the device alone:")
+            t_kern = time_device(torch, kern)
         t_plain = time_cuda(torch, plain, plain_reps)
         ops_ms, bytes_ms = work[0] / PEAK_FLOPS * 1e3, work[1] / PEAK_BYTES * 1e3
         t["ms"] += t_kern
@@ -1167,21 +1248,25 @@ def main() -> int:
     t_copy = time_cuda(torch, lambda: x.transpose(1, 2).contiguous(), 10)
     print(f"[6] transposed copy of the volume, inside K1's y-driven time: {t_copy:.3f} ms")
     sub0 = Projector(rt.Atools._sub_geoms[0])
+    b0 = rt.Atools.sino_subset(data, 0)  # what bp_sub hands K3, with each group's idx
     for g in sub0._plan.groups(N, N, dev):
         U0, LU, A = g.prm.U0, g.prm.LU, g.prm.A
         label = f"{'y' if g.swap else 'x'}-driven {A} angles x {NZ} x LU {LU}"
         s = K.shear_fp_plain(x, g.beta, U0, LU, g.swap)
         p = K.resample_fp_plain(s, g.alpha, g.gamma, U0, N)
         q = K.resample_bp_plain(p, g.alpha, g.gamma, U0, LU)
+        errs.compare("K3", f"flagship, {label}, its own rows",
+                     K.resample_bp(p, g.alpha, g.gamma, U0, LU), q, tol=0.0)
         measure("K1", label, lambda: K.shear_fp(x, g.beta, U0, LU, g.swap),
                 lambda: K.shear_fp_plain(x, g.beta, U0, LU, g.swap),
                 work_shear(A, NZ, N, N, LU), tol=0.0)
         measure("K2", label, lambda: K.resample_fp(s, g.alpha, g.gamma, U0, N),
                 lambda: K.resample_fp_plain(s, g.alpha, g.gamma, U0, N),
-                work_resample(A, NZ, LU, N, 13))
-        measure("K3", label, lambda: K.resample_bp(p, g.alpha, g.gamma, U0, LU),
-                lambda: K.resample_bp_plain(p, g.alpha, g.gamma, U0, LU),
-                work_resample(A, NZ, LU, N, 26))
+                work_resample(A, NZ, LU, N, 13), small=True)
+        measure("K3", label + f", rows by index from {b0.shape[1]} angles",
+                lambda: K.resample_bp(b0, g.alpha, g.gamma, U0, LU, index=g.idx),
+                lambda: K.resample_bp_plain(b0, g.alpha, g.gamma, U0, LU, index=g.idx),
+                work_resample(A, NZ, LU, N, 26), tol=0.0, small=True)
         measure("K4", label, lambda: K.unshear_bp(q, g.beta, U0, N, N, g.swap),
                 lambda: K.unshear_bp_plain(q, g.beta, U0, N, N, g.swap),
                 work_unshear(A, NZ, N, LU), tol=0.0)
@@ -1197,7 +1282,6 @@ def main() -> int:
     # one OS subset of the FISTA step by stage (CUDA events), as phase 8 does
     from tomobar_tpu_torch.regularisers import PD_TV
 
-    b0 = rt.Atools.sino_subset(data, 0)
     stages = {
         "fp_sub (K1 x2, K2 x2)": lambda: rt.Atools.fp_sub(x, 0),
         "bp_sub (K3 x2, K4 x2)": lambda: rt.Atools.bp_sub(b0, 0),

@@ -148,6 +148,44 @@ def test_tools_match_jax():
     )
 
 
+@pytest.mark.parametrize("cupyrun", [None, False, True], ids=["default", "cupyrun=False", "cupyrun=True"])
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_tools_take_numpy_and_cupyrun_as_jax(ndim, cupyrun):
+    """``apply_circular_mask``, ``apply_horiz_detector_padding`` and
+    ``check_kwargs`` take what the JAX package's take: a numpy array (and give
+    a numpy array back) and the ``cupyrun`` argument, positional or by name.
+    The same numpy inputs through both packages, exact equality; a tensor in
+    gives the same values as a tensor."""
+    rng = np.random.default_rng(29 + ndim)
+    vol = rng.standard_normal((2, 40, 40)[3 - ndim:]).astype(np.float32)
+    sino = rng.standard_normal((2, 7, 30)[3 - ndim:]).astype(np.float32)
+    extra = () if cupyrun is None else (cupyrun,)
+    named = {} if cupyrun is None else {"cupyrun": cupyrun}
+    for radius in (1.0, 0.8, 2.0):
+        ref = np.asarray(jax_tools.apply_circular_mask(vol, radius, *extra))
+        for got in (tools.apply_circular_mask(vol, radius, *extra),
+                    tools.apply_circular_mask(vol, radius, **named),
+                    tools.check_kwargs(vol, recon_mask_radius=radius, **named)):
+            assert isinstance(got, np.ndarray) and got.dtype == ref.dtype
+            np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(
+            np.asarray(jax_tools.check_kwargs(vol, recon_mask_radius=radius, **named)), ref)
+        as_tensor = tools.check_kwargs(torch.from_numpy(vol), recon_mask_radius=radius, **named)
+        assert isinstance(as_tensor, torch.Tensor)
+        np.testing.assert_array_equal(as_tensor.numpy(), ref)
+    assert tools.check_kwargs(vol, recon_mask_radius=None, **named) is vol
+    for pad in (0, 4):
+        ref = np.asarray(jax_tools.apply_horiz_detector_padding(sino, pad, *extra))
+        for got in (tools.apply_horiz_detector_padding(sino, pad, *extra),
+                    tools.apply_horiz_detector_padding(sino, pad, **named)):
+            assert isinstance(got, np.ndarray) and got.dtype == ref.dtype
+            np.testing.assert_array_equal(got, ref)
+        as_tensor = tools.apply_horiz_detector_padding(torch.from_numpy(sino), pad, *extra)
+        np.testing.assert_array_equal(as_tensor.numpy(), ref)
+    np.testing.assert_array_equal(tools.perform_recon_crop(vol, 30),
+                                  jax_tools.perform_recon_crop(vol, 30))
+
+
 def test_convert_checks_layout_and_dtype():
     jg = JaxGeometry(
         detectors_x=N, detectors_y=NZ, angles=np.linspace(0, np.pi, 5),
@@ -190,3 +228,16 @@ def test_cuda_device_raises_without_cuda():
         RecToolsIRCuPy(N, 0, NZ, 0.0, angles, N)
     with pytest.raises(RuntimeError, match="CUDA"):
         RecToolsIRCuPy(N, 0, NZ, 0.0, angles, N, device="cuda")
+
+
+@pytest.mark.parametrize("size", [37, 64, 301])
+def test_circular_mask_made_by_torch_equals_the_numpy_mask(size):
+    """A tensor's mask is made with torch where the tensor lies; it must be
+    the JAX package's numpy mask exactly, at every radius, also where a
+    pixel's distance equals the limit (odd and even sizes)."""
+    ones = np.ones((size, size), np.float32)
+    for radius in (0.3, 0.5, 0.8, 0.95, 1.0, 1.2, 2.0):
+        ref = np.asarray(jax_tools.apply_circular_mask(ones, radius))
+        got = tools.apply_circular_mask(torch.from_numpy(ones), radius)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        np.testing.assert_array_equal(tools.apply_circular_mask(ones, radius), ref)

@@ -1,4 +1,5 @@
-"""Index arithmetic of the K1, K4, PD and F CUDA kernels, emulated in numpy.
+"""Index arithmetic of the K1, K1p, K3, K4, K4p, PD, G and F CUDA kernels,
+emulated in numpy.
 
 The kernels of ``tomobar_tpu_torch/csrc`` run only on a GPU.  What can go
 wrong in them apart from the compiler is their index arithmetic: windows,
@@ -9,7 +10,8 @@ walk the same blocks, bands, batches, stages and thread items as
 ``pd_tv_kernel`` (csrc/pd_tv.cu) and ``fft_axis2_kernel``
 (csrc/fft_axis2.cu), formula for formula, on the CPU:
 
-* K1 and K4 must equal ``shear_fp_plain`` and ``unshear_bp_plain`` bit for
+* K1, K3, K4 and K4p must equal ``shear_fp_plain``, ``resample_bp_plain``,
+  ``unshear_bp_plain`` and ``unshear_bp_packed_plain`` bit for
   bit (float32, every product and sum rounded on its own, rows or angles
   summed in ascending order);
 * PD must agree with ``pd_tv_plain`` within 1e-6 of the maximum (1e-3 with
@@ -296,6 +298,31 @@ def test_k1p_shares_k1s_block_shape():
     assert [cu_const("projector.cu", n) for n in ("kP1U", "kP1A", "kP1R", "kP1W")] == [
         K1_U, K1_A, K1_R, K1_W]
     assert cu_const("projector.cu", "kP1R") == PK.K1P_BAND
+
+
+def test_k4p_shares_k4s_block():
+    """K4 and K4p are two instantiations of one block, unshear_bp_block, each
+    at a shape of its own; the source holds one sum loop for both."""
+    import os
+    import re
+
+    import tomobar_tpu_torch
+
+    path = os.path.join(os.path.dirname(tomobar_tpu_torch.__file__), "csrc", "projector.cu")
+    with open(path) as fh:
+        src = fh.read()
+    assert len(re.findall(r"void unshear_bp_block\(", src)) == 1
+    assert re.findall(r"unshear_bp_block<(\w+), (\w+)>\(", src) == [
+        ("K4Shape", "Z"), ("K4pShape", "1")]
+    assert "using K4Shape = UnshearShape<kK4R, kK4J, kK4AZ, 0>;" in src
+    assert "using K4pShape = UnshearShape<kP4R, kP4J, kP4A, kP4Planes>;" in src
+    assert K4.W == K4.C + 16 and K4P.R == 8 and K4P.J % 8 == 0
+    # the plane layout: 32 consecutive window elements fall in 32 banks, and a
+    # warp's reads of one plane are consecutive words
+    S = unshear_shape(8, 8, 32, 1)
+    w = np.arange(32)
+    assert len(set(((w % 8) * S.plane + w // 8) % 32)) == 32
+    assert S.plane >= S.W // 8 and S.plane % 32 == 4
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 5])
@@ -630,102 +657,197 @@ def cu_const(source, name):
 
 
 # ---------------------------------------------------------------------------
-# K4: csrc/projector.cu, unshear_bp_kernel
+# K4 and K4p: csrc/projector.cu, unshear_bp_block in the shapes of
+# unshear_bp_kernel and unshear_bp_packed_kernel
 # ---------------------------------------------------------------------------
 
+from types import SimpleNamespace  # noqa: E402
+
+
+def unshear_shape(R, J, AZ, planes):
+    """UnshearShape<R, J, AZ, PLANES> of projector.cu."""
+    C = 32 * J
+    W = C + 2 * R
+    plane = (W // J + 27) // 32 * 32 + 4
+    win = J * plane + 1 if planes else W
+    assert 2 * R >= R + 4 and W % 4 == 0 and (not planes or W % J == 0)
+    assert AZ * win >= C * (R + 1)  # the turned tile fits a window buffer
+    assert (32 * R) % AZ == 0 and AZ % 2 == 0 and R % 4 == 0 and J % 4 == 0
+    assert not planes or J == 8
+    return SimpleNamespace(R=R, J=J, C=C, AZ=AZ, W=W, planes=bool(planes), plane=plane,
+                           win=win, threads=32 * R, buf=AZ * win)
+
+
+def unshear_col(S, x, k):
+    """UnshearShape::col(): column of the tile that thread x holds in acc[k]."""
+    return x * S.J + k if S.planes else x + 32 * k
+
+
 K4_R, K4_J, K4_AZ = (cu_const("projector.cu", n) for n in ("kK4R", "kK4J", "kK4AZ"))
-K4_C = 32 * K4_J
-K4_W = K4_C + 16  # kK4W
+K4 = unshear_shape(K4_R, K4_J, K4_AZ, 0)  # K4Shape
+K4P = unshear_shape(*(cu_const("projector.cu", n)
+                      for n in ("kP4R", "kP4J", "kP4A", "kP4Planes")))  # K4pShape
 K4_GLOBAL = None  # kK4Global
 
 
-def k4_stage(q, beta, dst, sbeta, sbase, b, Z, z0, r0, c0, cy, U0, aligned, stats):
-    """k4_stage(): the windows of angle batch b, 16-byte chunks, zero-filled
-    outside [0, LU); an angle whose window does not fit is marked."""
+def k4_window(S, bt, r0, c0, cy, U0, aligned):
+    """k4_window(): (lo4, fits) of one angle's window for a block's rows."""
+    o_first = int(row_shift(bt, r0, cy, U0)[0])
+    o_last = int(row_shift(bt, r0 + S.R - 1, cy, U0)[0])
+    lo4 = (min(o_first, o_last) + c0 - 1) & ~3
+    return lo4, aligned and max(o_first, o_last) + c0 + S.C - 1 - lo4 < S.W
+
+
+def k4_stage(S, q, beta, dst, sbeta, sbase, b, Z, z0, r0, c0, cy, U0, aligned, stats):
+    """k4_stage(): the windows of angle batch b, zero-filled outside [0, LU),
+    in 16-byte chunks as they lie in q or element by element into planes; an
+    angle whose window does not fit is marked."""
     A, nz, LU = q.shape
-    K4_A = K4_AZ // Z
-    for i in range(K4_A):
-        a = b * K4_A + i
+    kA = S.AZ // Z
+    for i in range(kA):
+        a = b * kA + i
         if a >= A:
             continue
-        o_first = int(row_shift(beta[a], r0, cy, U0)[0])
-        o_last = int(row_shift(beta[a], r0 + K4_R - 1, cy, U0)[0])
-        lo4 = (min(o_first, o_last) + c0 - 1) & ~3
-        fits = aligned and max(o_first, o_last) + c0 + K4_C - 1 - lo4 < K4_W
+        lo4, fits = k4_window(S, beta[a], r0, c0, cy, U0, aligned)
         sbeta[i] = beta[a]
         sbase[i] = lo4 if fits else K4_GLOBAL
         stats["staged" if fits else "global"] += 1
         if not fits:
             continue
         for zz in range(Z):
-            for c in range(K4_W // 4):
-                u = lo4 + 4 * c
-                dst[zz, i, 4 * c : 4 * c + 4] = q[a, z0 + zz, u : u + 4] if 0 <= u < LU else 0.0
+            d = dst[zz, i]
+            if S.planes:
+                for lane in range(32):
+                    dw = (lane % S.J) * S.plane + lane // S.J
+                    for w in range(lane, S.W, 32):
+                        u = lo4 + w
+                        assert dw == (w % S.J) * S.plane + w // S.J
+                        d[dw] = q[a, z0 + zz, u] if 0 <= u < LU else 0.0
+                        dw += 32 // S.J
+            else:
+                for c in range(S.W // 4):
+                    u = lo4 + 4 * c
+                    d[4 * c : 4 * c + 4] = q[a, z0 + zz, u : u + 4] if 0 <= u < LU else 0.0
 
 
-def k4_block(q, beta, vol, bx, by, bz, Z, U0, ny, nx, swap, accumulate, aligned, stats):
+def k4_block(S, q, beta, vol, bx, by, bz, Z, U0, ny, nx, swap, accumulate, aligned,
+             vol_aligned, stats):
+    """unshear_bp_block<S, Z>(): one block of K4 or K4p."""
     A, nz, LU = q.shape
-    K4_A = K4_AZ // Z
+    kA = S.AZ // Z
     n_rows, row_len = (nx, ny) if swap else (ny, nx)
-    c0, r0, z0 = bx * K4_C, by * K4_R, bz * Z
+    c0, r0, z0 = bx * S.C, by * S.R, bz * Z
     cy = f32(0.5) * f32(n_rows - 1)
-    n_batches = (A + K4_A - 1) // K4_A
-    cols = np.arange(32)[None, :] + 32 * np.arange(K4_J)[:, None]  # [k, x]
-    acc = np.zeros((Z, K4_R, K4_J, 32), dtype=f32)
-    buf = np.full((2, Z, K4_A, K4_W), np.nan, dtype=f32)
-    sbeta = np.full((2, K4_A), np.nan, dtype=f32)
-    sbase = [[None] * K4_A, [None] * K4_A]
+    n_batches = (A + kA - 1) // kA
+    lanes = np.arange(32)
+    cols = np.array([[unshear_col(S, x, k) for x in range(32)] for k in range(S.J)])  # [k, x]
+    acc = np.zeros((Z, S.R, S.J, 32), dtype=f32)
+    smem = np.full((2, S.buf), np.nan, dtype=f32)  # the two window buffers
+    buf = smem[:, : Z * kA * S.win].reshape(2, Z, kA, S.win)
+    sbeta = np.full((2, kA), np.nan, dtype=f32)
+    sbase = [[None] * kA, [None] * kA]
+
+    def stage(b, parity):
+        k4_stage(S, q, beta, buf[parity], sbeta[parity], sbase[parity], b, Z, z0, r0, c0, cy,
+                 U0, aligned, stats)
+
     if n_batches:
-        k4_stage(q, beta, buf[0], sbeta[0], sbase[0], 0, Z, z0, r0, c0, cy, U0, aligned, stats)
+        stage(0, 0)
     for b in range(n_batches):
         parity = b & 1
         if b + 1 < n_batches:
-            k4_stage(q, beta, buf[parity ^ 1], sbeta[parity ^ 1], sbase[parity ^ 1],
-                     b + 1, Z, z0, r0, c0, cy, U0, aligned, stats)
-        for i in range(min(K4_A, A - b * K4_A)):
-            for y in range(K4_R):  # rows past n_rows are summed too, and never stored
+            stage(b + 1, parity ^ 1)
+        for i in range(min(kA, A - b * kA)):
+            for y in range(S.R):  # rows past n_rows are summed too, and never stored
                 o, f = row_shift(sbeta[parity, i], r0 + y, cy, U0)
                 o, f = int(o), f32(f)
                 g = f32(1.0) - f
-                u = o + c0 + cols
                 lo4 = sbase[parity][i]
                 for zz in range(Z):
-                    if lo4 is not K4_GLOBAL:
-                        idx = u - lo4
-                        assert idx.min() >= 1 and idx.max() < K4_W
-                        w = buf[parity, zz, i]
+                    w = buf[parity, zz, i]
+                    if lo4 is not K4_GLOBAL and S.planes:
+                        m = o + c0 - 1 - lo4
+                        assert m >= 0
+                        base = m // S.J + lanes
+                        v = [w[(m % S.J + j) % S.J * S.plane + (m % S.J + j) // S.J + base]
+                             for j in range(S.J + 1)]
+                        stats["loads"] += S.J + 1
+                        for k in range(S.J):
+                            acc[zz, y, k] += g * v[k + 1] + f * v[k]
+                    elif lo4 is not K4_GLOBAL:
+                        idx = o + c0 + lanes[None, :] + 32 * np.arange(S.J)[:, None] - lo4
+                        assert idx.min() >= 1 and idx.max() < S.W
+                        stats["loads"] += 2 * S.J
                         acc[zz, y] += g * w[idx] + f * w[idx - 1]
                     else:
-                        line = q[b * K4_A + i, z0 + zz]
+                        u = o + c0 + cols
+                        line = q[b * kA + i, z0 + zz]
                         q0 = np.where((u >= 0) & (u < LU), line[np.clip(u, 0, LU - 1)], f32(0))
                         q1 = np.where((u >= 1) & (u - 1 < LU), line[np.clip(u - 1, 0, LU - 1)], f32(0))
                         acc[zz, y] += g * q0 + f * q1
+
+    def add(old, v):
+        return old + v if accumulate else v
+
+    if not swap:
+        for zz in range(Z):
+            for y in range(S.R):
+                row = r0 + y
+                if row >= n_rows:
+                    continue
+                out = vol[z0 + zz, row]
+                for x in range(32):
+                    col0 = c0 + unshear_col(S, x, 0)
+                    if S.planes and vol_aligned and col0 + S.J <= row_len:
+                        assert (row * nx + col0) % 4 == 0  # 16-byte stores
+                        out[col0 : col0 + S.J] = add(out[col0 : col0 + S.J], acc[zz, y, :, x])
+                        continue
+                    for k in range(S.J):
+                        col = c0 + unshear_col(S, x, k)
+                        if col < row_len:
+                            out[col] = add(out[col], acc[zz, y, k, x])
+        return
+    # y-driven: the tile is turned in the first window buffer
+    turn = smem[0]
     for zz in range(Z):
-        for y in range(K4_R):
-            row = r0 + y
-            if row >= n_rows:
+        turn[:] = np.nan
+        for y in range(S.R):
+            for k in range(S.J):
+                turn[(lanes + 32 * k) * (S.R + 1) + y] = acc[zz, y, k]
+        for e in range(S.C):  # thread e % threads, in turns
+            col = c0 + unshear_col(S, e % 32, e // 32)
+            if col >= row_len:
                 continue
-            col = c0 + cols
-            ok = col < row_len
-            target = vol[z0 + zz, :, row] if swap else vol[z0 + zz, row, :]
-            v = acc[zz, y][ok]
-            target[col[ok]] = target[col[ok]] + v if accumulate else v
+            t = turn[e * (S.R + 1) : e * (S.R + 1) + S.R]
+            out = vol[z0 + zz, col]
+            if vol_aligned and r0 + S.R <= n_rows:
+                assert (col * nx + r0) % 4 == 0
+                out[r0 : r0 + S.R] = add(out[r0 : r0 + S.R], t)
+            else:
+                for i in range(min(S.R, n_rows - r0)):
+                    out[r0 + i] = add(out[r0 + i], t[i])
 
 
-def k4_emulated(q, beta, U0, ny, nx, swap, out=None):
-    """unshear_bp() on a CUDA tensor, block by block."""
+def unshear_emulated(S, q, beta, U0, ny, nx, swap, out=None, single=False):
+    """unshear_bp() (or, with ``single``, unshear_bp_packed(): one slice per
+    block) on a CUDA tensor, block by block."""
     A, nz, LU = q.shape
     n_rows, row_len = (nx, ny) if swap else (ny, nx)
     aligned = LU % 4 == 0  # numpy lines start 16-byte aligned, as torch's do
+    vol_aligned = nx % 4 == 0
     vol = np.full((nz, ny, nx), np.nan, dtype=f32) if out is None else out.copy()
-    stats = {"staged": 0, "global": 0}
-    Z = 2 if nz % 2 == 0 else 1  # slices per block
+    stats = {"staged": 0, "global": 0, "loads": 0}
+    Z = 2 if nz % 2 == 0 and not single else 1  # slices per block
     for bz in range(nz // Z):
-        for by in range((n_rows + K4_R - 1) // K4_R):
-            for bx in range((row_len + K4_C - 1) // K4_C):
-                k4_block(q, beta, vol, bx, by, bz, Z, U0, ny, nx, swap, out is not None,
-                         aligned, stats)
+        for by in range((n_rows + S.R - 1) // S.R):
+            for bx in range((row_len + S.C - 1) // S.C):
+                k4_block(S, q, beta, vol, bx, by, bz, Z, U0, ny, nx, swap, out is not None,
+                         aligned, vol_aligned, stats)
     return vol, stats
+
+
+def k4_emulated(q, beta, U0, ny, nx, swap, out=None):
+    return unshear_emulated(K4, q, beta, U0, ny, nx, swap, out)
 
 
 @pytest.mark.parametrize("accumulate", [False, True], ids=["new", "accumulate"])
@@ -742,7 +864,7 @@ def test_k4_emulation_bit_exact(nz, ny, nx, cor, group, accumulate):
     groups, adding into a volume."""
     _, groups = k1_case(nz, ny, nx, 80, cor, seed=nz + ny)
     g = groups[0 if group == "x-driven" else 1]
-    assert g.swap == (group == "y-driven") and g.prm.A > K4_AZ
+    assert g.swap == (group == "y-driven") and g.prm.A > K4.AZ
     rng = np.random.default_rng(nx + nz)
     q = rng.standard_normal((g.prm.A, nz, g.prm.LU)).astype(f32)
     base = rng.standard_normal((nz, ny, nx)).astype(f32) if accumulate else None
@@ -782,6 +904,235 @@ def test_k4_wrapper_on_cpu_is_the_plain_version():
         q = torch.as_tensor(rng.standard_normal((g.prm.A, 2, g.prm.LU)).astype(f32))
         assert torch.equal(PK.unshear_bp(q, g.beta, g.prm.U0, 24, 24, g.swap),
                            PK.unshear_bp_plain(q, g.beta, g.prm.U0, 24, 24, g.swap))
+
+
+# ---------------------------------------------------------------------------
+# K4p: csrc/projector.cu, unshear_bp_packed_kernel (K4's block on one slice)
+# ---------------------------------------------------------------------------
+
+
+K4P_LAYOUTS = {"interleaved": (K4P.J, K4P.AZ, 0), "planes": (8, 32, 1)}
+
+
+def k4p_shape(layout):
+    """K4pShape with the window as it lies in q (at the kernel's own sizes),
+    or in planes (8 columns per thread, 32 angles per batch: built, timed,
+    and not the one kept)."""
+    return unshear_shape(K4P.R, *K4P_LAYOUTS[layout])
+
+
+@pytest.mark.parametrize("layout", list(K4P_LAYOUTS))
+@pytest.mark.parametrize("accumulate", [False, True], ids=["new", "accumulate"])
+@pytest.mark.parametrize("group", ["x-driven", "y-driven"])
+@pytest.mark.parametrize("cor", [2.5, "per-angle"], ids=["scalar-cor", "per-angle-cor"])
+@pytest.mark.parametrize("n", [40, 520], ids=["one-column-tile", "more-column-tiles"])
+def test_k4p_emulation_bit_exact(n, cor, group, accumulate, layout):
+    """K4p's block equals unshear_bp_packed_plain bit for bit in both window
+    layouts: 40 angles per group (full batches and a ragged one in two
+    buffers; 12 per group at 520 columns), zero-filled windows with NaN in
+    whatever was not staged, one column tile and two (three of 256 columns), the y-driven tile turned in shared memory, adding into
+    a slice.  The plane layout reads 9 values for 8 terms, the other two
+    per term."""
+    _, groups = k1_case(1, n, n, 80 if n == 40 else 24, cor, seed=n)
+    g = groups[0 if group == "x-driven" else 1]
+    S = k4p_shape(layout)
+    assert g.swap == (group == "y-driven") and (g.prm.A > S.AZ or n > 40)
+    rng = np.random.default_rng(n + len(layout))
+    q = rng.standard_normal((g.prm.A, 1, g.prm.LU)).astype(f32)
+    base = rng.standard_normal((1, n, n)).astype(f32) if accumulate else None
+    ref = PK.unshear_bp_packed_plain(
+        torch.as_tensor(q), g.beta, g.prm.U0, n, g.swap,
+        out=None if base is None else torch.as_tensor(base.copy())).numpy()
+    got, stats = unshear_emulated(S, q, g.prm.beta, g.prm.U0, n, n, g.swap, out=base, single=True)
+    assert np.array_equal(got, ref)
+    assert stats["staged"] > 0 and stats["global"] == 0
+    rows = -(-n // S.R) * S.R
+    per_term = stats["loads"] / (g.prm.A * rows * -(-n // S.C) * S.J)
+    assert per_term == ((S.J + 1) / S.J if S.planes else 2)
+
+
+@pytest.mark.parametrize("layout", list(K4P_LAYOUTS))
+@pytest.mark.parametrize("case", ["steep-angles", "unaligned-lines"])
+def test_k4p_emulation_from_global_memory(case, layout):
+    """|beta| > 1 (an angle's 8 rows shift by more than the window allows) and
+    lines of q that are not 16-byte aligned (LU % 4 != 0) are summed from
+    global memory with the same arithmetic, in either layout, new and added."""
+    rng = np.random.default_rng(12)
+    n = 40
+    beta = np.array([-0.9, 2.5, 0.3, -3.0, 1.0, 0.0] if case == "steep-angles"
+                    else [-0.9, 0.3, 1.0], dtype=f32)
+    U0 = 128
+    LU = 512 if case == "steep-angles" else 510
+    for swap in (False, True):
+        for accumulate in (False, True):
+            q = rng.standard_normal((beta.shape[0], 1, LU)).astype(f32)
+            base = rng.standard_normal((1, n, n)).astype(f32) if accumulate else None
+            ref = PK.unshear_bp_packed_plain(
+                torch.as_tensor(q), torch.as_tensor(beta), U0, n, swap,
+                out=None if base is None else torch.as_tensor(base.copy())).numpy()
+            got, stats = unshear_emulated(k4p_shape(layout), q, beta, U0, n, n, swap, out=base,
+                                          single=True)
+            assert np.array_equal(got, ref)
+            assert stats["global"] > 0
+            assert (stats["staged"] > 0) == (case == "steep-angles")
+
+
+def test_k4p_wrapper_on_cpu_is_the_plain_version():
+    _, groups = k1_case(1, 24, 24, 12, 0.0, seed=1)
+    rng = np.random.default_rng(3)
+    for g in groups:
+        q = torch.as_tensor(rng.standard_normal((g.prm.A, 1, g.prm.LU)).astype(f32))
+        base = torch.as_tensor(rng.standard_normal((1, 24, 24)).astype(f32))
+        assert torch.equal(PK.unshear_bp_packed(q, g.beta, g.prm.U0, 24, g.swap),
+                           PK.unshear_bp_plain(q, g.beta, g.prm.U0, 24, 24, g.swap))
+        assert torch.equal(
+            PK.unshear_bp_packed(q, g.beta, g.prm.U0, 24, g.swap, out=base.clone()),
+            PK.unshear_bp_packed_plain(q, g.beta, g.prm.U0, 24, g.swap, out=base.clone()))
+
+
+# ---------------------------------------------------------------------------
+# K3: csrc/projector.cu, resample_bp_kernel
+# ---------------------------------------------------------------------------
+
+K3_V = cu_const("projector.cu", "kK3V")
+K3_THREADS = cu_const("projector.cu", "kThreads")
+
+
+def k3_emulated(p, alpha, gamma, U0, LU, index=None):
+    """resample_bp() on a CUDA tensor: every thread of every (angle, slice)
+    line, the threads of a line side by side in numpy.  A value of p that a
+    thread has no business reading is NaN."""
+    nz, n_rows, det_x = p.shape
+    A = n_rows if index is None else index.shape[0]
+    vec = LU % K3_V == 0
+    tiles = (LU + K3_THREADS * K3_V - 1) // (K3_THREADS * K3_V)
+    u0 = np.arange(tiles * K3_THREADS) * K3_V
+    u0 = u0[u0 < LU]
+    q = np.full((A, nz, LU), np.nan, dtype=f32)
+    stats = {"idle": 0, "working": 0, "steps": 0, "most_steps": 0}
+    for a in range(A):
+        al = f32(alpha[a])
+        aa = np.abs(al)
+        base = f32(U0) + f32(gamma[a])
+        ends = [base + al * f32(0), base + al * f32(det_x - 1)]
+        u_lo, u_hi = int(np.floor(min(ends))), int(np.ceil(max(ends)))
+        work = (u0 + K3_V - 1 >= u_lo) & (u0 <= u_hi) & (det_x > 0)
+        stats["idle"] += nz * int((~work).sum())
+        stats["working"] += nz * int(work.sum())
+        row = a if index is None else int(index[a])
+        up = al > 0
+        edge = (u0 - 1 if up else u0 + K3_V).astype(f32)
+        t_first = np.maximum(np.floor((edge - base) / al).astype(np.int64) - 1, 0)
+        for z in range(nz):
+            src = p[z, row]
+            acc = np.zeros((K3_V, u0.shape[0]), dtype=f32)
+            t = t_first.copy()
+            active = work.copy()
+            steps = 0
+            while True:
+                active &= t < det_x
+                pos = base + al * t.astype(f32)
+                active &= ~(pos >= (u0 + K3_V).astype(f32) if up else pos <= (u0 - 1).astype(f32))
+                if not active.any():
+                    break
+                steps += 1
+                d = np.floor(pos).astype(np.int64) - u0
+                hit = active & (d >= -1) & (d < K3_V)
+                v = np.where(hit, src[np.clip(t, 0, det_x - 1)], f32(np.nan))
+                w0 = np.maximum(f32(0), f32(1) - np.abs(pos - (u0 + d).astype(f32)))
+                w1 = np.maximum(f32(0), f32(1) - np.abs(pos - (u0 + d + 1).astype(f32)))
+                with np.errstate(invalid="ignore"):
+                    c0, c1 = (aa * w0) * v, (aa * w1) * v
+                for k in range(K3_V):
+                    m0 = hit & (d == k) & (w0 > 0)
+                    acc[k, m0] = acc[k, m0] + c0[m0]
+                    m1 = hit & (d + 1 == k) & (w1 > 0)
+                    acc[k, m1] = acc[k, m1] + c1[m1]
+                stats["steps"] += int(active.sum())
+                t = t + 1
+            stats["most_steps"] = max(stats["most_steps"], steps)
+            for k in range(K3_V):
+                ok = u0 + k < LU
+                assert vec <= bool(ok.all())  # a 16-byte store stays inside the line
+                q[a, z, u0[ok] + k] = acc[k, ok]
+    return q, stats
+
+
+def k3_case(nz, ny, nx, cor, group, seed, n_angles=80):
+    _, groups = k1_case(nz, ny, nx, n_angles, cor, seed=seed)
+    g = groups[0 if group == "x-driven" else 1]
+    assert g.swap == (group == "y-driven")
+    det_x = max(ny, nx)
+    p = np.random.default_rng(seed).standard_normal((nz, n_angles, det_x)).astype(f32)
+    return g, p
+
+
+@pytest.mark.parametrize("gather", [False, True], ids=["own-rows", "index"])
+@pytest.mark.parametrize("group", ["x-driven", "y-driven"])
+@pytest.mark.parametrize("cor", [2.5, "per-angle"], ids=["scalar-cor", "per-angle-cor"])
+@pytest.mark.parametrize("nz,ny,nx", [(1, 40, 40), (3, 38, 44), (8, 16, 24), (2, 20, 300)],
+                         ids=["nz1", "nz3-rows%8!=0", "nz8", "ny!=nx-two-column-tiles"])
+def test_k3_emulation_bit_exact(nz, ny, nx, cor, group, gather):
+    """K3's threads equal resample_bp_plain bit for bit: four u per thread
+    whose candidates t are one shared run walked in ascending t, zeros outside
+    the angle's live range without arithmetic, alpha of both signs (the
+    x-driven group of a 180 degree scan has both), and the group's rows
+    gathered through ``index`` from the whole sinogram."""
+    g, p = k3_case(nz, ny, nx, cor, group, seed=nz + nx)
+    prm = g.prm
+    idx = g.idx.numpy()
+    assert (prm.alpha > 0).any() and ((prm.alpha < 0).any() or g.swap)
+    if gather:
+        ref = PK.resample_bp_plain(torch.as_tensor(p), g.alpha, g.gamma, prm.U0, prm.LU,
+                                   index=g.idx).numpy()
+        got, stats = k3_emulated(p, prm.alpha, prm.gamma, prm.U0, prm.LU, index=idx)
+    else:
+        own = np.ascontiguousarray(p[:, idx])
+        ref = PK.resample_bp_plain(torch.as_tensor(own), g.alpha, g.gamma, prm.U0, prm.LU).numpy()
+        got, stats = k3_emulated(own, prm.alpha, prm.gamma, prm.U0, prm.LU)
+    assert np.array_equal(got, ref)
+    assert stats["idle"] > 0 and stats["working"] > 0
+    # one shared run: at most 5 / |alpha| + 1 positions lie in a thread's
+    # (u0 - 1, u0 + 4), and at most two t before the first of them are walked
+    assert stats["most_steps"] <= K3_V + 2 + 2
+    assert stats["steps"] / stats["working"] < K3_V + 3
+
+
+@pytest.mark.parametrize("LU", [510, 513])
+def test_k3_emulation_scalar_stores(LU):
+    """An LU that is no multiple of 4 takes scalar stores: the last thread of
+    a line owns fewer than four u."""
+    rng = np.random.default_rng(LU)
+    theta = np.array([-0.7, -0.2, 0.0, 0.3, 0.75, np.pi - 0.5, np.pi + 0.1])
+    prm = PK.driven_params(np.cos(theta), np.sin(theta), np.linspace(-2.0, 2.0, 7), 200, 180, 200)
+    p = rng.standard_normal((2, 7, 200)).astype(f32)
+    ref = PK.resample_bp_plain(torch.as_tensor(p), torch.as_tensor(prm.alpha),
+                               torch.as_tensor(prm.gamma), prm.U0, LU).numpy()
+    got, _ = k3_emulated(p, prm.alpha, prm.gamma, prm.U0, LU)
+    assert np.array_equal(got, ref)
+
+
+def test_k3_emulation_is_the_transpose_of_k2():
+    """<K2 s, p> == <s, K3 p> with K3 as emulated (float64 sums of float32
+    products of the same weights)."""
+    g, p = k3_case(2, 40, 40, 2.5, "x-driven", seed=9)
+    prm = g.prm
+    own = np.ascontiguousarray(p[:, g.idx.numpy()])
+    s = np.random.default_rng(10).standard_normal((prm.A, 2, prm.LU)).astype(f32)
+    k2 = PK.resample_fp_plain(torch.as_tensor(s), g.alpha, g.gamma, prm.U0, 40).numpy()
+    k3, _ = k3_emulated(own, prm.alpha, prm.gamma, prm.U0, prm.LU)
+    lhs = np.sum(k2.astype(np.float64) * own)
+    rhs = np.sum(s.astype(np.float64) * k3)
+    assert abs(lhs - rhs) <= 1e-6 * abs(lhs)
+
+
+def test_k3_wrapper_on_cpu_is_the_plain_version():
+    g, p = k3_case(3, 24, 24, 0.0, "y-driven", seed=4, n_angles=12)
+    pt = torch.as_tensor(p)
+    own = pt[:, g.idx].contiguous()
+    ref = PK.resample_bp_plain(own, g.alpha, g.gamma, g.prm.U0, g.prm.LU)
+    assert torch.equal(PK.resample_bp(own, g.alpha, g.gamma, g.prm.U0, g.prm.LU), ref)
+    assert torch.equal(PK.resample_bp(pt, g.alpha, g.gamma, g.prm.U0, g.prm.LU, index=g.idx), ref)
 
 
 # ---------------------------------------------------------------------------

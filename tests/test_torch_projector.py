@@ -328,3 +328,57 @@ def test_unshear_bp_overwrites_or_adds():
     assert torch.equal(out, new)
     K.unshear_bp(q, g.beta, g.prm.U0, N, N, out=out)
     assert torch.equal(out, new + new)
+
+
+# ---------------------------------------------------------------------------
+# K3 gathers the group's angles itself
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nz", [1, 3])
+@pytest.mark.parametrize("driven", ["x", "y"])
+def test_resample_bp_index_equals_the_copied_rows(driven, nz):
+    """``resample_bp(p, ..., index=)`` on the whole sinogram equals
+    ``resample_bp(p[:, index], ...)`` bit for bit, and so does the plain
+    version; the group's angles lie scattered in the sinogram (a shuffled
+    scan, so the index is not sorted)."""
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops.projector import _Plan
+
+    rng = np.random.default_rng(50 + nz)
+    angles = rng.permutation(np.linspace(0.0, np.pi, 30, endpoint=False))
+    geom = Geometry(N, nz, angles, 1.5, N)
+    g = [gr for gr in _Plan(geom).groups(N, N, torch.device("cpu")) if gr.swap == (driven == "y")][0]
+    assert not bool((g.idx[1:] > g.idx[:-1]).all()) or g.idx.numel() < 30
+    sino = torch.from_numpy(rng.standard_normal((nz, 30, N)).astype(np.float32))
+    args = (g.alpha, g.gamma, g.prm.U0, g.prm.LU)
+    ref = K.resample_bp(sino[:, g.idx].contiguous(), *args)
+    assert ref.shape == (g.prm.A, nz, g.prm.LU)
+    assert torch.equal(K.resample_bp(sino, *args, index=g.idx), ref)
+    assert torch.equal(K.resample_bp_plain(sino, *args, index=g.idx), ref)
+    assert torch.equal(K.resample_bp_plain(sino[:, g.idx], *args), ref)
+
+
+@pytest.mark.parametrize("nz", [1, 4], ids=["packed-one-slice", "four-slices"])
+def test_bp_core_equals_the_copy_then_resample_path(nz):
+    """``_bp_core`` hands K3 the whole sinogram and each group's ``idx``; the
+    result equals, bit for bit, what it gave when it first copied each group's
+    angles out (``part[:, g.idx]``) and resampled the copy."""
+    from tomobar_tpu_torch.ops.projector import _Plan
+
+    g = _port_geom(cor=2.5, n_ang=44, nz=nz)
+    plan = _Plan(g)
+    groups = plan.groups(N, N, torch.device("cpu"), nz == 1)
+    assert len(groups) == 2 and all(gr.prm.packed == (nz == 1) for gr in groups)
+    rng = np.random.default_rng(60 + nz)
+    sino = torch.from_numpy(rng.standard_normal((nz, 44, N)).astype(np.float32))
+    before = torch.empty((nz, N, N))
+    for k, gr in enumerate(groups):
+        q = K.resample_bp(sino[:, gr.idx], gr.alpha, gr.gamma, gr.prm.U0, gr.prm.LU)
+        if gr.prm.packed:
+            K.unshear_bp_packed(q, gr.beta, gr.prm.U0, N, gr.swap, out=before, accumulate=k > 0)
+        else:
+            K.unshear_bp(q, gr.beta, gr.prm.U0, N, N, gr.swap, out=before, accumulate=k > 0)
+    assert torch.equal(plan._bp_core(sino), before)
+    assert torch.equal(radon_bp(sino[0] if nz == 1 else sino, g),
+                       before[0] if nz == 1 else before)

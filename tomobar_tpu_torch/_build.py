@@ -48,7 +48,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "tt_shear_fp": [_P] * 3 + [_I] * 6 + [_P],
     "tt_resample_fp": [_P] * 4 + [_I] * 5 + [_P],
-    "tt_resample_bp": [_P] * 4 + [_I] * 5 + [_P],
+    "tt_resample_bp": [_P] * 5 + [_I] * 6 + [_P],
     "tt_unshear_bp": [_P] * 3 + [_I] * 8 + [_P],
     "tt_shear_fp_packed": [_P] * 4 + [_I] * 6 + [_P],
     "tt_shear_fp_packed_band": [],

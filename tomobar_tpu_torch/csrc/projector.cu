@@ -19,9 +19,8 @@
 // Design.  Every kernel is a gather, so none needs atomics and every
 // result is deterministic.  The TPU kernels scattered with lane rolls and
 // banded MXU matmuls (bf16x3 operand split); here every tap is an fp32 load
-// and an fp32 multiply-add.  In K2 and K3 one thread owns one output
-// element.  K1 and K4 are built for this card (each has its own note above
-// it).  The y-driven angle group runs K1 on one transposed copy of the
+// and an fp32 multiply-add.  In K2 one thread owns one output element.  K1,
+// K3 and K4 are built for this card (each has its own note above it).  The y-driven angle group runs K1 on one transposed copy of the
 // volume (as the JAX package does) and K4 with y and x swapped by index
 // mapping.
 //
@@ -39,7 +38,8 @@
 // multiply and add is rounded on its own (the __f*_rn intrinsics stop nvcc
 // from contracting them into FMAs) and sums run in the plain versions'
 // order, so K2 and K3 compute bit-identical hat weights and stay exact
-// transposes, and each kernel can be held to its plain version tightly.
+// transposes, and each kernel can be held to its plain version tightly
+// (K1, K3, K4, K1p and K4p bit for bit).
 
 #include <climits>
 
@@ -61,17 +61,13 @@ __device__ __forceinline__ float det_pos(float base, float alpha, int t) {
   return __fadd_rn(base, __fmul_rn(alpha, static_cast<float>(t)));
 }
 
-// (1-f) a + f b with every product and sum rounded on its own (no FMA), in
-// the order the plain PyTorch versions evaluate it
-__device__ __forceinline__ float lerp_taps(float f, float a, float b) {
-  return __fadd_rn(__fmul_rn(__fsub_rn(1.f, f), a), __fmul_rn(f, b));
-}
-
 __device__ __forceinline__ float hat(float pos, int u) {
   return fmaxf(0.f, 1.f - fabsf(__fsub_rn(pos, static_cast<float>(u))));
 }
 
-// (1-f) a + f b as lerp_taps, with g = 1 - f taken once per (angle, row)
+// (1-f) a + f b with every product and sum rounded on its own (no FMA), in
+// the order the plain PyTorch versions evaluate it; g = 1 - f is taken once
+// per (angle, row)
 __device__ __forceinline__ float lerp_taps_g(float g, float f, float a, float b) {
   return __fadd_rn(__fmul_rn(g, a), __fmul_rn(f, b));
 }
@@ -123,7 +119,7 @@ __device__ __forceinline__ float lerp_taps_g(float g, float f, float a, float b)
 //    band when rows are not 16-byte aligned (row_len % 4 != 0), is summed
 //    from global memory with the same arithmetic.
 //
-// Per output the rows are summed in ascending r with lerp_taps' rounding,
+// Per output the rows are summed in ascending r with lerp_taps_g's rounding,
 // and a zero-filled tap adds +0, so K1 equals its plain version bit for bit.
 // ---------------------------------------------------------------------------
 
@@ -375,35 +371,106 @@ __global__ void resample_fp_kernel(const float* __restrict__ s,
                      __fmul_rn(__fmul_rn(aa, hat(pos, i + 1)), s1));
 }
 
-// K3: q[a, z, u] = |alpha| sum_{t < det_x} p[z, a, t] hat(pos_t - u).  Since
-// |alpha| >= 1, at most two t have |pos_t - u| < 1; they lie within one of
-// tc = (u - U0 - gamma) / alpha, and four candidates cover rounding.  u
-// outside the angle's live range gets an exact zero.
-__global__ void resample_bp_kernel(const float* __restrict__ p,
-                                   const float* __restrict__ alpha,
-                                   const float* __restrict__ gamma,
-                                   float* __restrict__ q, int A, int nz,
-                                   int LU, int det_x, int U0) {
-  const long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (idx >= static_cast<long long>(A) * nz * LU) return;
-  const int u = static_cast<int>(idx % LU);
-  const long long az = idx / LU;
-  const int z = static_cast<int>(az % nz);
-  const int a = static_cast<int>(az / nz);
+// ---------------------------------------------------------------------------
+// K3: q[a, z, u] = |alpha| sum_{t < det_x} p[z, row_a, t] hat(pos_t - u), the
+// exact transpose of K2.  row_a is a, or index[a] when the caller hands over
+// the whole sinogram (n_rows angles) and the group's angle positions in it:
+// the kernel then gathers the group's rows itself, and no copy of them is
+// made before the launch.
+//
+// What bounds it: bytes.  A group of 91 angles x 8 slices reads 7.5 MB of p
+// and writes 16.8 MB of q, 7 us at the card's memory rate, against 3 us for
+// its arithmetic.  So the design spends as little as it can beside the
+// store:
+//
+//  * A block owns kThreads * kK3V consecutive u of one (angle, slice) line
+//    (blockIdx.x is the line, blockIdx.y the tile of u), so the angle's
+//    alpha, base = U0 + gamma and row are found without a division per
+//    output.
+//  * A thread owns kK3V = 4 consecutive u and stores them as one float4
+//    (LU is a multiple of 128 from driven_params; any other LU, or a q that
+//    is not 16-byte aligned, takes scalar stores).
+//  * pos_t is monotone in t, so the u that any t reaches are
+//    [floor(min pos), ceil(max pos)], found from t = 0 and t = det_x - 1:
+//    a thread outside that range stores its zeros with no arithmetic (38%
+//    of the line at 2560 columns and LU 5760).
+//  * The t that reach a thread's four u are one short run (at most 5 /
+//    |alpha| + 1, |alpha| >= 1).  The thread walks it once, in ascending t
+//    from one float division: position, floor and the two hat weights are
+//    computed once per t, and the two weighted taps go to the u they belong
+//    to, i = floor(pos) and i + 1, as the plain version scatters them.
+//
+// Each u gets its (at most two) terms in ascending t, every product and sum
+// rounded on its own with K2's weights, so K3 equals its plain version bit
+// for bit (a sum of two terms from +0 does not depend on their order).
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W, on the device alone (calls replayed
+// from a CUDA graph; enqueued one by one from Python a call takes 0.020-0.026
+// ms of the host's time, more than the kernel), a group of 91 angles x 8
+// slices x LU 5760 from 2560 columns takes 0.011 ms on its own rows and
+// 0.011-0.012 ms gathering them through `index` (bound 0.007 ms), against
+// 0.025 ms for the design before it (a thread per u with four candidate t,
+// 4-byte stores, two 64-bit divisions per output) and 0.036 ms for that
+// design after the indexed copy of the group's angles, which every launch
+// then needed; one slice 0.003-0.004 against 0.005 / 0.007 ms.
+// ---------------------------------------------------------------------------
+
+constexpr int kK3V = 4;  // consecutive u per thread, one 16-byte store
+
+__global__ void __launch_bounds__(kThreads)
+resample_bp_kernel(const float* __restrict__ p, const float* __restrict__ alpha,
+                   const float* __restrict__ gamma,
+                   const long long* __restrict__ index, float* __restrict__ q,
+                   int nz, int n_rows, int LU, int det_x, int U0, int vec) {
+  const int line = blockIdx.x;  // a * nz + z
+  const int a = line / nz;
+  const int z = line - a * nz;
+  const int u0 = (blockIdx.y * kThreads + threadIdx.x) * kK3V;
+  if (u0 >= LU) return;
   const float al = alpha[a];
   const float aa = fabsf(al);
   const float base = __fadd_rn(static_cast<float>(U0), gamma[a]);
-  const int t0 = static_cast<int>(floorf((static_cast<float>(u) - base) / al)) - 1;
-  const float* row = p + (static_cast<long long>(z) * A + a) * det_x;
-  float acc = 0.f;
+  float acc[kK3V];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int t = t0 + k;
-    if (t < 0 || t >= det_x) continue;
-    const float w = hat(det_pos(base, al, t), u);
-    if (w > 0.f) acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(aa, w), row[t]));
+  for (int k = 0; k < kK3V; ++k) acc[k] = 0.f;
+  const float p_first = det_pos(base, al, 0);
+  const float p_last = det_pos(base, al, det_x - 1);
+  const int u_lo = static_cast<int>(floorf(fminf(p_first, p_last)));
+  const int u_hi = static_cast<int>(ceilf(fmaxf(p_first, p_last)));
+  if (det_x > 0 && u0 + kK3V - 1 >= u_lo && u0 <= u_hi) {
+    const long long row = index != nullptr ? index[a] : a;
+    const float* src = p + (static_cast<long long>(z) * n_rows + row) * det_x;
+    const bool up = al > 0.f;  // pos rises with t
+    // positions in (u0 - 1, u0 + kK3V) reach the thread's u; the first t
+    // that can lie there, less one for the rounding of the division
+    const float edge = static_cast<float>(up ? u0 - 1 : u0 + kK3V);
+    int t = max(static_cast<int>(floorf((edge - base) / al)) - 1, 0);
+    for (; t < det_x; ++t) {
+      const float pos = det_pos(base, al, t);
+      if (up ? pos >= static_cast<float>(u0 + kK3V) : pos <= static_cast<float>(u0 - 1))
+        break;
+      const int d = static_cast<int>(floorf(pos)) - u0;  // taps u0 + d and u0 + d + 1
+      if (d < -1 || d >= kK3V) continue;
+      const float v = src[t];
+      const float w0 = hat(pos, u0 + d);
+      const float w1 = hat(pos, u0 + d + 1);
+      const float c0 = __fmul_rn(__fmul_rn(aa, w0), v);
+      const float c1 = __fmul_rn(__fmul_rn(aa, w1), v);
+#pragma unroll
+      for (int k = 0; k < kK3V; ++k) {
+        if (d == k && w0 > 0.f) acc[k] = __fadd_rn(acc[k], c0);
+        if (d + 1 == k && w1 > 0.f) acc[k] = __fadd_rn(acc[k], c1);
+      }
+    }
   }
-  q[idx] = acc;
+  float* out = q + static_cast<long long>(line) * LU + u0;
+  if (vec) {  // LU % 4 == 0 and q 16-byte aligned
+    *reinterpret_cast<float4*>(out) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kK3V; ++k)
+      if (u0 + k < LU) out[k] = acc[k];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -420,13 +487,13 @@ __global__ void resample_bp_kernel(const float* __restrict__ p,
 // block walks the angles, not the rows.
 //
 //  * A block owns kK4R = 8 consecutive driven rows (one warp each) x
-//    kK4C = 256 columns of Z slices (two where nz is even, else one).  A thread owns kK4J = 8 columns 32
+//    32 kK4J = 256 columns of Z slices (two where nz is even, else one).  A thread owns kK4J = 8 columns 32
 //    apart (a warp covers 32 consecutive ones, so its shared-memory reads
 //    are conflict-free) and computes the row shift once per (row, angle) for
 //    all of them and for every slice of the block.
 //  * The angles go by in batches of kK4AZ / Z.  For one angle the block's 8 rows
 //    read one window of q: the shifts o_r of 8 consecutive rows differ by at
-//    most 8 when |beta| <= 1, so kK4C + 9 values.  The block stages the
+//    most 8 when |beta| <= 1, so 256 + 9 values.  The block stages the
 //    windows of a batch with 16-byte cp.async copies that zero-fill outside
 //    [0, LU); the window start is rounded down to a multiple of 4 so that
 //    source and destination are 16-byte aligned.  Two buffers: the copies of
@@ -441,7 +508,7 @@ __global__ void resample_bp_kernel(const float* __restrict__ p,
 //    block turns its 8 x 256 tile in shared memory and every thread stores
 //    runs of 8 rows, whole 32-byte sectors, instead of 4 bytes of each.
 //
-// Per voxel the angles are summed in ascending order with lerp_taps'
+// Per voxel the angles are summed in ascending order with lerp_taps_g's
 // rounding, and a zero-filled tap adds +0, so K4 equals its plain version
 // bit for bit and stays the exact transpose of K1.
 //
@@ -458,122 +525,210 @@ __global__ void resample_bp_kernel(const float* __restrict__ p,
 
 constexpr int kK4R = 8;              // driven rows per block, one warp each
 constexpr int kK4J = 8;              // columns per thread
-constexpr int kK4C = 32 * kK4J;      // columns per block
 constexpr int kK4AZ = 32;            // windows (angles x slices) staged per batch
-constexpr int kK4W = kK4C + 16;      // q window per angle, floats
-constexpr int kK4Threads = 32 * kK4R;
-constexpr int kK4Buf = kK4AZ * kK4W;  // one window buffer, floats
 constexpr int kK4Global = INT_MIN;   // base of an angle that is read from global memory
-static_assert(kK4Buf >= kK4C * (kK4R + 1), "the turned tile must fit a window buffer");
-static_assert(kK4Threads % kK4AZ == 0 && kK4AZ % 2 == 0 && kK4R % 4 == 0,
-              "thread and store layout");
+
+// The shape of a block: K4 and K4p run one schedule at their own sizes.
+// PLANES_ = 0: a window lies in shared memory as in q, and a thread owns kJ
+// columns 32 apart (two 4-byte loads per term).  PLANES_ = 1: a thread owns
+// kJ consecutive columns and the window is stored as kJ planes, element w in
+// plane w % kJ at index w / kJ (K4p's note says why).
+template <int R_, int J_, int AZ_, int PLANES_>
+struct UnshearShape {
+  static constexpr int kR = R_;            // driven rows per block, one warp each
+  static constexpr int kJ = J_;            // columns per thread
+  static constexpr int kC = 32 * J_;       // columns per block
+  static constexpr int kAZ = AZ_;          // windows (angles x slices) per batch
+  static constexpr int kPlanes = PLANES_;
+  // taps of R_ rows whose shifts differ by at most R_, from a start rounded
+  // down to a multiple of 4: kC + R_ + 4 values at most
+  static constexpr int kW = kC + 2 * R_;   // q window per angle, floats
+  // a plane's length is 4 mod 32, so that 32 consecutive w fall in 32 banks;
+  // one float between windows spreads the warps that stage side by side
+  static constexpr int kPlane = (kW / J_ + 27) / 32 * 32 + 4;
+  static constexpr int kWin = PLANES_ ? J_ * kPlane + 1 : kW;  // one window, floats
+  static constexpr int kThreads = 32 * R_;
+  static constexpr int kBuf = AZ_ * kWin;  // one window buffer, floats
+  static constexpr size_t kSmem =
+      sizeof(float) * (2 * kBuf + 2 * AZ_) + sizeof(int) * 2 * AZ_;
+  static_assert(2 * R_ >= R_ + 4 && kW % 4 == 0 && (!PLANES_ || kW % J_ == 0), "window width");
+  static_assert(kBuf >= kC * (R_ + 1), "the turned tile must fit a window buffer");
+  static_assert(kThreads % AZ_ == 0 && AZ_ % 2 == 0 && R_ % 4 == 0 && J_ % 4 == 0,
+                "thread and store layout");
+  // column of the tile that thread x holds in acc[k]
+  __device__ static __forceinline__ int col(int x, int k) {
+    return PLANES_ ? x * J_ + k : x + 32 * k;
+  }
+};
+using K4Shape = UnshearShape<kK4R, kK4J, kK4AZ, 0>;
+
+// 4-byte asynchronous copy to shared memory, zero-filled when bytes == 0
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+// window of one angle for the rows r0 .. r0 + kR - 1 of column tile c0: its
+// start lo4 (a multiple of 4), and whether it fits the staged width
+template <class S>
+__device__ __forceinline__ bool k4_window(float bt, int r0, int c0, float cy,
+                                          int U0, int aligned, int& lo4) {
+  int o_first, o_last;
+  float f;
+  row_shift(bt, r0, cy, U0, o_first, f);
+  row_shift(bt, r0 + S::kR - 1, cy, U0, o_last, f);
+  // taps u - 1 and u of u = o + col: from min o + c0 - 1 to max o + c0 + kC - 1
+  lo4 = (min(o_first, o_last) + c0 - 1) & ~3;
+  return aligned && max(o_first, o_last) + c0 + S::kC - 1 - lo4 < S::kW;
+}
 
 // start the copies of angle batch b's windows into `dst`, laid out
-// [slice of the block][angle of the batch][kK4W], and note each angle's
+// [slice of the block][angle of the batch][kWin], and note each angle's
 // beta and window start u (base[i], or kK4Global) for the threads that sum
-template <int Z>
+template <class S, int Z>
 __device__ __forceinline__ void k4_stage(const float* __restrict__ q,
                                          const float* __restrict__ beta,
                                          float* dst, float* sbeta, int* base,
                                          int b, int A, int nz, int z0, int LU,
                                          int r0, int c0, float cy, int U0,
                                          int aligned) {
-  constexpr int kK4A = kK4AZ / Z;          // angles per batch
-  constexpr int kPer = kK4Threads / kK4A;  // threads that share an angle
+  constexpr int kA = S::kAZ / Z;  // angles per batch
+  // interleaved: kPer threads share an angle and copy 16 bytes each;
+  // planes: a warp takes an angle and copies 4 bytes a lane
+  constexpr int kPer = S::kPlanes ? 32 : S::kThreads / kA;
+  constexpr int kStep = S::kPlanes ? S::kR : kA;  // angles taken side by side
   const int tid = threadIdx.y * 32 + threadIdx.x;
-  const int i = tid / kPer;
-  const int a = b * kK4A + i;
-  if (a >= A) return;
-  const float bt = beta[a];
-  int o_first, o_last;
-  float f;
-  row_shift(bt, r0, cy, U0, o_first, f);
-  row_shift(bt, r0 + kK4R - 1, cy, U0, o_last, f);
-  // taps u - 1 and u of u = o + col: from min o + c0 - 1 to max o + c0 + kK4C - 1
-  const int lo4 = (min(o_first, o_last) + c0 - 1) & ~3;
-  const bool fits = aligned && max(o_first, o_last) + c0 + kK4C - 1 - lo4 < kK4W;
-  if (tid % kPer == 0) {
-    sbeta[i] = bt;
-    base[i] = fits ? lo4 : kK4Global;
-  }
-  if (!fits) return;
-  for (int zz = 0; zz < Z; ++zz) {  // Z divides nz
-    const float* line = q + (static_cast<long long>(a) * nz + z0 + zz) * LU;
-    float* d = dst + (zz * kK4A + i) * kK4W;
-    for (int c = tid % kPer; c < kK4W / 4; c += kPer) {
-      const int u = lo4 + 4 * c;  // u % 4 == 0 and LU % 4 == 0
-      const bool ok = u >= 0 && u < LU;
-      cp_async16(d + 4 * c, ok ? line + u : q, ok ? 16 : 0);
+  for (int i = tid / kPer; i < kA; i += kStep) {
+    const int a = b * kA + i;
+    if (a >= A) return;
+    const float bt = beta[a];
+    int lo4;
+    const bool fits = k4_window<S>(bt, r0, c0, cy, U0, aligned, lo4);
+    if (tid % kPer == 0) {
+      sbeta[i] = bt;
+      base[i] = fits ? lo4 : kK4Global;
+    }
+    if (!fits) continue;
+    for (int zz = 0; zz < Z; ++zz) {  // Z divides nz
+      const float* line = q + (static_cast<long long>(a) * nz + z0 + zz) * LU;
+      float* d = dst + (zz * kA + i) * S::kWin;
+      if (S::kPlanes) {
+        // w = lane + 32 k lies in plane lane % kJ at index lane / kJ + (32 / kJ) k
+        float* dw = d + (tid % 32 % S::kJ) * S::kPlane + tid % 32 / S::kJ;
+        for (int w = tid % 32; w < S::kW; w += 32, dw += 32 / S::kJ) {
+          const int u = lo4 + w;
+          const bool ok = u >= 0 && u < LU;
+          cp_async4(dw, ok ? line + u : q, ok ? 4 : 0);
+        }
+      } else {
+        for (int c = tid % kPer; c < S::kW / 4; c += kPer) {
+          const int u = lo4 + 4 * c;  // u % 4 == 0 and LU % 4 == 0
+          const bool ok = u >= 0 && u < LU;
+          cp_async16(d + 4 * c, ok ? line + u : q, ok ? 16 : 0);
+        }
+      }
     }
   }
 }
 
-// Thread (x, y) of a block: driven row r0 + y, columns c0 + x + 32 k for
-// k < kK4J, slices z0 .. z0 + Z - 1.  Dynamic shared memory: two window
-// buffers of kK4Buf floats (the first is reused to turn the tile of the
+// the kJ + 1 taps of a thread's kJ consecutive columns from a window stored
+// in planes: v[j] is window element m + kJ x + j with S = m % kJ, and `b`
+// points at index m / kJ + x of plane 0, so every offset is an immediate
+template <class Sh, int S>
+__device__ __forceinline__ void k4_plane_taps(const float* b, float (&v)[Sh::kJ + 1]) {
+#pragma unroll
+  for (int j = 0; j <= Sh::kJ; ++j)
+    v[j] = b[(S + j) % Sh::kJ * Sh::kPlane + (S + j) / Sh::kJ];
+}
+
+// One block of the unshear sum.  Thread (x, y): driven row r0 + y, columns
+// c0 + S::col(x, k) for k < kJ, slices z0 .. z0 + Z - 1.  `smem`: two window
+// buffers of kBuf floats (the first is reused to turn the tile of the
 // y-driven group), then beta and the window start per angle of a batch,
 // twice.
-template <int Z>
-__global__ void __launch_bounds__(kK4Threads)
-unshear_bp_kernel(const float* __restrict__ q, const float* __restrict__ beta,
-                  float* __restrict__ vol, int A, int nz, int ny, int nx,
-                  int LU, int U0, int swap, int accumulate, int aligned,
-                  int vol_aligned) {
-  extern __shared__ __align__(16) float k4_smem[];
-  constexpr int kK4A = kK4AZ / Z;  // angles per batch
-  float* sbeta = k4_smem + 2 * kK4Buf;
-  int* sbase = reinterpret_cast<int*>(sbeta + 2 * kK4A);
+template <class S, int Z>
+__device__ __forceinline__ void unshear_bp_block(
+    const float* __restrict__ q, const float* __restrict__ beta,
+    float* __restrict__ vol, int A, int nz, int ny, int nx, int LU, int U0,
+    int swap, int accumulate, int aligned, int vol_aligned, float* smem) {
+  constexpr int kA = S::kAZ / Z;  // angles per batch
+  static_assert(!S::kPlanes || S::kJ == 8, "the plane layout is written for 8 columns");
+  float* sbeta = smem + 2 * S::kBuf;
+  int* sbase = reinterpret_cast<int*>(sbeta + 2 * kA);
   const int n_rows = swap ? nx : ny;
   const int row_len = swap ? ny : nx;
-  const int c0 = blockIdx.x * kK4C;
-  const int r0 = blockIdx.y * kK4R;
+  const int c0 = blockIdx.x * S::kC;
+  const int r0 = blockIdx.y * S::kR;
   const int z0 = blockIdx.z * Z;
   const int row = r0 + threadIdx.y;
   const float cy = 0.5f * static_cast<float>(n_rows - 1);
-  const int n_batches = (A + kK4A - 1) / kK4A;
+  const int n_batches = (A + kA - 1) / kA;
 
-  float acc[Z][kK4J];
+  float acc[Z][S::kJ];
 #pragma unroll
   for (int zz = 0; zz < Z; ++zz)
 #pragma unroll
-    for (int k = 0; k < kK4J; ++k) acc[zz][k] = 0.f;
+    for (int k = 0; k < S::kJ; ++k) acc[zz][k] = 0.f;
 
   if (n_batches > 0)
-    k4_stage<Z>(q, beta, k4_smem, sbeta, sbase, 0, A, nz, z0, LU, r0, c0, cy, U0, aligned);
+    k4_stage<S, Z>(q, beta, smem, sbeta, sbase, 0, A, nz, z0, LU, r0, c0, cy, U0, aligned);
   cp_async_commit();
   for (int b = 0; b < n_batches; ++b) {
     const int parity = b & 1;
     cp_async_wait_all();
     __syncthreads();  // batch b has landed; batch b - 1's buffer is free
     if (b + 1 < n_batches)
-      k4_stage<Z>(q, beta, k4_smem + (parity ^ 1) * kK4Buf, sbeta + (parity ^ 1) * kK4A,
-               sbase + (parity ^ 1) * kK4A, b + 1, A, nz, z0, LU, r0, c0, cy, U0, aligned);
+      k4_stage<S, Z>(q, beta, smem + (parity ^ 1) * S::kBuf, sbeta + (parity ^ 1) * kA,
+                     sbase + (parity ^ 1) * kA, b + 1, A, nz, z0, LU, r0, c0, cy, U0, aligned);
     cp_async_commit();
-    const int na = min(kK4A, A - b * kK4A);
-    const float* buf = k4_smem + parity * kK4Buf;
+    const int na = min(kA, A - b * kA);
+    const float* buf = smem + parity * S::kBuf;
     for (int i = 0; i < na; ++i) {
       int o;
       float f;
-      row_shift(sbeta[parity * kK4A + i], row, cy, U0, o, f);
+      row_shift(sbeta[parity * kA + i], row, cy, U0, o, f);
       const float g = __fsub_rn(1.f, f);
-      const int u = o + c0 + static_cast<int>(threadIdx.x);  // tap u of column c0 + x
-      const int lo4 = sbase[parity * kK4A + i];
-      if (lo4 != kK4Global) {
-        const float* w = buf + i * kK4W + (u - lo4);
+      const int lo4 = sbase[parity * kA + i];
+      if (lo4 != kK4Global && S::kPlanes) {
+        // the row's lowest tap, u - 1 of column c0, is window element m
+        const unsigned m = static_cast<unsigned>(o + c0 - 1 - lo4);
+        const float* wp = buf + i * S::kWin + m / S::kJ + threadIdx.x;
+#pragma unroll
+        for (int zz = 0; zz < Z; ++zz) {
+          float v[S::kJ + 1];
+          const float* wz = wp + zz * kA * S::kWin;
+          switch (m % S::kJ) {  // the same for every lane of the warp
+            case 0: k4_plane_taps<S, 0>(wz, v); break;
+            case 1: k4_plane_taps<S, 1>(wz, v); break;
+            case 2: k4_plane_taps<S, 2>(wz, v); break;
+            case 3: k4_plane_taps<S, 3>(wz, v); break;
+            case 4: k4_plane_taps<S, 4>(wz, v); break;
+            case 5: k4_plane_taps<S, 5>(wz, v); break;
+            case 6: k4_plane_taps<S, 6>(wz, v); break;
+            default: k4_plane_taps<S, 7>(wz, v); break;
+          }
+#pragma unroll
+          for (int k = 0; k < S::kJ; ++k)
+            acc[zz][k] = __fadd_rn(acc[zz][k], lerp_taps_g(g, f, v[k + 1], v[k]));
+        }
+      } else if (lo4 != kK4Global) {
+        // tap u of column c0 + x
+        const float* w = buf + i * S::kWin + (o + c0 + static_cast<int>(threadIdx.x) - lo4);
 #pragma unroll
         for (int zz = 0; zz < Z; ++zz)
 #pragma unroll
-          for (int k = 0; k < kK4J; ++k)
+          for (int k = 0; k < S::kJ; ++k)
             acc[zz][k] = __fadd_rn(acc[zz][k],
-                                   lerp_taps_g(g, f, w[zz * kK4A * kK4W + 32 * k],
-                                               w[zz * kK4A * kK4W + 32 * k - 1]));
+                                   lerp_taps_g(g, f, w[zz * kA * S::kWin + 32 * k],
+                                               w[zz * kA * S::kWin + 32 * k - 1]));
       } else {
 #pragma unroll
         for (int zz = 0; zz < Z; ++zz) {
-          const float* line = q + (static_cast<long long>(b * kK4A + i) * nz + z0 + zz) * LU;
+          const float* line = q + (static_cast<long long>(b * kA + i) * nz + z0 + zz) * LU;
 #pragma unroll
-          for (int k = 0; k < kK4J; ++k) {
-            const int uk = u + 32 * k;
+          for (int k = 0; k < S::kJ; ++k) {
+            const int uk = o + c0 + S::col(threadIdx.x, k);
             const float q0 = (uk >= 0 && uk < LU) ? line[uk] : 0.f;
             const float q1 = (uk >= 1 && uk - 1 < LU) ? line[uk - 1] : 0.f;
             acc[zz][k] = __fadd_rn(acc[zz][k], lerp_taps_g(g, f, q0, q1));
@@ -589,47 +744,78 @@ unshear_bp_kernel(const float* __restrict__ q, const float* __restrict__ beta,
 #pragma unroll
     for (int zz = 0; zz < Z; ++zz) {
       float* out = vol + (z0 + zz) * slice + static_cast<long long>(row) * nx;
+      const int col0 = c0 + S::col(threadIdx.x, 0);
+      if (S::kPlanes && vol_aligned && col0 + S::kJ <= row_len) {
+        // the thread's kJ consecutive columns: 16-byte stores (nx % 4 == 0)
 #pragma unroll
-      for (int k = 0; k < kK4J; ++k) {
-        const int col = c0 + threadIdx.x + 32 * k;
+        for (int k = 0; k < S::kJ; k += 4) {
+          float4 v = make_float4(acc[zz][k], acc[zz][k + 1], acc[zz][k + 2], acc[zz][k + 3]);
+          float4* o4 = reinterpret_cast<float4*>(out + col0 + k);
+          if (accumulate) {
+            const float4 old = *o4;
+            v = make_float4(__fadd_rn(old.x, v.x), __fadd_rn(old.y, v.y),
+                            __fadd_rn(old.z, v.z), __fadd_rn(old.w, v.w));
+          }
+          *o4 = v;
+        }
+        continue;
+      }
+#pragma unroll
+      for (int k = 0; k < S::kJ; ++k) {
+        const int col = c0 + S::col(threadIdx.x, k);
         if (col < row_len) out[col] = accumulate ? __fadd_rn(out[col], acc[zz][k]) : acc[zz][k];
       }
     }
     return;
   }
-  // y-driven: vol[z, col, row].  Turn the tile in shared memory, [col][row]
-  // with rows padded to kK4R + 1 floats, then thread t stores the kK4R rows
-  // of column c0 + t, which lie along memory.
-  float* turn = k4_smem;
+  // y-driven: vol[z, col, row].  Turn the tile in shared memory: acc[k] of
+  // thread (x, y) goes to turn[x + 32 k][y], rows padded to kR + 1 floats
+  // (conflict-free for either layout); then a thread takes one entry and
+  // stores the kR rows of its column, which lie along memory.
+  float* turn = smem;
   const int tid = threadIdx.y * 32 + threadIdx.x;
 #pragma unroll
   for (int zz = 0; zz < Z; ++zz) {
     __syncthreads();  // the last batch, or the slice before, has been read
 #pragma unroll
-    for (int k = 0; k < kK4J; ++k)
-      turn[(threadIdx.x + 32 * k) * (kK4R + 1) + threadIdx.y] = acc[zz][k];
+    for (int k = 0; k < S::kJ; ++k)
+      turn[(threadIdx.x + 32 * k) * (S::kR + 1) + threadIdx.y] = acc[zz][k];
     __syncthreads();
-    const int col = c0 + tid;
-    if (col >= row_len) continue;
-    float* out = vol + (z0 + zz) * slice + static_cast<long long>(col) * nx + r0;
-    const float* t = turn + tid * (kK4R + 1);
-    if (vol_aligned && r0 + kK4R <= n_rows) {  // nx % 4 == 0: 16-byte stores
+    for (int e = tid; e < S::kC; e += S::kThreads) {
+      const int col = c0 + S::col(e % 32, e / 32);
+      if (col >= row_len) continue;
+      float* out = vol + (z0 + zz) * slice + static_cast<long long>(col) * nx + r0;
+      const float* t = turn + e * (S::kR + 1);
+      if (vol_aligned && r0 + S::kR <= n_rows) {  // nx % 4 == 0: 16-byte stores
 #pragma unroll
-      for (int i = 0; i < kK4R; i += 4) {
-        float4 v = make_float4(t[i], t[i + 1], t[i + 2], t[i + 3]);
-        float4* o4 = reinterpret_cast<float4*>(out + i);
-        if (accumulate) {
-          const float4 old = *o4;
-          v = make_float4(__fadd_rn(old.x, v.x), __fadd_rn(old.y, v.y),
-                          __fadd_rn(old.z, v.z), __fadd_rn(old.w, v.w));
+        for (int i = 0; i < S::kR; i += 4) {
+          float4 v = make_float4(t[i], t[i + 1], t[i + 2], t[i + 3]);
+          float4* o4 = reinterpret_cast<float4*>(out + i);
+          if (accumulate) {
+            const float4 old = *o4;
+            v = make_float4(__fadd_rn(old.x, v.x), __fadd_rn(old.y, v.y),
+                            __fadd_rn(old.z, v.z), __fadd_rn(old.w, v.w));
+          }
+          *o4 = v;
         }
-        *o4 = v;
+      } else {
+        for (int i = 0; i < S::kR && r0 + i < n_rows; ++i)
+          out[i] = accumulate ? __fadd_rn(out[i], t[i]) : t[i];
       }
-    } else {
-      for (int i = 0; i < kK4R && r0 + i < n_rows; ++i)
-        out[i] = accumulate ? __fadd_rn(out[i], t[i]) : t[i];
     }
   }
+}
+
+// K4: column tile blockIdx.x, row tile blockIdx.y, Z slices from Z blockIdx.z
+template <int Z>
+__global__ void __launch_bounds__(K4Shape::kThreads)
+unshear_bp_kernel(const float* __restrict__ q, const float* __restrict__ beta,
+                  float* __restrict__ vol, int A, int nz, int ny, int nx,
+                  int LU, int U0, int swap, int accumulate, int aligned,
+                  int vol_aligned) {
+  extern __shared__ __align__(16) float k4_smem[];
+  unshear_bp_block<K4Shape, Z>(q, beta, vol, A, nz, ny, nx, LU, U0, swap, accumulate,
+                               aligned, vol_aligned, k4_smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -676,16 +862,53 @@ unshear_bp_kernel(const float* __restrict__ q, const float* __restrict__ beta,
 // runs for at most 256 angles, 4 above.  A 512-float window with 6 blocks
 // per SM took 0.39 ms against 0.33 (4 runs).
 //
-// K4p: a block owns an 8-row x 32 kPJ4-column tile, one warp per row.
-// For one angle the tile's 8 rows read one window of q of width
-// 32 kPJ4 + 9 (the Pallas kernel's ten diagonals); the block stages the
-// windows of kP4A angles in shared memory with coalesced loads, then sums
-// from there.  A thread owns kPJ4 columns 32 apart and computes the row
-// shift of a (row, angle) once for all of them.  A step whose shifts would
-// not fit the window (|beta| > 1, never from the driven-group split) reads
-// q from global memory instead.  The y-driven group writes vol[col, row]
-// (K4's index mapping), so no transpose is made.  K4p equals its plain
-// version (and K4) bit for bit.
+// K4p.  What bounds it: operations, as K4 (a group of 91 angles on one
+// 2560^2 slice is 6.0e8 terms, 0.036 ms at the card's fp32 peak), and with
+// one slice there is no second slice to share a row shift with and only 91
+// angles to hide a block's start and its store behind.  K4p is K4's block
+// (unshear_bp_block: zero-filling cp.async windows in two buffers, one
+// barrier per batch of angles, the window start rounded to 16 bytes, angles
+// with |beta| > 1 and unaligned lines from global memory, the y-driven
+// tile turned in shared memory and stored as whole sectors, adding into a
+// volume) at its own sizes, K4pShape: a thread owns 16 columns 32 apart, so
+// the row shift of a (row, angle), the part of the loop that is not loads
+// and roundings, is spent once for 16 terms as K4 spends it for its two
+// slices; 512 columns per block tile 2560 columns exactly; 16 angles per
+// batch keep three blocks of 8 warps on an SM.
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W a group of 91 angles of one 2560^2
+// slice takes 0.206 / 0.218 ms (x- / y-driven; K4 on the same input 0.216 /
+// 0.227, the kernel before this one 0.287 / 0.334: scalar staging with a
+// division per element, two barriers per step, 4 bytes of each sector in
+// the y-driven store) and a group of 901 angles 1.97 / 1.98 ms (K4 2.07 /
+// 2.09, before 2.76 / 2.82).  At K4's own sizes (8 columns per thread, 32
+// angles per batch) it took 0.219 / 0.229 ms, 20 columns per thread 0.212 /
+// 0.224, 16 rows per block 0.240 / 0.253.  What sets the pace is the
+// instruction rate, not the shared-memory loads alone: per 16 terms 64
+// roundings (no FMA: the bits are the plain version's), 32 loads and ~14
+// for the shift.  Two designs that spend fewer of one kind were built and
+// timed, and lost:
+//
+//  * The plane layout (kP4Planes = 1, 8 columns per thread): a thread owns
+//    8 consecutive columns, so a (row, angle) needs 9 consecutive values of
+//    q for 8 terms instead of 16.  Read as they lie, the 8-float stride
+//    between lanes would hit 4 banks; so window element w is stored in
+//    plane w % 8 at index w / 8, and the lanes of a warp (one row: the same
+//    shift for all) read consecutive words of one plane.  Which plane holds
+//    the first tap is the same for the whole warp, so a switch over its 8
+//    values gives every load an immediate offset.  The staging writes
+//    4-byte elements (a warp per angle, 32 consecutive w to 32 banks).
+//    Bit-equal as the other layout, and slower: 0.303 / 0.310 ms, 2.96 /
+//    2.97 at 901 angles (four times as many copies as with
+//    16 bytes each, every one with its bounds test, and the switch's branch).
+//  * A table of the batch's shifts, worked out by one thread per (row,
+//    angle) while the batch is staged and read back as 8 bytes: 0.232 /
+//    0.241 ms at 8 columns per thread against 0.220 / 0.231 without (the
+//    load sits at the head of every dependent chain).  Not kept in the
+//    source.
+//
+// The sum per voxel stays in ascending angle order with lerp_taps_g's rounding:
+// K4p equals its plain version (and K4) bit for bit in either layout.
 
 constexpr int kP1U = 8;             // K1p: u-values per thread
 constexpr int kP1A = 8;             // K1p: angles per block, one warp each
@@ -693,10 +916,12 @@ constexpr int kP1R = 8;             // K1p: driven rows per band
 constexpr int kP1W = 768;           // K1p: staged row window, floats per row
 constexpr int kP1Blocks = 4;        // K1p: blocks an SM is asked to hold
 using K1pShape = ShearShape<kP1U, kP1A, kP1R, kP1W>;
-constexpr int kPJ4 = 8;             // K4p: columns per thread
-constexpr int kP4C = 32 * kPJ4;     // K4p: columns per block
-constexpr int kP4A = 32;            // K4p: angles staged per step
-constexpr int kP4W = kP4C + 16;     // K4p: q window per angle (kP4C + 9 used)
+constexpr int kP4R = 8;             // K4p: driven rows per block, one warp each
+constexpr int kP4J = 16;            // K4p: columns per thread
+constexpr int kP4A = 16;            // K4p: angles staged per batch
+constexpr int kP4Planes = 0;        // K4p: window stored in planes (0: as in q; 1 needs kP4J = 8)
+constexpr int kP4Blocks = 1;        // K4p: blocks an SM is asked to hold at least
+using K4pShape = UnshearShape<kP4R, kP4J, kP4A, kP4Planes>;
 
 // K1p, first pass: part[split, a, u] = sum over the rows of run `split`
 // (bands [split * bands_per_split, ...)) of (1-f) row_r[u-o] + f row_r[u-o+1]
@@ -728,80 +953,17 @@ __global__ void shear_fp_packed_sum_kernel(const float* __restrict__ part,
 }
 
 // K4p: vol[row, col] (+)= sum_a (1-f) q[a, o+col] + f q[a, o+col-1] on one
-// n x n slice (n % 8 == 0), written to vol[col, row] for the y-driven group.
-// Thread (x, y) of a block: row r0 + y, col = c0 + x + 32 k for k < kPJ4.
-__global__ void __launch_bounds__(256)
+// n x n slice, written to vol[col, row] for the y-driven group: K4's block on
+// one slice, column tile blockIdx.x, row tile blockIdx.y.
+__global__ void __launch_bounds__(K4pShape::kThreads, kP4Blocks)
 unshear_bp_packed_kernel(const float* __restrict__ q,
                          const float* __restrict__ beta,
                          float* __restrict__ vol, int A, int n, int LU,
-                         int U0, int swap, int accumulate) {
-  __shared__ float win[kP4A][kP4W];
-  __shared__ float sbeta[kP4A];
-  __shared__ int base[kP4A];  // u of win[ia][0]
-  const int tid = threadIdx.y * 32 + threadIdx.x;
-  const int c0 = blockIdx.x * kP4C;
-  const int row = blockIdx.y * 8 + threadIdx.y;
-  const float cy = 0.5f * static_cast<float>(n - 1);
-  float acc[kPJ4];
-#pragma unroll
-  for (int k = 0; k < kPJ4; ++k) acc[k] = 0.f;
-  for (int a0 = 0; a0 < A; a0 += kP4A) {
-    const int na = min(kP4A, A - a0);
-    bool too_wide = false;
-    if (tid < na) {
-      const float b = beta[a0 + tid];
-      int o_first, o_last;
-      float f;
-      row_shift(b, blockIdx.y * 8, cy, U0, o_first, f);
-      row_shift(b, blockIdx.y * 8 + 7, cy, U0, o_last, f);
-      sbeta[tid] = b;
-      base[tid] = min(o_first, o_last) + c0 - 1;
-      too_wide = abs(o_last - o_first) > kP4W - kP4C - 1;
-    }
-    const bool wide = __syncthreads_or(too_wide);
-    if (!wide) {
-      for (int k = tid; k < na * kP4W; k += 256) {
-        const int ia = k / kP4W;
-        const int w = k - ia * kP4W;
-        const int u = base[ia] + w;
-        win[ia][w] = (u >= 0 && u < LU)
-                         ? q[static_cast<long long>(a0 + ia) * LU + u]
-                         : 0.f;
-      }
-    }
-    __syncthreads();
-    for (int ia = 0; ia < na; ++ia) {
-      int o;
-      float f;
-      row_shift(sbeta[ia], row, cy, U0, o, f);
-      const int u = o + c0 + threadIdx.x;  // tap u of column c0 + x
-      if (!wide) {
-        const float* w = &win[ia][u - base[ia]];
-#pragma unroll
-        for (int k = 0; k < kPJ4; ++k)
-          acc[k] = __fadd_rn(acc[k], lerp_taps(f, w[32 * k], w[32 * k - 1]));
-      } else {
-        const float* line = q + static_cast<long long>(a0 + ia) * LU;
-#pragma unroll
-        for (int k = 0; k < kPJ4; ++k) {
-          const int uk = u + 32 * k;
-          const float q0 = (uk >= 0 && uk < LU) ? line[uk] : 0.f;
-          const float q1 = (uk >= 1 && uk - 1 < LU) ? line[uk - 1] : 0.f;
-          acc[k] = __fadd_rn(acc[k], lerp_taps(f, q0, q1));
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int k = 0; k < kPJ4; ++k) {
-    const int col = c0 + threadIdx.x + 32 * k;
-    if (col < n) {
-      const long long idx = swap ? static_cast<long long>(col) * n + row
-                                 : static_cast<long long>(row) * n + col;
-      vol[idx] = accumulate ? __fadd_rn(vol[idx], acc[k]) : acc[k];
-    }
-  }
+                         int U0, int swap, int accumulate, int aligned,
+                         int vol_aligned) {
+  extern __shared__ __align__(16) float k4p_smem[];
+  unshear_bp_block<K4pShape, 1>(q, beta, vol, A, 1, n, n, LU, U0, swap, accumulate,
+                                aligned, vol_aligned, k4p_smem);
 }
 
 unsigned int blocks_for(long long n) {
@@ -848,13 +1010,18 @@ int tt_resample_fp(const float* s, const float* alpha, const float* gamma,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `index`: null, or the rows of p (nz, n_rows, det_x) that are the A angles
 int tt_resample_bp(const float* p, const float* alpha, const float* gamma,
-                   float* q, int A, int nz, int LU, int det_x, int U0,
-                   cudaStream_t stream) {
-  const long long n = static_cast<long long>(A) * nz * LU;
-  if (n == 0) return 0;
-  resample_bp_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-      p, alpha, gamma, q, A, nz, LU, det_x, U0);
+                   const long long* index, float* q, int A, int nz, int n_rows,
+                   int LU, int det_x, int U0, cudaStream_t stream) {
+  const long long lines = static_cast<long long>(A) * nz;
+  if (lines * LU == 0) return 0;
+  const int vec = LU % kK3V == 0 && reinterpret_cast<unsigned long long>(q) % 16 == 0;
+  const dim3 grid(static_cast<unsigned int>(lines),
+                  (LU + kThreads * kK3V - 1) / (kThreads * kK3V));
+  if (lines > INT_MAX || grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  resample_bp_kernel<<<grid, kThreads, 0, stream>>>(
+      p, alpha, gamma, index, q, nz, n_rows, LU, det_x, U0, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -869,14 +1036,15 @@ int tt_unshear_bp(const float* q, const float* beta, float* vol, int A,
   const int n_rows = swap ? nx : ny, row_len = swap ? ny : nx;
   // two slices per block where that wastes none; the row shift serves both
   const int Z = nz % 2 == 0 ? 2 : 1;
-  const size_t smem = sizeof(float) * (2 * kK4Buf + 2 * kK4AZ) + sizeof(int) * 2 * kK4AZ;
-  const dim3 grid((row_len + kK4C - 1) / kK4C, (n_rows + kK4R - 1) / kK4R, nz / Z);
+  using S = K4Shape;
+  const size_t smem = S::kSmem;
+  const dim3 grid((row_len + S::kC - 1) / S::kC, (n_rows + S::kR - 1) / S::kR, nz / Z);
   if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = Z == 2 ? unshear_bp_kernel<2> : unshear_bp_kernel<1>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, dim3(32, kK4R), smem, stream>>>(
+  kernel<<<grid, dim3(32, S::kR), smem, stream>>>(
       q, beta, vol, A, nz, ny, nx, LU, U0, swap, accumulate, aligned, vol_aligned);
   return static_cast<int>(cudaGetLastError());
 }
@@ -918,10 +1086,20 @@ int tt_shear_fp_packed(const float* rows, const float* beta, float* s,
 int tt_unshear_bp_packed(const float* q, const float* beta, float* vol, int A,
                          int n, int LU, int U0, int swap, int accumulate,
                          cudaStream_t stream) {
+  using S = K4pShape;
   if (n == 0) return 0;
-  const dim3 grid((n + kP4C - 1) / kP4C, n / 8);
-  unshear_bp_packed_kernel<<<grid, dim3(32, 8), 0, stream>>>(
-      q, beta, vol, A, n, LU, U0, swap, accumulate);
+  const int aligned =
+      LU % 4 == 0 && reinterpret_cast<unsigned long long>(q) % 16 == 0;
+  const int vol_aligned =
+      n % 4 == 0 && reinterpret_cast<unsigned long long>(vol) % 16 == 0;
+  const dim3 grid((n + S::kC - 1) / S::kC, (n + S::kR - 1) / S::kR);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      unshear_bp_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(S::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unshear_bp_packed_kernel<<<grid, dim3(32, S::kR), S::kSmem, stream>>>(
+      q, beta, vol, A, n, LU, U0, swap, accumulate, aligned, vol_aligned);
   return static_cast<int>(cudaGetLastError());
 }
 

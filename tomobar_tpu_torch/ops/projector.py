@@ -231,8 +231,9 @@ class _Plan:
         for z0, z1 in self._z_chunks(nz, groups, n * n, n_angles * det_x):
             part = sino[z0:z1]
             for k, g in enumerate(groups):
-                p = part if len(groups) == 1 else part[:, g.idx]
-                q = resample_bp(p, g.alpha, g.gamma, g.prm.U0, g.prm.LU)
+                # K3 reads the group's angles where they lie in the sinogram
+                q = resample_bp(part, g.alpha, g.gamma, g.prm.U0, g.prm.LU,
+                                index=None if len(groups) == 1 else g.idx)
                 # the first group writes the chunk's slices, the others add
                 if g.prm.packed:
                     unshear_bp_packed(q, g.beta, g.prm.U0, n, g.swap, out=vol[z0:z1],
@@ -308,6 +309,7 @@ class Projector:
         self._sub_geoms = [geom.subset(ind) for ind in self.subset_indices]
         self._plan = _Plan(geom)
         self._sub_plans = [_Plan(g) for g in self._sub_geoms]
+        self._subset_index = {}
 
     def fp(self, vol: torch.Tensor) -> torch.Tensor:
         return _ForwardProject.apply(vol, self._plan)
@@ -322,7 +324,11 @@ class Projector:
         return _BackProject.apply(sino, self._sub_plans[sub])
 
     def sino_subset(self, sino: torch.Tensor, sub: int) -> torch.Tensor:
-        ind = torch.as_tensor(self.subset_indices[sub], device=sino.device)
+        key = (sub, sino.device)
+        if key not in self._subset_index:  # uploaded once, not at every call
+            self._subset_index[key] = torch.as_tensor(
+                self.subset_indices[sub], device=sino.device)
+        ind = self._subset_index[key]
         if sino.dim() == 2:
             return sino[ind, :]
         return sino[:, ind, :]

@@ -199,9 +199,14 @@ def resample_fp_plain(s, alpha, gamma, U0: int, det_x: int):
     return p.transpose(0, 1).contiguous()
 
 
-def resample_bp_plain(p, alpha, gamma, U0: int, LU: int):
+def resample_bp_plain(p, alpha, gamma, U0: int, LU: int,
+                      index: Optional[torch.Tensor] = None):
     """K3, as the scatter that is plainly the transpose of K2:
-    q[a, z, i] += w0 p[z, a, t] and q[a, z, i + 1] += w1 p[z, a, t]."""
+    q[a, z, i] += w0 p[z, a, t] and q[a, z, i + 1] += w1 p[z, a, t].  With
+    ``index`` (the positions of the A angles in ``p``), ``p`` is the whole
+    (nz, n_angles, det_x) sinogram and angle a reads ``p[:, index[a]]``."""
+    if index is not None:
+        p = p[:, index]
     nz, A, det_x = p.shape
     i, w0, w1 = _det_taps(alpha, gamma, U0, det_x)
     q = torch.zeros((A, nz, LU + 2), dtype=torch.float32, device=p.device)
@@ -363,22 +368,35 @@ def resample_fp(s, alpha, gamma, U0: int, det_x: int):
     return p
 
 
-def resample_bp(p, alpha, gamma, U0: int, LU: int):
-    """K3 (see :func:`resample_bp_plain`).  p (nz, A, det_x) -> (A, nz, LU)."""
+def resample_bp(p, alpha, gamma, U0: int, LU: int,
+                index: Optional[torch.Tensor] = None):
+    """K3 (see :func:`resample_bp_plain`).  p (nz, A, det_x) -> (A, nz, LU);
+    with ``index`` (int64, one position per angle) p is (nz, n_angles, det_x)
+    and the kernel gathers row ``index[a]`` itself."""
     if p.device.type == "cpu":
-        return resample_bp_plain(p, alpha, gamma, U0, LU)
+        return resample_bp_plain(p, alpha, gamma, U0, LU, index)
     _check_cuda("K3", p, alpha, gamma)
     if p.dim() != 3:
         raise ValueError("K3: p must be (nz, A, det_x)")
-    nz, A, det_x = p.shape
+    nz, n_rows, det_x = p.shape
+    A = n_rows
+    if index is not None:
+        if index.dtype != torch.int64 or index.dim() != 1 or not index.is_contiguous():
+            raise TypeError("K3: index must be a contiguous 1D int64 tensor")
+        if index.device != p.device:
+            raise ValueError(f"K3: index on {index.device}, p on {p.device}")
+        # every entry must lie in [0, n_rows); that is not checked, since
+        # reading them back would hold the host up before every launch
+        A = index.shape[0]
     _params_ok("K3", A, alpha, gamma)
     q = torch.empty((A, nz, LU), dtype=torch.float32, device=p.device)
     _check_cuda("K3", q)
     lib = _build.library()
     with torch.cuda.device(p.device):
         err = lib.tt_resample_bp(
-            p.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), q.data_ptr(),
-            A, nz, LU, det_x, U0, _stream(p),
+            p.data_ptr(), alpha.data_ptr(), gamma.data_ptr(),
+            None if index is None else index.data_ptr(), q.data_ptr(),
+            A, nz, n_rows, LU, det_x, U0, _stream(p),
         )
     _build.check("K3", err)
     _build.launch_counts["K3"] += 1

@@ -80,47 +80,65 @@ def data_dims_swapper(data, data_axes_labels_order, required_labels_order):
     return data
 
 
-def apply_circular_mask(data: torch.Tensor, recon_mask_radius: float) -> torch.Tensor:
+def apply_circular_mask(data, recon_mask_radius: float, cupyrun: bool = False):
     """Zero values outside a circular mask.  Radius semantics mirror the
     reference (``suppTools.py:387-394``): values <= 1 shrink the mask,
-    values > 1 grow it (2.0 is a de-facto no-op)."""
-    axis = 2 if data.dim() == 3 else 1
+    values > 1 grow it (2.0 is a de-facto no-op).  A numpy array in gives a
+    numpy array out; ``cupyrun`` is accepted as in the JAX package and, as
+    there, not read: the array's own family decides."""
+    del cupyrun
+    axis = 2 if data.ndim == 3 else 1
     recon_size = data.shape[axis]
     half = recon_size // 2
-    Y, X = np.ogrid[:recon_size, :recon_size]
-    dist = np.sqrt((X - half) ** 2 + (Y - half) ** 2)
     if recon_mask_radius <= 1.0:
-        mask = dist <= half - abs(half - half / recon_mask_radius)
+        limit = half - abs(half - half / recon_mask_radius)
     else:
-        mask = dist <= half + abs(half - half / recon_mask_radius)
-    return data * torch.as_tensor(mask, dtype=data.dtype, device=data.device)
+        limit = half + abs(half - half / recon_mask_radius)
+    if isinstance(data, torch.Tensor):
+        # the mask is made where the data lies, with the same float64
+        # arithmetic (exact integers under a correctly rounded root): made
+        # on the host it cost a 2560^2 reconstruction ~70 ms per call
+        c = torch.arange(recon_size, dtype=torch.float64, device=data.device) - half
+        mask = torch.sqrt(c[None, :] ** 2 + c[:, None] ** 2) <= limit
+        return data * mask.to(data.dtype)
+    Y, X = np.ogrid[:recon_size, :recon_size]
+    mask = np.sqrt((X - half) ** 2 + (Y - half) ** 2) <= limit
+    return data * np.asarray(mask, dtype=data.dtype)
 
 
-def perform_recon_crop(data: torch.Tensor, cropped_size: int) -> torch.Tensor:
+def perform_recon_crop(data, cropped_size: int):
     """Centre-crop a (padded) reconstruction back to ``cropped_size``."""
-    axis = 2 if data.dim() == 3 else 0
+    axis = 2 if data.ndim == 3 else 0
     original = data.shape[axis]
     start = (original - cropped_size) // 2
     stop = cropped_size + start
-    if data.dim() == 3:
+    if data.ndim == 3:
         return data[:, start:stop, start:stop]
     return data[start:stop, start:stop]
 
 
-def apply_horiz_detector_padding(data: torch.Tensor, detector_width_pad: int) -> torch.Tensor:
+def apply_horiz_detector_padding(data, detector_width_pad: int, cupyrun: bool = False):
     """Edge-pad detX symmetrically; 3D data is [detY, angles, detX], 2D is
-    [angles, detX] (reference ``suppTools.py:425-459``)."""
+    [angles, detX] (reference ``suppTools.py:425-459``).  Numpy in, numpy
+    out; ``cupyrun`` is accepted and not read, as in the JAX package."""
+    del cupyrun
     if detector_width_pad <= 0:
         return data
+    if not isinstance(data, torch.Tensor):
+        pads = ((0, 0),) * (data.ndim - 1) + ((detector_width_pad, detector_width_pad),)
+        return np.pad(data, pads, mode="edge")
     pad = (detector_width_pad, detector_width_pad)
     if data.dim() == 2:
         return torch.nn.functional.pad(data[None], pad, mode="replicate")[0]
     return torch.nn.functional.pad(data, pad, mode="replicate")
 
 
-def check_kwargs(reconstruction: torch.Tensor, **kwargs) -> torch.Tensor:
-    """Post-hoc application of optional kwargs (mask)."""
+def check_kwargs(reconstruction, **kwargs):
+    """Post-hoc application of optional kwargs (mask); ``cupyrun`` among
+    them is passed on as the JAX package passes it."""
     for key, value in kwargs.items():
         if key == "recon_mask_radius" and value is not None:
-            reconstruction = apply_circular_mask(reconstruction, value)
+            reconstruction = apply_circular_mask(
+                reconstruction, value, kwargs.get("cupyrun", False)
+            )
     return reconstruction

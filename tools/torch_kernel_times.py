@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the K1, K1p, K4, PD, F and G kernels of tomobar_tpu_torch at their flagship
+"""Time the K1, K1p, K2, K3, K4, K4p, PD, F and G kernels of tomobar_tpu_torch at their flagship
 shapes, for several source trees in one call, in turns, on one NVIDIA GPU.
 
 Two versions of a kernel can be compared only inside one call on one card,
@@ -24,7 +24,12 @@ checkout's package into ``_archive/variants/`` with ``constexpr int NAME =
 value;`` lines of its CUDA sources replaced.
 
 Shapes: K1 and K4 on both driven groups of OS subset 0 of the 3D flagship
-(1801 angles, OS10, 8 x 2560^2) and at one slice beside K1p and K4p; K1p on
+(1801 angles, OS10, 8 x 2560^2) and at one slice beside K1p and K4p (K4 and
+K4p also on all 1801 angles of one slice, and K4p adding into a slice); K2
+and K3 on both groups of OS subset 0 at 8 slices and at 1 slice, K3 on the
+group's own rows, after an indexed copy of them out of the subset's
+sinogram, and (where the tree's wrapper takes ``index``) gathering them
+itself, beside the copy alone and a launch on four samples; K1p on
 both groups of OS subset 0 and of all 1801 angles of one 2560^2 slice,
 beside K1 at nz = 1, and (where the tree's wrapper takes ``splits``) with
 1, 2, 4, 8 and 16 runs of rows; G on 4 z-pairs x 1801 x 2560 random spectra
@@ -77,6 +82,18 @@ def worker(repo: str, kernels) -> dict:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    def ms_device(fn, n=20, reps=10):
+        """Milliseconds of one fn() on the device alone: n calls captured in
+        a CUDA graph and replayed, so that the host's time to enqueue a call
+        (more than a small kernel takes) is not what is measured."""
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        return ms(graph.replay, reps) / n
 
     out = {}
     N, NZ = 2560, 8
@@ -155,12 +172,50 @@ def worker(repo: str, kernels) -> dict:
             out[f"K4 {tag} 8 slices"] = ms(lambda: K.unshear_bp(q, g.beta, g.prm.U0, N, N, g.swap), 10)
             out[f"K4 {tag} 8 slices, accumulate"] = ms(
                 lambda: K.unshear_bp(q, g.beta, g.prm.U0, N, N, g.swap, out=vol), 10)
-        for g in sub0.groups(N, N, dev, True):
-            tag = "y" if g.swap else "x"
-            q = torch.randn((g.prm.A, 1, g.prm.LU), generator=gen, device=dev)
-            out[f"K4 {tag} 1 slice"] = ms(lambda: K.unshear_bp(q, g.beta, g.prm.U0, N, N, g.swap), 20)
-            out[f"K4p {tag} 1 slice"] = ms(lambda: K.unshear_bp_packed(q, g.beta, g.prm.U0, N, g.swap), 20)
-        del q
+        one_out = torch.randn((1, N, N), generator=gen, device=dev)
+        full = Projector(Geometry(N, 1, angles, 0.0, N))._plan
+        for name, plan in (("1 slice", sub0), ("1 slice, 1801 angles", full)):
+            for g in plan.groups(N, N, dev, True):
+                tag = "y" if g.swap else "x"
+                q = torch.randn((g.prm.A, 1, g.prm.LU), generator=gen, device=dev)
+                out[f"K4 {tag} {name}"] = ms(lambda: K.unshear_bp(q, g.beta, g.prm.U0, N, N, g.swap), 20)
+                out[f"K4p {tag} {name}"] = ms(lambda: K.unshear_bp_packed(q, g.beta, g.prm.U0, N, g.swap), 20)
+                out[f"K4p {tag} {name}, accumulate"] = ms(
+                    lambda: K.unshear_bp_packed(q, g.beta, g.prm.U0, N, g.swap, out=one_out), 20)
+        del q, one_out
+    if "K3" in kernels or "K2" in kernels:
+        import inspect
+
+        has_index = "index" in inspect.signature(K.resample_bp).parameters
+        for nz_, single in ((NZ, False), (1, True)):
+            sino = torch.randn((nz_, 1801 // 10 + 1, N), generator=gen, device=dev)  # OS subset 0
+            for g in sub0.groups(N, N, dev, single):
+                tag = f"{'y' if g.swap else 'x'} {nz_} slice{'s' if nz_ > 1 else ''}"
+                p = sino[:, g.idx].contiguous()
+                s = torch.randn((g.prm.A, nz_, g.prm.LU), generator=gen, device=dev)
+                args = (g.alpha, g.gamma, g.prm.U0, g.prm.LU)
+                # "device": calls replayed from a CUDA graph; "host loop": calls
+                # enqueued one by one, as the projector makes them
+                for how, timer in (("device", ms_device), ("host loop", lambda fn: ms(fn, 50))):
+                    if "K2" in kernels:
+                        out[f"K2 {tag} ({how})"] = timer(
+                            lambda: K.resample_fp(s, g.alpha, g.gamma, g.prm.U0, N))
+                    if "K3" in kernels:
+                        out[f"K3 {tag}, rows copied before ({how})"] = timer(
+                            lambda: K.resample_bp(p, *args))
+                        out[f"K3 {tag}, copy + K3 ({how})"] = timer(
+                            lambda: K.resample_bp(sino[:, g.idx], *args))
+                        out[f"K3 {tag}, index ({how})"] = timer(
+                            lambda: K.resample_bp(sino, *args, index=g.idx)) if has_index else float("nan")
+                        out[f"the copy alone {tag} ({how})"] = timer(lambda: sino[:, g.idx])
+            del sino, p, s
+        # the floor of a launch on this card: the same kernel on four samples
+        empty = torch.empty((1, 1, 4), device=dev)
+        one_a = torch.ones(1, device=dev)
+        out["K3 on 1 x 1 x 4 samples, LU 4 (device)"] = ms_device(
+            lambda: K.resample_bp(empty, one_a, one_a, 0, 4))
+        out["K3 on 1 x 1 x 4 samples, LU 4 (host loop)"] = ms(
+            lambda: K.resample_bp(empty, one_a, one_a, 0, 4), 200)
     if "PD" in kernels:
         torch.abs_(vol)
         out["PD 20 iterations 8 slices"] = ms(lambda: PDT.pd_tv(vol, 5e-4, 20, 0, 1, 12.0), 5)
@@ -213,7 +268,7 @@ def main() -> int:
                     help="a variant of this checkout with constexpr ints replaced")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", default="K1,K4,PD,F",
-                    help="comma-separated: K1, K1p, K4, PD, F, G, Gx (G's C entry with "
+                    help="comma-separated: K1, K1p, K2, K3, K4 (with K4p), PD, F, G, Gx (G's C entry with "
                          "other tile orders, no compensation, fewer angles)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -239,7 +294,7 @@ def main() -> int:
         keys += [k for k in runs[0] if k not in keys]
     print("ms per call; one column per round: " + " | ".join(name for name, _ in trees))
     for k in keys:
-        print(f"{k:>32}: " + " | ".join(
+        print(f"{k:>48}: " + " | ".join(
             " ".join(f"{r.get(k, float('nan')):8.3f}" for r in results[name]) for name, _ in trees))
     return 0
 
