@@ -21,7 +21,9 @@ Phases, in order; any failure raises and exits non-zero:
    3, at 500 driven rows (not a multiple of 8), at rows of 510 (not 16-byte
    aligned) and K4 at ny != nx and adding into a volume, K3 gathering each
    group's rows from the whole sinogram through ``index`` (1, 3 and 8
-   slices, shuffled angles, an LU that is no multiple of 4), and PD-TV
+   slices, shuffled angles, an LU that is no multiple of 4; an index
+   outside the sinogram must fail the launch, in a process of its own),
+   and PD-TV
    (iso/aniso x nonneg, nz 1 and 8, plus bf16 duals; iteration counts 1,
    K - 1, K + 1 and 20 for K iterations per launch; 3 x 500 x 510, which
    its tiles do not divide, and 20 slices, which it cuts into z-chunks),
@@ -81,9 +83,11 @@ the time of one PyTorch call for the same function where there is one
 (``library_ms``: ``torch.fft`` on an already complex tensor for F) and its
 bound: the larger of its operations over 67 TFLOP/s (float32 outside the
 tensor cores) and its bytes, each input read once and each output written
-once, over 3.35 TB/s, the published peaks of an H100 SXM at 700 W.  K2 and
-K3 take less time than the host needs to enqueue a call, so their ``ms`` is
-the time on the device alone, of calls replayed from a CUDA graph.
+once, over 3.35 TB/s, the published peaks of an H100 SXM at 700 W.  ``ms``
+is the time of calls enqueued one by one, as the paths enqueue them.  K2 and
+K3 take less time than the host needs to enqueue a call, so their entries
+also hold ``device_ms``, the time on the device alone, of calls replayed
+from a CUDA graph (null for the other kernels).
 """
 
 from __future__ import annotations
@@ -335,6 +339,49 @@ def check_k3_shapes(torch, K, errs, dev) -> None:
                 errs.compare("K3", tag, K.resample_bp(sino, *args, index=g.idx), ref, tol=0.0)
                 errs.compare("K3", tag + ", rows copied first",
                              K.resample_bp(sino[:, g.idx].contiguous(), *args), ref, tol=0.0)
+
+
+K3_GUARD_CHILD = """
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from tomobar_tpu_torch.ops import projector_kernels as K
+dev = torch.device("cuda")
+p = torch.randn((2, 6, 64), device=dev)
+alpha = torch.full((3,), 1.5, device=dev)
+gamma = torch.full((3,), 10.0, device=dev)
+def run(rows):
+    q = K.resample_bp(p, alpha, gamma, 0, 128, index=torch.tensor(rows, device=dev))
+    torch.cuda.synchronize()
+    return q
+assert torch.equal(run([5, 0, 3]), K.resample_bp_plain(p, alpha, gamma, 0, 128, index=torch.tensor([5, 0, 3], device=dev)))
+print("VALID", flush=True)
+try:
+    run([5, int(sys.argv[2]), 3])
+except RuntimeError as e:
+    print("REFUSED", type(e).__name__, flush=True)
+"""
+
+
+def check_k3_index_guard() -> None:
+    """K3 refuses an ``index`` entry outside the sinogram's angles: the kernel
+    traps, so the launch fails instead of reading beside ``p``.  A trap ends
+    the process's use of the card, so each case runs in a process of its own
+    (after a valid index there, which must give the plain version's result)."""
+    procs = [
+        subprocess.Popen([sys.executable, "-c", K3_GUARD_CHILD, REPO, str(bad)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for bad in (6, -1)
+    ]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for bad, out in zip((6, -1), outs):
+        require("VALID" in out and "REFUSED" in out,
+                f"K3 did not refuse index {bad} of 6 angles:\n{out[-2000:]}")
+        print(f"[3] K3 resample_bp, index {bad} of 6 angles: launch refused")
 
 
 def check_pd_shapes(torch, PDT, errs, dev) -> None:
@@ -1076,6 +1123,7 @@ def main() -> int:
     check_k4_shapes(torch, K, errs, dev)
     print("[3] K3 with the angle gather (index) at 1, 3 and 8 slices, shuffled angles, cor 3.5:")
     check_k3_shapes(torch, K, errs, dev)
+    check_k3_index_guard()
     print("[3] PD-TV kernel, 20 iterations, lambda 0.05, L 12:")
     rng = np.random.default_rng(3)
     for nz in (1, 8):
@@ -1211,24 +1259,20 @@ def main() -> int:
     # call), PD is one prox of 20 iterations on the full volume
     x = recs[-1].contiguous()
     times = {k: {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-                 "bound_ms": 0.0, "library_ms": None} for k in KERNELS}
+                 "bound_ms": 0.0, "library_ms": None, "device_ms": None} for k in KERNELS}
 
     def measure(key, label, kern, plain, work, reps=10, plain_reps=2, check=True,
                 tol=TOL_KERNEL, library=None, small=False):
         """Time kern() beside plain() (and library(), one PyTorch call for the
         same function) and add them, and the bound of `work` = (operations,
         bytes), to the kernel's sums.  ``small``: a kernel that takes less
-        than the host needs to enqueue it is timed on the device alone, from
-        a CUDA graph; the time of calls enqueued one by one is printed too."""
+        than the host needs to enqueue it is also timed on the device alone,
+        from a CUDA graph (``device_ms``)."""
         phase = "6" if key in ITERATIVE else "8" if key in TWO_D else "7"
         if check:
             errs.compare(key, f"flagship, {label}", kern(), plain(), tol=tol)
         t = times[key]
         t_kern = time_cuda(torch, kern, reps)
-        if small:
-            print(f"[{phase}] {key} {KERNELS[key][0]}, {label}: {t_kern:.3f} ms per call "
-                  f"enqueued one by one (the host's pace); on the device alone:")
-            t_kern = time_device(torch, kern)
         t_plain = time_cuda(torch, plain, plain_reps)
         ops_ms, bytes_ms = work[0] / PEAK_FLOPS * 1e3, work[1] / PEAK_BYTES * 1e3
         t["ms"] += t_kern
@@ -1239,6 +1283,10 @@ def main() -> int:
         line = (f"[{phase}] {key} {KERNELS[key][0]}, {label}: kernel {t_kern:.3f} ms, "
                 f"plain {t_plain:.3f} ms, bound {max(ops_ms, bytes_ms):.3f} ms "
                 f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+        if small:
+            t_dev = time_device(torch, kern)
+            t["device_ms"] = (t["device_ms"] or 0.0) + t_dev
+            line += f", on the device alone (CUDA graph) {t_dev:.3f} ms"
         if library is not None:
             t_lib = time_cuda(torch, library, reps)
             t["library_ms"] = (t["library_ms"] or 0.0) + t_lib
@@ -1322,6 +1370,7 @@ def main() -> int:
                 "bound_ms": times[k]["bound_ms"],
                 "bound_by": "operations" if times[k]["ops_ms"] >= times[k]["bytes_ms"] else "bytes",
                 "library_ms": times[k]["library_ms"],
+                "device_ms": times[k]["device_ms"],
             }
             for k in KERNELS
         ]

@@ -314,15 +314,9 @@ def test_k4p_shares_k4s_block():
     assert len(re.findall(r"void unshear_bp_block\(", src)) == 1
     assert re.findall(r"unshear_bp_block<(\w+), (\w+)>\(", src) == [
         ("K4Shape", "Z"), ("K4pShape", "1")]
-    assert "using K4Shape = UnshearShape<kK4R, kK4J, kK4AZ, 0>;" in src
-    assert "using K4pShape = UnshearShape<kP4R, kP4J, kP4A, kP4Planes>;" in src
+    assert "using K4Shape = UnshearShape<kK4R, kK4J, kK4AZ>;" in src
+    assert "using K4pShape = UnshearShape<kP4R, kP4J, kP4A>;" in src
     assert K4.W == K4.C + 16 and K4P.R == 8 and K4P.J % 8 == 0
-    # the plane layout: 32 consecutive window elements fall in 32 banks, and a
-    # warp's reads of one plane are consecutive words
-    S = unshear_shape(8, 8, 32, 1)
-    w = np.arange(32)
-    assert len(set(((w % 8) * S.plane + w // 8) % 32)) == 32
-    assert S.plane >= S.W // 8 and S.plane % 32 == 4
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 5])
@@ -664,29 +658,23 @@ def cu_const(source, name):
 from types import SimpleNamespace  # noqa: E402
 
 
-def unshear_shape(R, J, AZ, planes):
-    """UnshearShape<R, J, AZ, PLANES> of projector.cu."""
+def unshear_shape(R, J, AZ):
+    """UnshearShape<R, J, AZ> of projector.cu."""
     C = 32 * J
     W = C + 2 * R
-    plane = (W // J + 27) // 32 * 32 + 4
-    win = J * plane + 1 if planes else W
-    assert 2 * R >= R + 4 and W % 4 == 0 and (not planes or W % J == 0)
-    assert AZ * win >= C * (R + 1)  # the turned tile fits a window buffer
+    assert 2 * R >= R + 4 and W % 4 == 0
+    assert AZ * W >= C * (R + 1)  # the turned tile fits a window buffer
     assert (32 * R) % AZ == 0 and AZ % 2 == 0 and R % 4 == 0 and J % 4 == 0
-    assert not planes or J == 8
-    return SimpleNamespace(R=R, J=J, C=C, AZ=AZ, W=W, planes=bool(planes), plane=plane,
-                           win=win, threads=32 * R, buf=AZ * win)
+    return SimpleNamespace(R=R, J=J, C=C, AZ=AZ, W=W, threads=32 * R, buf=AZ * W)
 
 
 def unshear_col(S, x, k):
     """UnshearShape::col(): column of the tile that thread x holds in acc[k]."""
-    return x * S.J + k if S.planes else x + 32 * k
+    return x + 32 * k
 
 
-K4_R, K4_J, K4_AZ = (cu_const("projector.cu", n) for n in ("kK4R", "kK4J", "kK4AZ"))
-K4 = unshear_shape(K4_R, K4_J, K4_AZ, 0)  # K4Shape
-K4P = unshear_shape(*(cu_const("projector.cu", n)
-                      for n in ("kP4R", "kP4J", "kP4A", "kP4Planes")))  # K4pShape
+K4 = unshear_shape(*(cu_const("projector.cu", n) for n in ("kK4R", "kK4J", "kK4AZ")))  # K4Shape
+K4P = unshear_shape(*(cu_const("projector.cu", n) for n in ("kP4R", "kP4J", "kP4A")))  # K4pShape
 K4_GLOBAL = None  # kK4Global
 
 
@@ -700,8 +688,8 @@ def k4_window(S, bt, r0, c0, cy, U0, aligned):
 
 def k4_stage(S, q, beta, dst, sbeta, sbase, b, Z, z0, r0, c0, cy, U0, aligned, stats):
     """k4_stage(): the windows of angle batch b, zero-filled outside [0, LU),
-    in 16-byte chunks as they lie in q or element by element into planes; an
-    angle whose window does not fit is marked."""
+    in 16-byte chunks as they lie in q; an angle whose window does not fit is
+    marked."""
     A, nz, LU = q.shape
     kA = S.AZ // Z
     for i in range(kA):
@@ -716,18 +704,9 @@ def k4_stage(S, q, beta, dst, sbeta, sbase, b, Z, z0, r0, c0, cy, U0, aligned, s
             continue
         for zz in range(Z):
             d = dst[zz, i]
-            if S.planes:
-                for lane in range(32):
-                    dw = (lane % S.J) * S.plane + lane // S.J
-                    for w in range(lane, S.W, 32):
-                        u = lo4 + w
-                        assert dw == (w % S.J) * S.plane + w // S.J
-                        d[dw] = q[a, z0 + zz, u] if 0 <= u < LU else 0.0
-                        dw += 32 // S.J
-            else:
-                for c in range(S.W // 4):
-                    u = lo4 + 4 * c
-                    d[4 * c : 4 * c + 4] = q[a, z0 + zz, u : u + 4] if 0 <= u < LU else 0.0
+            for c in range(S.W // 4):
+                u = lo4 + 4 * c
+                d[4 * c : 4 * c + 4] = q[a, z0 + zz, u : u + 4] if 0 <= u < LU else 0.0
 
 
 def k4_block(S, q, beta, vol, bx, by, bz, Z, U0, ny, nx, swap, accumulate, aligned,
@@ -743,7 +722,7 @@ def k4_block(S, q, beta, vol, bx, by, bz, Z, U0, ny, nx, swap, accumulate, align
     cols = np.array([[unshear_col(S, x, k) for x in range(32)] for k in range(S.J)])  # [k, x]
     acc = np.zeros((Z, S.R, S.J, 32), dtype=f32)
     smem = np.full((2, S.buf), np.nan, dtype=f32)  # the two window buffers
-    buf = smem[:, : Z * kA * S.win].reshape(2, Z, kA, S.win)
+    buf = smem.reshape(2, Z, kA, S.W)
     sbeta = np.full((2, kA), np.nan, dtype=f32)
     sbase = [[None] * kA, [None] * kA]
 
@@ -765,16 +744,7 @@ def k4_block(S, q, beta, vol, bx, by, bz, Z, U0, ny, nx, swap, accumulate, align
                 lo4 = sbase[parity][i]
                 for zz in range(Z):
                     w = buf[parity, zz, i]
-                    if lo4 is not K4_GLOBAL and S.planes:
-                        m = o + c0 - 1 - lo4
-                        assert m >= 0
-                        base = m // S.J + lanes
-                        v = [w[(m % S.J + j) % S.J * S.plane + (m % S.J + j) // S.J + base]
-                             for j in range(S.J + 1)]
-                        stats["loads"] += S.J + 1
-                        for k in range(S.J):
-                            acc[zz, y, k] += g * v[k + 1] + f * v[k]
-                    elif lo4 is not K4_GLOBAL:
+                    if lo4 is not K4_GLOBAL:
                         idx = o + c0 + lanes[None, :] + 32 * np.arange(S.J)[:, None] - lo4
                         assert idx.min() >= 1 and idx.max() < S.W
                         stats["loads"] += 2 * S.J
@@ -797,11 +767,6 @@ def k4_block(S, q, beta, vol, bx, by, bz, Z, U0, ny, nx, swap, accumulate, align
                     continue
                 out = vol[z0 + zz, row]
                 for x in range(32):
-                    col0 = c0 + unshear_col(S, x, 0)
-                    if S.planes and vol_aligned and col0 + S.J <= row_len:
-                        assert (row * nx + col0) % 4 == 0  # 16-byte stores
-                        out[col0 : col0 + S.J] = add(out[col0 : col0 + S.J], acc[zz, y, :, x])
-                        continue
                     for k in range(S.J):
                         col = c0 + unshear_col(S, x, k)
                         if col < row_len:
@@ -911,33 +876,21 @@ def test_k4_wrapper_on_cpu_is_the_plain_version():
 # ---------------------------------------------------------------------------
 
 
-K4P_LAYOUTS = {"interleaved": (K4P.J, K4P.AZ, 0), "planes": (8, 32, 1)}
-
-
-def k4p_shape(layout):
-    """K4pShape with the window as it lies in q (at the kernel's own sizes),
-    or in planes (8 columns per thread, 32 angles per batch: built, timed,
-    and not the one kept)."""
-    return unshear_shape(K4P.R, *K4P_LAYOUTS[layout])
-
-
-@pytest.mark.parametrize("layout", list(K4P_LAYOUTS))
 @pytest.mark.parametrize("accumulate", [False, True], ids=["new", "accumulate"])
 @pytest.mark.parametrize("group", ["x-driven", "y-driven"])
 @pytest.mark.parametrize("cor", [2.5, "per-angle"], ids=["scalar-cor", "per-angle-cor"])
 @pytest.mark.parametrize("n", [40, 520], ids=["one-column-tile", "more-column-tiles"])
-def test_k4p_emulation_bit_exact(n, cor, group, accumulate, layout):
-    """K4p's block equals unshear_bp_packed_plain bit for bit in both window
-    layouts: 40 angles per group (full batches and a ragged one in two
-    buffers; 12 per group at 520 columns), zero-filled windows with NaN in
-    whatever was not staged, one column tile and two (three of 256 columns), the y-driven tile turned in shared memory, adding into
-    a slice.  The plane layout reads 9 values for 8 terms, the other two
-    per term."""
+def test_k4p_emulation_bit_exact(n, cor, group, accumulate):
+    """K4p's block equals unshear_bp_packed_plain bit for bit: 40 angles per
+    group (full batches and a ragged one in two buffers; 12 per group at 520
+    columns), zero-filled windows with NaN in whatever was not staged, one
+    column tile and two, the y-driven tile turned in shared memory, adding
+    into a slice; two loads per term."""
     _, groups = k1_case(1, n, n, 80 if n == 40 else 24, cor, seed=n)
     g = groups[0 if group == "x-driven" else 1]
-    S = k4p_shape(layout)
+    S = K4P
     assert g.swap == (group == "y-driven") and (g.prm.A > S.AZ or n > 40)
-    rng = np.random.default_rng(n + len(layout))
+    rng = np.random.default_rng(n + 11)
     q = rng.standard_normal((g.prm.A, 1, g.prm.LU)).astype(f32)
     base = rng.standard_normal((1, n, n)).astype(f32) if accumulate else None
     ref = PK.unshear_bp_packed_plain(
@@ -948,15 +901,14 @@ def test_k4p_emulation_bit_exact(n, cor, group, accumulate, layout):
     assert stats["staged"] > 0 and stats["global"] == 0
     rows = -(-n // S.R) * S.R
     per_term = stats["loads"] / (g.prm.A * rows * -(-n // S.C) * S.J)
-    assert per_term == ((S.J + 1) / S.J if S.planes else 2)
+    assert per_term == 2
 
 
-@pytest.mark.parametrize("layout", list(K4P_LAYOUTS))
 @pytest.mark.parametrize("case", ["steep-angles", "unaligned-lines"])
-def test_k4p_emulation_from_global_memory(case, layout):
+def test_k4p_emulation_from_global_memory(case):
     """|beta| > 1 (an angle's 8 rows shift by more than the window allows) and
     lines of q that are not 16-byte aligned (LU % 4 != 0) are summed from
-    global memory with the same arithmetic, in either layout, new and added."""
+    global memory with the same arithmetic, new and added."""
     rng = np.random.default_rng(12)
     n = 40
     beta = np.array([-0.9, 2.5, 0.3, -3.0, 1.0, 0.0] if case == "steep-angles"
@@ -970,8 +922,7 @@ def test_k4p_emulation_from_global_memory(case, layout):
             ref = PK.unshear_bp_packed_plain(
                 torch.as_tensor(q), torch.as_tensor(beta), U0, n, swap,
                 out=None if base is None else torch.as_tensor(base.copy())).numpy()
-            got, stats = unshear_emulated(k4p_shape(layout), q, beta, U0, n, n, swap, out=base,
-                                          single=True)
+            got, stats = unshear_emulated(K4P, q, beta, U0, n, n, swap, out=base, single=True)
             assert np.array_equal(got, ref)
             assert stats["global"] > 0
             assert (stats["staged"] > 0) == (case == "steep-angles")
@@ -1020,6 +971,7 @@ def k3_emulated(p, alpha, gamma, U0, LU, index=None):
         stats["idle"] += nz * int((~work).sum())
         stats["working"] += nz * int(work.sum())
         row = a if index is None else int(index[a])
+        assert 0 <= row < n_rows  # the kernel traps
         up = al > 0
         edge = (u0 - 1 if up else u0 + K3_V).astype(f32)
         t_first = np.maximum(np.floor((edge - base) / al).astype(np.int64) - 1, 0)

@@ -359,6 +359,38 @@ def test_resample_bp_index_equals_the_copied_rows(driven, nz):
     assert torch.equal(K.resample_bp_plain(sino[:, g.idx], *args), ref)
 
 
+@pytest.mark.parametrize("bad", [[0, 5, 30], [0, -1, 5], [-31, 2, 3]],
+                         ids=["past-the-end", "minus-one", "far-below"])
+def test_resample_bp_refuses_an_index_outside_the_sinogram(bad):
+    """An ``index`` entry outside [0, n_angles) raises: the kernel reads
+    row ``index[a]`` as it stands (no counting from the end), so neither the
+    wrapper nor the plain version takes a negative entry for a valid row."""
+    rng = np.random.default_rng(70)
+    sino = torch.from_numpy(rng.standard_normal((2, 30, N)).astype(np.float32))
+    alpha = torch.full((3,), 1.25)
+    gamma = torch.zeros(3)
+    index = torch.tensor(bad)
+    for fn in (K.resample_bp, K.resample_bp_plain):
+        with pytest.raises(IndexError, match=r"K3: index must lie in \[0, 30\)"):
+            fn(sino, alpha, gamma, 0, 2 * N, index=index)
+    ok = torch.tensor([0, 29, 5])
+    assert torch.equal(K.resample_bp(sino, alpha, gamma, 0, 2 * N, index=ok),
+                       K.resample_bp_plain(sino[:, ok], alpha, gamma, 0, 2 * N))
+
+
+def test_resample_bp_kernel_traps_on_an_index_outside_the_sinogram():
+    """The CUDA kernel checks the row it is about to read and fails its
+    launch on one outside [0, n_rows), before the address is formed."""
+    from pathlib import Path
+
+    import tomobar_tpu_torch
+
+    src = (Path(tomobar_tpu_torch.__file__).parent / "csrc" / "projector.cu").read_text()
+    body = src[src.index("resample_bp_kernel(const float*"):src.index("// K4: vol[z, Y, X]")]
+    guard = body.index("if (row < 0 || row >= n_rows) __trap();")
+    assert body.index("index[a]") < guard < body.index("* n_rows + row)")
+
+
 @pytest.mark.parametrize("nz", [1, 4], ids=["packed-one-slice", "four-slices"])
 def test_bp_core_equals_the_copy_then_resample_path(nz):
     """``_bp_core`` hands K3 the whole sinogram and each group's ``idx``; the

@@ -376,7 +376,8 @@ __global__ void resample_fp_kernel(const float* __restrict__ s,
 // exact transpose of K2.  row_a is a, or index[a] when the caller hands over
 // the whole sinogram (n_rows angles) and the group's angle positions in it:
 // the kernel then gathers the group's rows itself, and no copy of them is
-// made before the launch.
+// made before the launch.  An index[a] outside [0, n_rows) traps: the launch
+// fails, and the host reads nothing back to check.
 //
 // What bounds it: bytes.  A group of 91 angles x 8 slices reads 7.5 MB of p
 // and writes 16.8 MB of q, 7 us at the card's memory rate, against 3 us for
@@ -439,6 +440,7 @@ resample_bp_kernel(const float* __restrict__ p, const float* __restrict__ alpha,
   const int u_hi = static_cast<int>(ceilf(fmaxf(p_first, p_last)));
   if (det_x > 0 && u0 + kK3V - 1 >= u_lo && u0 <= u_hi) {
     const long long row = index != nullptr ? index[a] : a;
+    if (row < 0 || row >= n_rows) __trap();  // the launch fails, nothing is read
     const float* src = p + (static_cast<long long>(z) * n_rows + row) * det_x;
     const bool up = al > 0.f;  // pos rises with t
     // positions in (u0 - 1, u0 + kK3V) reach the thread's u; the first t
@@ -528,46 +530,32 @@ constexpr int kK4J = 8;              // columns per thread
 constexpr int kK4AZ = 32;            // windows (angles x slices) staged per batch
 constexpr int kK4Global = INT_MIN;   // base of an angle that is read from global memory
 
-// The shape of a block: K4 and K4p run one schedule at their own sizes.
-// PLANES_ = 0: a window lies in shared memory as in q, and a thread owns kJ
-// columns 32 apart (two 4-byte loads per term).  PLANES_ = 1: a thread owns
-// kJ consecutive columns and the window is stored as kJ planes, element w in
-// plane w % kJ at index w / kJ (K4p's note says why).
-template <int R_, int J_, int AZ_, int PLANES_>
+// The shape of a block: K4 and K4p run one schedule at their own sizes.  A
+// window lies in shared memory as in q, and a thread owns kJ columns 32 apart
+// (two 4-byte loads per term).
+template <int R_, int J_, int AZ_>
 struct UnshearShape {
   static constexpr int kR = R_;            // driven rows per block, one warp each
   static constexpr int kJ = J_;            // columns per thread
   static constexpr int kC = 32 * J_;       // columns per block
   static constexpr int kAZ = AZ_;          // windows (angles x slices) per batch
-  static constexpr int kPlanes = PLANES_;
   // taps of R_ rows whose shifts differ by at most R_, from a start rounded
   // down to a multiple of 4: kC + R_ + 4 values at most
   static constexpr int kW = kC + 2 * R_;   // q window per angle, floats
-  // a plane's length is 4 mod 32, so that 32 consecutive w fall in 32 banks;
-  // one float between windows spreads the warps that stage side by side
-  static constexpr int kPlane = (kW / J_ + 27) / 32 * 32 + 4;
-  static constexpr int kWin = PLANES_ ? J_ * kPlane + 1 : kW;  // one window, floats
   static constexpr int kThreads = 32 * R_;
-  static constexpr int kBuf = AZ_ * kWin;  // one window buffer, floats
+  static constexpr int kBuf = AZ_ * kW;   // one window buffer, floats
   static constexpr size_t kSmem =
       sizeof(float) * (2 * kBuf + 2 * AZ_) + sizeof(int) * 2 * AZ_;
-  static_assert(2 * R_ >= R_ + 4 && kW % 4 == 0 && (!PLANES_ || kW % J_ == 0), "window width");
+  static_assert(2 * R_ >= R_ + 4 && kW % 4 == 0, "window width");
   static_assert(kBuf >= kC * (R_ + 1), "the turned tile must fit a window buffer");
   static_assert(kThreads % AZ_ == 0 && AZ_ % 2 == 0 && R_ % 4 == 0 && J_ % 4 == 0,
                 "thread and store layout");
   // column of the tile that thread x holds in acc[k]
   __device__ static __forceinline__ int col(int x, int k) {
-    return PLANES_ ? x * J_ + k : x + 32 * k;
+    return x + 32 * k;
   }
 };
-using K4Shape = UnshearShape<kK4R, kK4J, kK4AZ, 0>;
-
-// 4-byte asynchronous copy to shared memory, zero-filled when bytes == 0
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(d), "l"(src), "r"(bytes) : "memory");
-}
+using K4Shape = UnshearShape<kK4R, kK4J, kK4AZ>;
 
 // window of one angle for the rows r0 .. r0 + kR - 1 of column tile c0: its
 // start lo4 (a multiple of 4), and whether it fits the staged width
@@ -584,7 +572,7 @@ __device__ __forceinline__ bool k4_window(float bt, int r0, int c0, float cy,
 }
 
 // start the copies of angle batch b's windows into `dst`, laid out
-// [slice of the block][angle of the batch][kWin], and note each angle's
+// [slice of the block][angle of the batch][kW], and note each angle's
 // beta and window start u (base[i], or kK4Global) for the threads that sum
 template <class S, int Z>
 __device__ __forceinline__ void k4_stage(const float* __restrict__ q,
@@ -594,52 +582,28 @@ __device__ __forceinline__ void k4_stage(const float* __restrict__ q,
                                          int r0, int c0, float cy, int U0,
                                          int aligned) {
   constexpr int kA = S::kAZ / Z;  // angles per batch
-  // interleaved: kPer threads share an angle and copy 16 bytes each;
-  // planes: a warp takes an angle and copies 4 bytes a lane
-  constexpr int kPer = S::kPlanes ? 32 : S::kThreads / kA;
-  constexpr int kStep = S::kPlanes ? S::kR : kA;  // angles taken side by side
+  constexpr int kPer = S::kThreads / kA;  // threads that share an angle, 16 bytes each
   const int tid = threadIdx.y * 32 + threadIdx.x;
-  for (int i = tid / kPer; i < kA; i += kStep) {
-    const int a = b * kA + i;
-    if (a >= A) return;
-    const float bt = beta[a];
-    int lo4;
-    const bool fits = k4_window<S>(bt, r0, c0, cy, U0, aligned, lo4);
-    if (tid % kPer == 0) {
-      sbeta[i] = bt;
-      base[i] = fits ? lo4 : kK4Global;
-    }
-    if (!fits) continue;
-    for (int zz = 0; zz < Z; ++zz) {  // Z divides nz
-      const float* line = q + (static_cast<long long>(a) * nz + z0 + zz) * LU;
-      float* d = dst + (zz * kA + i) * S::kWin;
-      if (S::kPlanes) {
-        // w = lane + 32 k lies in plane lane % kJ at index lane / kJ + (32 / kJ) k
-        float* dw = d + (tid % 32 % S::kJ) * S::kPlane + tid % 32 / S::kJ;
-        for (int w = tid % 32; w < S::kW; w += 32, dw += 32 / S::kJ) {
-          const int u = lo4 + w;
-          const bool ok = u >= 0 && u < LU;
-          cp_async4(dw, ok ? line + u : q, ok ? 4 : 0);
-        }
-      } else {
-        for (int c = tid % kPer; c < S::kW / 4; c += kPer) {
-          const int u = lo4 + 4 * c;  // u % 4 == 0 and LU % 4 == 0
-          const bool ok = u >= 0 && u < LU;
-          cp_async16(d + 4 * c, ok ? line + u : q, ok ? 16 : 0);
-        }
-      }
+  const int i = tid / kPer;
+  const int a = b * kA + i;
+  if (a >= A) return;
+  const float bt = beta[a];
+  int lo4;
+  const bool fits = k4_window<S>(bt, r0, c0, cy, U0, aligned, lo4);
+  if (tid % kPer == 0) {
+    sbeta[i] = bt;
+    base[i] = fits ? lo4 : kK4Global;
+  }
+  if (!fits) return;
+  for (int zz = 0; zz < Z; ++zz) {  // Z divides nz
+    const float* line = q + (static_cast<long long>(a) * nz + z0 + zz) * LU;
+    float* d = dst + (zz * kA + i) * S::kW;
+    for (int c = tid % kPer; c < S::kW / 4; c += kPer) {
+      const int u = lo4 + 4 * c;  // u % 4 == 0 and LU % 4 == 0
+      const bool ok = u >= 0 && u < LU;
+      cp_async16(d + 4 * c, ok ? line + u : q, ok ? 16 : 0);
     }
   }
-}
-
-// the kJ + 1 taps of a thread's kJ consecutive columns from a window stored
-// in planes: v[j] is window element m + kJ x + j with S = m % kJ, and `b`
-// points at index m / kJ + x of plane 0, so every offset is an immediate
-template <class Sh, int S>
-__device__ __forceinline__ void k4_plane_taps(const float* b, float (&v)[Sh::kJ + 1]) {
-#pragma unroll
-  for (int j = 0; j <= Sh::kJ; ++j)
-    v[j] = b[(S + j) % Sh::kJ * Sh::kPlane + (S + j) / Sh::kJ];
 }
 
 // One block of the unshear sum.  Thread (x, y): driven row r0 + y, columns
@@ -653,7 +617,6 @@ __device__ __forceinline__ void unshear_bp_block(
     float* __restrict__ vol, int A, int nz, int ny, int nx, int LU, int U0,
     int swap, int accumulate, int aligned, int vol_aligned, float* smem) {
   constexpr int kA = S::kAZ / Z;  // angles per batch
-  static_assert(!S::kPlanes || S::kJ == 8, "the plane layout is written for 8 columns");
   float* sbeta = smem + 2 * S::kBuf;
   int* sbase = reinterpret_cast<int*>(sbeta + 2 * kA);
   const int n_rows = swap ? nx : ny;
@@ -690,38 +653,16 @@ __device__ __forceinline__ void unshear_bp_block(
       row_shift(sbeta[parity * kA + i], row, cy, U0, o, f);
       const float g = __fsub_rn(1.f, f);
       const int lo4 = sbase[parity * kA + i];
-      if (lo4 != kK4Global && S::kPlanes) {
-        // the row's lowest tap, u - 1 of column c0, is window element m
-        const unsigned m = static_cast<unsigned>(o + c0 - 1 - lo4);
-        const float* wp = buf + i * S::kWin + m / S::kJ + threadIdx.x;
-#pragma unroll
-        for (int zz = 0; zz < Z; ++zz) {
-          float v[S::kJ + 1];
-          const float* wz = wp + zz * kA * S::kWin;
-          switch (m % S::kJ) {  // the same for every lane of the warp
-            case 0: k4_plane_taps<S, 0>(wz, v); break;
-            case 1: k4_plane_taps<S, 1>(wz, v); break;
-            case 2: k4_plane_taps<S, 2>(wz, v); break;
-            case 3: k4_plane_taps<S, 3>(wz, v); break;
-            case 4: k4_plane_taps<S, 4>(wz, v); break;
-            case 5: k4_plane_taps<S, 5>(wz, v); break;
-            case 6: k4_plane_taps<S, 6>(wz, v); break;
-            default: k4_plane_taps<S, 7>(wz, v); break;
-          }
-#pragma unroll
-          for (int k = 0; k < S::kJ; ++k)
-            acc[zz][k] = __fadd_rn(acc[zz][k], lerp_taps_g(g, f, v[k + 1], v[k]));
-        }
-      } else if (lo4 != kK4Global) {
+      if (lo4 != kK4Global) {
         // tap u of column c0 + x
-        const float* w = buf + i * S::kWin + (o + c0 + static_cast<int>(threadIdx.x) - lo4);
+        const float* w = buf + i * S::kW + (o + c0 + static_cast<int>(threadIdx.x) - lo4);
 #pragma unroll
         for (int zz = 0; zz < Z; ++zz)
 #pragma unroll
           for (int k = 0; k < S::kJ; ++k)
             acc[zz][k] = __fadd_rn(acc[zz][k],
-                                   lerp_taps_g(g, f, w[zz * kA * S::kWin + 32 * k],
-                                               w[zz * kA * S::kWin + 32 * k - 1]));
+                                   lerp_taps_g(g, f, w[zz * kA * S::kW + 32 * k],
+                                               w[zz * kA * S::kW + 32 * k - 1]));
       } else {
 #pragma unroll
         for (int zz = 0; zz < Z; ++zz) {
@@ -744,22 +685,6 @@ __device__ __forceinline__ void unshear_bp_block(
 #pragma unroll
     for (int zz = 0; zz < Z; ++zz) {
       float* out = vol + (z0 + zz) * slice + static_cast<long long>(row) * nx;
-      const int col0 = c0 + S::col(threadIdx.x, 0);
-      if (S::kPlanes && vol_aligned && col0 + S::kJ <= row_len) {
-        // the thread's kJ consecutive columns: 16-byte stores (nx % 4 == 0)
-#pragma unroll
-        for (int k = 0; k < S::kJ; k += 4) {
-          float4 v = make_float4(acc[zz][k], acc[zz][k + 1], acc[zz][k + 2], acc[zz][k + 3]);
-          float4* o4 = reinterpret_cast<float4*>(out + col0 + k);
-          if (accumulate) {
-            const float4 old = *o4;
-            v = make_float4(__fadd_rn(old.x, v.x), __fadd_rn(old.y, v.y),
-                            __fadd_rn(old.z, v.z), __fadd_rn(old.w, v.w));
-          }
-          *o4 = v;
-        }
-        continue;
-      }
 #pragma unroll
       for (int k = 0; k < S::kJ; ++k) {
         const int col = c0 + S::col(threadIdx.x, k);
@@ -770,8 +695,8 @@ __device__ __forceinline__ void unshear_bp_block(
   }
   // y-driven: vol[z, col, row].  Turn the tile in shared memory: acc[k] of
   // thread (x, y) goes to turn[x + 32 k][y], rows padded to kR + 1 floats
-  // (conflict-free for either layout); then a thread takes one entry and
-  // stores the kR rows of its column, which lie along memory.
+  // (conflict-free); then a thread takes one entry and stores the kR rows of
+  // its column, which lie along memory.
   float* turn = smem;
   const int tid = threadIdx.y * 32 + threadIdx.x;
 #pragma unroll
@@ -889,7 +814,7 @@ unshear_bp_kernel(const float* __restrict__ q, const float* __restrict__ beta,
 // for the shift.  Two designs that spend fewer of one kind were built and
 // timed, and lost:
 //
-//  * The plane layout (kP4Planes = 1, 8 columns per thread): a thread owns
+//  * A window in planes, 8 consecutive columns per thread: a thread owns
 //    8 consecutive columns, so a (row, angle) needs 9 consecutive values of
 //    q for 8 terms instead of 16.  Read as they lie, the 8-float stride
 //    between lanes would hit 4 banks; so window element w is stored in
@@ -901,6 +826,7 @@ unshear_bp_kernel(const float* __restrict__ q, const float* __restrict__ beta,
 //    Bit-equal as the other layout, and slower: 0.303 / 0.310 ms, 2.96 /
 //    2.97 at 901 angles (four times as many copies as with
 //    16 bytes each, every one with its bounds test, and the switch's branch).
+//    Not kept in the source.
 //  * A table of the batch's shifts, worked out by one thread per (row,
 //    angle) while the batch is staged and read back as 8 bytes: 0.232 /
 //    0.241 ms at 8 columns per thread against 0.220 / 0.231 without (the
@@ -908,7 +834,7 @@ unshear_bp_kernel(const float* __restrict__ q, const float* __restrict__ beta,
 //    source.
 //
 // The sum per voxel stays in ascending angle order with lerp_taps_g's rounding:
-// K4p equals its plain version (and K4) bit for bit in either layout.
+// K4p equals its plain version (and K4) bit for bit.
 
 constexpr int kP1U = 8;             // K1p: u-values per thread
 constexpr int kP1A = 8;             // K1p: angles per block, one warp each
@@ -919,9 +845,8 @@ using K1pShape = ShearShape<kP1U, kP1A, kP1R, kP1W>;
 constexpr int kP4R = 8;             // K4p: driven rows per block, one warp each
 constexpr int kP4J = 16;            // K4p: columns per thread
 constexpr int kP4A = 16;            // K4p: angles staged per batch
-constexpr int kP4Planes = 0;        // K4p: window stored in planes (0: as in q; 1 needs kP4J = 8)
 constexpr int kP4Blocks = 1;        // K4p: blocks an SM is asked to hold at least
-using K4pShape = UnshearShape<kP4R, kP4J, kP4A, kP4Planes>;
+using K4pShape = UnshearShape<kP4R, kP4J, kP4A>;
 
 // K1p, first pass: part[split, a, u] = sum over the rows of run `split`
 // (bands [split * bands_per_split, ...)) of (1-f) row_r[u-o] + f row_r[u-o+1]

@@ -204,8 +204,12 @@ def resample_bp_plain(p, alpha, gamma, U0: int, LU: int,
     """K3, as the scatter that is plainly the transpose of K2:
     q[a, z, i] += w0 p[z, a, t] and q[a, z, i + 1] += w1 p[z, a, t].  With
     ``index`` (the positions of the A angles in ``p``), ``p`` is the whole
-    (nz, n_angles, det_x) sinogram and angle a reads ``p[:, index[a]]``."""
+    (nz, n_angles, det_x) sinogram and angle a reads ``p[:, index[a]]``; an
+    entry outside [0, n_angles) raises (the kernel does not count from the
+    end either: it fails its launch)."""
     if index is not None:
+        if index.numel() and not 0 <= int(index.min()) <= int(index.max()) < p.shape[1]:
+            raise IndexError(f"K3: index must lie in [0, {p.shape[1]})")
         p = p[:, index]
     nz, A, det_x = p.shape
     i, w0, w1 = _det_taps(alpha, gamma, U0, det_x)
@@ -385,8 +389,8 @@ def resample_bp(p, alpha, gamma, U0: int, LU: int,
             raise TypeError("K3: index must be a contiguous 1D int64 tensor")
         if index.device != p.device:
             raise ValueError(f"K3: index on {index.device}, p on {p.device}")
-        # every entry must lie in [0, n_rows); that is not checked, since
-        # reading them back would hold the host up before every launch
+        # every entry must lie in [0, n_rows): the kernel checks that and
+        # fails its launch (reading them back here would hold the host up)
         A = index.shape[0]
     _params_ok("K3", A, alpha, gamma)
     q = torch.empty((A, nz, LU), dtype=torch.float32, device=p.device)
