@@ -72,6 +72,25 @@ Phases, in order; any failure raises and exits non-zero:
    prox of 20 iterations on a 512 x 2560^2 volume that is constant along z
    (13.4 GB) against the one-slice prox of the same slice (1e-5 of max); the
    times, chunk counts and peak memory of each.
+10. the regularisers: every method that ``prox_regul`` dispatches (ROF_TV,
+   PD_TV, FGP_TV iso/aniso x nonneg, SB_TV, LLT_ROF, TGV, NDF x3, Diff4th,
+   WAVELETS, PD_TV_WAVELETS, NLTV on ``patch_select``'s tables) on the GPU
+   and on the CPU on the same 4 x 64^2 phantom with noise, 2D and 3D (rel
+   L2 1e-4); one prox of 20 iterations of each but NLTV on 8 x 2560^2
+   (time after a warm-up call, peak memory); ``patch_select`` + NLTV on one
+   2560^2 slice (or the largest square that fits).
+11. a legacy prox on the main path: ``RecToolsIRCuPy.FISTA`` with FGP_TV
+   (lambda 5e-4, 20 iterations) on phase 6's data (OS10, PWLS, nonneg),
+   1, 2 and 3 outer iterations (the RMSE must fall), launch counts, one
+   FGP_TV prox on the last iterate (it must lower the iterate's total
+   variation and move it by more than rounding), one OS subset by stage; then the 2D flagship (OS10, LS) with FGP_TV, calls of
+   1 and 3 outer iterations.
+12. the Joseph pair (``set_projector_backend("xla")``): adjointness at
+   256^2 x 4 x 90, GPU against CPU FP/BP (rel L2 1e-4), its distance from
+   the two-pass pair, no kernel launched, one FP and one BP timed at the 2D
+   flagship; FOURIER_INV at 64^2 x 4 x 60, below the JAX package's n >= 128
+   rule, under ``set_usfft_backend`` "auto" and "xla": each must launch G
+   and agree with the CPU (rel L2 1e-4).
 
 The last three lines are the nvidia-smi line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.  A kernel's entry
@@ -132,6 +151,28 @@ KERNELS = {
           "tomobar_tpu/ops/fft_real.py:208"),
 }
 ITERATIVE = ("K1", "K2", "K3", "K4", "PD")  # the kernels of phase 6's path
+PROJECTOR_3D = ("K1", "K2", "K3", "K4")  # phase 11's path, 3D
+PROJECTOR_2D = ("K1p", "K2", "K3", "K4p")  # phase 11's path, 2D
+
+# phase 10: every method that prox_regul dispatches, as (label, method,
+# extra keys of the dict, nonnegativity of the owner)
+PROX_CASES = (
+    ("ROF_TV", "ROF_TV", {}, 0),
+    ("PD_TV", "PD_TV", {}, 1),
+    ("FGP_TV iso", "FGP_TV", {}, 0),
+    ("FGP_TV iso nonneg", "FGP_TV", {}, 1),
+    ("FGP_TV aniso", "FGP_TV", {"methodTV": 1}, 0),
+    ("FGP_TV aniso nonneg", "FGP_TV", {"methodTV": 1}, 1),
+    ("SB_TV", "SB_TV", {}, 0),
+    ("LLT_ROF", "LLT_ROF", {}, 0),
+    ("TGV", "TGV", {}, 0),
+    ("NDF Huber", "NDF", {"NDF_penalty": 1}, 0),
+    ("NDF rational", "NDF", {"NDF_penalty": 2}, 0),
+    ("NDF exponential", "NDF", {"NDF_penalty": 3}, 0),
+    ("Diff4th", "Diff4th", {}, 0),
+    ("WAVELETS", "WAVELETS", {}, 0),
+    ("PD_TV_WAVELETS", "PD_TV_WAVELETS", {}, 1),
+)
 TWO_D = ("K1p", "K4p")  # measured in phase 8
 
 
@@ -822,12 +863,7 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
     angles = np.linspace(0.0, np.pi, NA, endpoint=False)
     truth = torch.as_tensor(shepp_logan(N), device=dev)
     rd = RecToolsDIRCuPy(N, 0, None, 0.0, angles, N, device=dev)
-    clean = rd.FORWPROJ(truth)
-    px, i0 = 2.0 / N, 1.0e4  # as phase 6
-    gen = torch.Generator(device=dev).manual_seed(8)
-    counts = torch.poisson(i0 * torch.exp(-clean * px), generator=gen)
-    data = -torch.log(torch.clamp(counts, min=1.0) / i0) / px
-    del counts
+    data = noisy_sinogram(torch, rd.FORWPROJ(truth), 8)
     launches = {}
     for label, fn, shape in (("FORWPROJ", lambda: rd.FORWPROJ(truth), (NA, N)),
                              ("FBP (sinc 1.1)", lambda: rd.FBP(data), (N, N))):
@@ -1066,6 +1102,299 @@ def big_stack(torch, dev, clean, angles, small) -> dict:
     return launches
 
 
+def noisy_sinogram(torch, clean, seed: int):
+    """Poisson noise at 1e4 incident photons on a sinogram of a unit-radius
+    field of view (pixel size 2/N), back to post-log pixel units."""
+    px, i0 = 2.0 / clean.shape[-1], 1.0e4
+    gen = torch.Generator(device=clean.device).manual_seed(seed)
+    counts = torch.poisson(i0 * torch.exp(-clean * px), generator=gen)
+    return -torch.log(torch.clamp(counts, min=1.0) / i0) / px
+
+
+def prox_dict(method: str, extra: dict, lam: float, iterations: int) -> dict:
+    """A regularisation dict as ``dicts_check`` completes it."""
+    return dict({"method": method, "regul_param": lam, "iterations": iterations,
+                 "time_marching_step": 0.002, "methodTV": 0, "PD_LipschitzConstant": 12.0,
+                 "regul_param2": 0.02, "edge_param": 0.1}, **extra)
+
+
+def regularisers_on_card(torch, dev) -> None:
+    """10: every prox on the GPU against the CPU, then their times at the
+    flagship volume and patch_select + NLTV on one flagship slice."""
+    from types import SimpleNamespace
+
+    from tomobar_tpu_torch import regularisers_legacy as RL
+    from tomobar_tpu_torch.regularisers import prox_regul
+
+    rng = np.random.default_rng(10)
+    small = phantom(64, 4) + 0.1 * rng.standard_normal((4, 64, 64)).astype(np.float32)
+    cpu3 = torch.as_tensor(small)
+    worst = 0.0
+    for label, method, extra, nn in PROX_CASES:
+        owner = SimpleNamespace(nonneg_regul=nn)
+        reg = prox_dict(method, extra, 0.05, 20)
+        for dims, x in (("3D", cpu3), ("2D", cpu3[0])):
+            ref = prox_regul(owner, x, dict(reg))
+            got = prox_regul(owner, x.to(dev), dict(reg))
+            require(tuple(got.shape) == tuple(ref.shape), f"{label} {dims}: shape {tuple(got.shape)}")
+            require(bool(torch.isfinite(got).all()), f"{label} {dims}: non-finite GPU result")
+            rel = rel_l2(torch, got.cpu(), ref)
+            worst = max(worst, rel)
+            require(rel <= TOL_SLICE, f"{label} {dims}: GPU vs CPU {rel:.3e} > {TOL_SLICE:g}")
+    print(f"[10] {len(PROX_CASES)} proxes of 20 iterations, 4x64^2 and 64^2: worst rel L2 GPU vs "
+          f"CPU {worst:.3e} (tol {TOL_SLICE:g})")
+    # NLTV: patch_select on both devices, then NLTV on the CPU's tables
+    img = cpu3[0]
+    tables = RL.patch_select(img)
+    on_card = RL.patch_select(img.to(dev))
+    differ = int(((on_card[0].cpu() != tables[0]) | (on_card[1].cpu() != tables[1])).sum())
+    w_err = float((on_card[2].cpu() - tables[2]).abs().max())
+    print(f"[10] patch_select 64^2 (search 9, patch 2, 15 neighbours): {differ} of "
+          f"{tables[0].numel()} table entries differ GPU vs CPU, weights max|diff| {w_err:.3e}")
+    require(differ == 0 and w_err <= 1e-5, "patch_select: GPU vs CPU")
+    reg = {"method": "NLTV", "regul_param": 0.03, "NLTV_H_i": tables[0], "NLTV_H_j": tables[1],
+           "NLTV_Weights": tables[2], "IterNumb": 5}
+    ref = prox_regul(None, img, dict(reg))
+    got = prox_regul(None, img.to(dev), dict(reg))
+    rel = rel_l2(torch, got.cpu(), ref)
+    print(f"[10] NLTV 64^2, 5 iterations: rel L2 GPU vs CPU {rel:.3e} (tol {TOL_SLICE:g})")
+    require(rel <= TOL_SLICE, f"NLTV: GPU vs CPU {rel:.3e}")
+
+    # one prox of 20 iterations on the flagship volume
+    N, NZ = 2560, 8
+    gen = torch.Generator(device=dev).manual_seed(11)
+    vol = torch.as_tensor(phantom(N, NZ), device=dev)
+    vol = vol + 0.05 * torch.randn(vol.shape, generator=gen, device=dev)
+    times = {}
+    for label, method, extra, nn in PROX_CASES:
+        owner = SimpleNamespace(nonneg_regul=nn)
+        reg = prox_dict(method, extra, 5e-4, 20)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = time_cuda(torch, lambda: prox_regul(owner, vol, dict(reg)), 2)
+        peak = (torch.cuda.max_memory_allocated(dev) - held) / 2**20
+        times[label] = {"ms": round(ms, 3), "peak_mib_above_input": round(peak, 1)}
+        print(f"[10] {label}, one prox of 20 iterations on {NZ}x{N}x{N}: {ms:.3f} ms, "
+              f"peak {peak:.1f} MiB above the {held / 2**20:.1f} MiB held")
+    print("[10] proxes at the flagship (ms, MiB): " + json.dumps(times))
+    del vol
+
+    # patch_select + NLTV on one flagship slice, or the largest square that fits
+    for n in (2560, 2048, 1536, 1024):
+        img = torch.as_tensor(shepp_logan(n), device=dev)
+        img = img + 0.05 * torch.randn(img.shape, generator=gen, device=dev)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            tables = RL.patch_select(img)
+            torch.cuda.synchronize()
+            t_ps = time.perf_counter() - t0
+            reg = {"method": "NLTV", "regul_param": 0.03, "NLTV_H_i": tables[0],
+                   "NLTV_H_j": tables[1], "NLTV_Weights": tables[2], "IterNumb": 5}
+            ms = time_cuda(torch, lambda: prox_regul(None, img, dict(reg)), 2)
+        except torch.cuda.OutOfMemoryError:
+            print(f"[10] patch_select + NLTV at {n}^2: out of device memory, next size down")
+            tables = reg = None
+            torch.cuda.empty_cache()
+            continue
+        peak = (torch.cuda.max_memory_allocated(dev) - held) / 2**30
+        out = prox_regul(None, img, dict(reg))
+        require(bool(torch.isfinite(out).all()) and tuple(out.shape) == (n, n), "NLTV: bad result")
+        print(f"[10] patch_select at {n}^2{' (the flagship slice)' if n == N else ''} "
+              f"(search 9, patch 2, 15 neighbours): {t_ps * 1e3:.1f} ms wall; NLTV, 5 "
+              f"iterations: {ms:.3f} ms; peak {peak:.2f} GiB above what was held")
+        break
+    else:
+        raise SmokeFailure("patch_select + NLTV fit at no size down to 1024^2")
+    del tables, reg, img
+
+
+def fista_calls(torch, rt, data: dict, iters, lc: float, reg: dict):
+    """FISTA calls of ``iters`` outer iterations (nonneg), each between CUDA
+    events; returns the results and their ms."""
+    recs, ms = [], []
+    for it in iters:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        recs.append(rt.FISTA(dict(data), {"iterations": it, "nonnegativity": True,
+                                          "lipschitz_const": lc}, dict(reg)))
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return recs, ms
+
+
+def total_variation(torch, x) -> float:
+    """Isotropic total variation of a (nz, n, n) volume, forward differences
+    along every axis, summed in float64."""
+    x = x.double()
+    d2 = torch.zeros_like(x)
+    for ax in range(3):
+        d = torch.diff(x, dim=ax)
+        d2.narrow(ax, 0, d.shape[ax]).add_(d * d)
+    return float(torch.sqrt(d2).sum())
+
+
+def legacy_main_path(torch, dev, clean, angles, lc: float) -> dict:
+    """11: FISTA with the FGP-TV prox on phase 6's data (its Lipschitz
+    constant ``lc``) and on the 2D flagship; returns the launches."""
+    from tomobar_tpu_torch import RecToolsDIRCuPy, RecToolsIRCuPy, _build
+    from tomobar_tpu_torch.regularisers_legacy import FGP_TV
+
+    NZ, NA, N = clean.shape
+    OS = 10
+    reg = {"method": "FGP_TV", "regul_param": 5e-4, "iterations": 20}
+    truth = torch.as_tensor(phantom(N, NZ), device=dev)
+    data = {"projection_data": noisy_sinogram(torch, clean, 6), "data_fidelity": "PWLS"}
+    rt = RecToolsIRCuPy(N, 0, NZ, 0.0, angles, N, OS_number=OS, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    recs, ms = fista_calls(torch, rt, data, (1, 2, 3), lc, reg)
+    launches = {k: v for k, v in _build.launch_counts.items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[11] launch counts, FISTA 1+2+3 with FGP_TV: {json.dumps(launches)}")
+    for k in PROJECTOR_3D:
+        require(launches.get(k, 0) > 0, f"kernel {k} was not launched by FISTA with FGP_TV")
+    rmse = []
+    for it, rec, t in zip((1, 2, 3), recs, ms):
+        require(tuple(rec.shape) == (NZ, N, N), f"FGP_TV FISTA shape {tuple(rec.shape)}")
+        require(bool(torch.isfinite(rec).all()), f"FGP_TV FISTA: non-finite after {it}")
+        rmse.append(float(torch.sqrt(torch.mean((rec - truth) ** 2))))
+        print(f"[11] FISTA-OS10-PWLS-FGP_TV20 {it} outer iteration(s): {t:.1f} ms, "
+              f"RMSE vs phantom {rmse[-1]:.6f}")
+    print(f"[11] per-outer-iteration ms (call 1, then differences of calls): "
+          f"{ms[0]:.1f}, {ms[1] - ms[0]:.1f}, {ms[2] - ms[1]:.1f}; peak {peak / 2**20:.1f} MiB")
+    require(rmse[0] > rmse[1] > rmse[2], f"FGP_TV FISTA RMSE does not fall: {rmse}")
+    x = recs[-1].contiguous()
+    del recs
+    prox = FGP_TV(x, 5e-4, 20, 0, 1)
+    moved = rel_l2(torch, prox, x)
+    tv_x, tv_prox = total_variation(torch, x), total_variation(torch, prox)
+    print(f"[11] one FGP_TV prox on the last iterate: moves it by rel L2 {moved:.3e}, "
+          f"total variation {tv_x:.6e} -> {tv_prox:.6e}")
+    require(moved > 1e-6, f"the FGP_TV prox moved the iterate by {moved:.3e}, no more than rounding")
+    require(tv_prox < tv_x, f"the FGP_TV prox did not lower the total variation: {tv_x} -> {tv_prox}")
+    del prox
+    b0 = rt.Atools.sino_subset(data["projection_data"], 0)
+    stages = {
+        "fp_sub (K1 x2, K2 x2)": lambda: rt.Atools.fp_sub(x, 0),
+        "bp_sub (K3 x2, K4 x2)": lambda: rt.Atools.bp_sub(b0, 0),
+        "FGP_TV prox, 20 iterations": lambda: FGP_TV(x, 5e-4, 20, 0, 1),
+    }
+    print("[11] one OS subset by stage (ms): " + json.dumps(
+        {k: round(time_cuda(torch, fn, 5), 3) for k, fn in stages.items()}))
+    del b0, x, data, truth
+
+    # the 2D flagship, OS10, LS
+    truth = torch.as_tensor(shepp_logan(N), device=dev)
+    rd = RecToolsDIRCuPy(N, 0, None, 0.0, angles, N, device=dev)
+    data = {"projection_data": noisy_sinogram(torch, rd.FORWPROJ(truth), 8)}
+    rt = RecToolsIRCuPy(N, 0, None, 0.0, angles, N, OS_number=OS, device=dev)
+    lc2 = rt.powermethod(dict(data))
+    _build.reset_launch_counts()
+    recs, ms = fista_calls(torch, rt, data, (1, 3), lc2, reg)
+    two_d = {k: v for k, v in _build.launch_counts.items() if v}
+    print(f"[11] 2D launch counts, FISTA 1+3 with FGP_TV: {json.dumps(two_d)}")
+    for k in PROJECTOR_2D:
+        require(two_d.get(k, 0) > 0, f"kernel {k} was not launched by 2D FISTA with FGP_TV")
+    rmse = [float(torch.sqrt(torch.mean((rec[0] - truth) ** 2))) for rec in recs]
+    for it, rec, t, e in zip((1, 3), recs, ms, rmse):
+        require(bool(torch.isfinite(rec).all()), f"2D FGP_TV FISTA: non-finite after {it}")
+        print(f"[11] 2D FISTA-OS10-LS-FGP_TV20 {it} outer iteration(s): {t:.2f} ms, "
+              f"RMSE vs phantom {e:.6f}")
+    require(rmse[0] > rmse[1], f"2D FGP_TV FISTA RMSE does not fall: {rmse}")
+    x = recs[-1]
+    b0 = rt.Atools.sino_subset(data["projection_data"][None], 0)
+    stages = {
+        "fp_sub (K1p x2, K2 x2)": lambda: rt.Atools.fp_sub(x, 0),
+        "bp_sub (K3 x2, K4p x2)": lambda: rt.Atools.bp_sub(b0, 0),
+        "FGP_TV prox, 20 iterations": lambda: FGP_TV(x, 5e-4, 20, 0, 1),
+    }
+    print("[11] 2D, one OS subset by stage (ms): " + json.dumps(
+        {k: round(time_cuda(torch, fn, 5), 3) for k, fn in stages.items()}))
+    for k, v in two_d.items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def joseph_on_card(torch, dev) -> None:
+    """12: the one-pass Joseph pair, chosen by the projector backend switch,
+    and FOURIER_INV below n = 128 under the gridding backend names; "auto"
+    is put back whatever happens."""
+    from tomobar_tpu_torch import RecToolsDIRCuPy, _build
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops import projector as P
+    from tomobar_tpu_torch.ops import usfft as US
+
+    angles90 = np.linspace(0.0, np.pi, 90, endpoint=False)
+    geom = Geometry(256, 4, angles90, 0.0, 256)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    vol = torch.as_tensor(phantom(256, 4), device=dev)
+    two_pass = P.radon_fp(vol, geom)
+    P.set_projector_backend("xla")
+    try:
+        # positive inputs: a random-signed pair cancels in <Ax, y>
+        x = torch.rand((4, 256, 256), generator=gen, device=dev)
+        y = torch.rand((4, 90, 256), generator=gen, device=dev)
+        _build.reset_launch_counts()
+        ax, aty = P.radon_fp(x, geom), P.radon_bp(y, geom)
+        lhs = float(torch.sum(ax.double() * y.double()))
+        rhs = float(torch.sum(x.double() * aty.double()))
+        rel = abs(lhs - rhs) / abs(lhs)
+        print(f"[12] Joseph adjointness 256^2x4x90: {rel:.3e} (tol {TOL_ADJOINT:g})")
+        require(rel <= TOL_ADJOINT, f"Joseph adjointness {rel:.3e} > {TOL_ADJOINT:g}")
+        for label, got, ref in (("FP", ax, P.radon_fp(x.cpu(), geom)),
+                                ("BP", aty, P.radon_bp(y.cpu(), geom))):
+            rel = rel_l2(torch, got.cpu(), ref)
+            print(f"[12] Joseph {label} 256^2x4x90: rel L2 GPU vs CPU {rel:.3e} (tol {TOL_SLICE:g})")
+            require(rel <= TOL_SLICE, f"Joseph {label}: GPU vs CPU {rel:.3e}")
+        joseph = P.radon_fp(vol, geom)
+        require(all(v == 0 for v in _build.launch_counts.values()),
+                f"the Joseph pair launched kernels: {dict(_build.launch_counts)}")
+        print(f"[12] Joseph FP against the two-pass pair, phantom 256^2x4x90: rel L2 "
+              f"{rel_l2(torch, joseph, two_pass):.3e}; no kernel launched")
+        # one FP and one BP at the 2D flagship
+        N, NA = 2560, 1801
+        flag = Geometry(N, 1, np.linspace(0.0, np.pi, NA, endpoint=False), 0.0, N)
+        img = torch.as_tensor(shepp_logan(N), device=dev)
+        sino = P.radon_fp(img, flag)
+        for label, fn in (("FP", lambda: P.radon_fp(img, flag)),
+                          ("BP", lambda: P.radon_bp(sino, flag))):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = time_cuda(torch, fn, 2)
+            peak = (torch.cuda.max_memory_allocated(dev) - held) / 2**20
+            print(f"[12] Joseph {label} at the 2D flagship {N}^2 x {NA}: {ms:.1f} ms; peak "
+                  f"{peak:.1f} MiB above what was held")
+        del sino, img
+    finally:
+        P.set_projector_backend("auto")
+    # FOURIER_INV below n = 128 grids with G under every backend name
+    n, angles60 = 64, np.linspace(0.0, np.pi, 60, endpoint=False)
+    sino = P.radon_fp(torch.as_tensor(phantom(n, 4), device=dev), Geometry(n, 4, angles60, 0.0, n))
+    ref = RecToolsDIRCuPy(n, 0, 4, 0.0, angles60, n, device="cpu").FOURIER_INV(sino.cpu())
+    rt = RecToolsDIRCuPy(n, 0, 4, 0.0, angles60, n, device=dev)
+    for name in ("auto", "xla"):
+        US.set_usfft_backend(name)
+        try:
+            _build.reset_launch_counts()
+            got = rt.FOURIER_INV(sino)
+            g = _build.launch_counts["G"]
+        finally:
+            US.set_usfft_backend("auto")
+        rel = rel_l2(torch, got.cpu(), ref)
+        print(f"[12] FOURIER_INV {n}^2x4x60 under set_usfft_backend({name!r}): {g} G launch(es), "
+              f"rel L2 GPU vs CPU {rel:.3e} (tol {TOL_SLICE:g})")
+        require(g > 0, f"FOURIER_INV at n = {n} under {name!r} did not launch G")
+        require(rel <= TOL_SLICE, f"FOURIER_INV at n = {n} under {name!r}: GPU vs CPU {rel:.3e}")
+
+
 def main() -> int:
     pkg = os.path.join(REPO, "tomobar_tpu_torch")
     require(os.path.isdir(pkg), f"{pkg} not found: run chip_smoke.py from a checkout")
@@ -1192,14 +1521,7 @@ def main() -> int:
     t0 = time.perf_counter()
     truth = torch.as_tensor(phantom(N, NZ), device=dev)
     clean = radon_fp(truth, Geometry(N, NZ, angles, 0.0, N))
-    # Poisson noise at 1e4 incident photons, pixel size 2/N on a unit-radius
-    # field of view, then back to post-log pixel units
-    px = 2.0 / N
-    i0 = 1.0e4
-    gen = torch.Generator(device=dev).manual_seed(6)
-    counts = torch.poisson(i0 * torch.exp(-clean * px), generator=gen)
-    data = -torch.log(torch.clamp(counts, min=1.0) / i0) / px
-    del counts
+    data = noisy_sinogram(torch, clean, 6)
     torch.cuda.synchronize()
     print(f"[6] data: phantom, FP and Poisson noise in {time.perf_counter() - t0:.2f} s")
 
@@ -1233,6 +1555,7 @@ def main() -> int:
           + json.dumps({k: v[0] for k, v in per_call.items()}))
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[6] power method: L = {lc:.6g} in {t_power:.2f} s wall")
+    lc6 = lc
     print(f"[6] launch counts during the main path: {json.dumps(launches)}")
     for k in ITERATIVE:
         require(launches[k] > 0, f"kernel {k} was not launched by the main path")
@@ -1352,7 +1675,18 @@ def main() -> int:
     # ---- 9. the big stack -------------------------------------------------
     for k, v in big_stack(torch, dev, clean, angles, small).items():
         launches[k] += v
-    del clean, small
+    del small
+
+    # ---- 10. the regularisers ----------------------------------------------
+    regularisers_on_card(torch, dev)
+
+    # ---- 11. a legacy prox on the main path --------------------------------
+    for k, v in legacy_main_path(torch, dev, clean, angles, lc6).items():
+        launches[k] += v
+    del clean
+
+    # ---- 12. the Joseph pair and the plain gridding ------------------------
+    joseph_on_card(torch, dev)
 
     summary = {
         "kernels": [

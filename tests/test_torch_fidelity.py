@@ -212,6 +212,7 @@ def test_import_leaves_jax_out():
         "import sys, tomobar_tpu_torch\n"
         "import tomobar_tpu_torch.ops.projector, tomobar_tpu_torch.ops.pd_tv\n"
         "import tomobar_tpu_torch.convert, tomobar_tpu_torch.solvers.core\n"
+        "import tomobar_tpu_torch.regularisers_legacy, tomobar_tpu_torch.ops.usfft\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'tomobar_tpu' or m.startswith('tomobar_tpu.')]\n"
         "assert not bad, bad\n"

@@ -87,9 +87,16 @@ def test_prox_regul_dispatch():
     np.testing.assert_array_equal(
         prox_regul(Owner(), v, rof).numpy(), ROF_TV(v, LAM, 3, 0.002).numpy()
     )
-    for method in ("FGP_TV", "PD_TV_WAVELETS"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prox_regul(Owner(), v, dict(reg, method=method))
+    from tomobar_tpu_torch.regularisers_legacy import FGP_TV, WAVELET_SHRINK
+
+    np.testing.assert_array_equal(
+        prox_regul(Owner(), v, dict(reg, method="FGP_TV")).numpy(),
+        FGP_TV(v, LAM, 3, 0, 1).numpy(),
+    )
+    np.testing.assert_array_equal(
+        prox_regul(Owner(), v, dict(reg, method="PD_TV_WAVELETS", regul_param2=0.02)).numpy(),
+        WAVELET_SHRINK(PD_TV(v, LAM, 3, 0, 1, LC), 0.02, 3).numpy(),
+    )
 
 
 def test_cpu_pd_tv_launches_no_kernel():

@@ -122,13 +122,16 @@ def test_rof_tv_matches_jax(shape, half):
     assert np.abs(got - want).max() <= TOL_ROF * np.abs(want).max()
 
 
-def test_prox_regul_serves_rof_tv_and_names_the_legacy_item():
+def test_prox_regul_serves_rof_tv_and_fgp_tv():
+    """ROF_TV and the legacy FGP_TV (no nonnegativity without an owner)
+    each equal their direct call."""
+    from tomobar_tpu_torch.regularisers_legacy import FGP_TV
+
     x = torch.from_numpy(np.random.default_rng(43).standard_normal((2, 16, 16)).astype(np.float32))
     reg = {"method": "ROF_TV", "regul_param": 0.05, "iterations": 5,
-           "time_marching_step": 0.002}
+           "time_marching_step": 0.002, "methodTV": 0}
     assert torch.equal(prox_regul(None, x, reg), ROF_TV(x, 0.05, 5, 0.002))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        prox_regul(None, x, dict(reg, method="FGP_TV"))
+    assert torch.equal(prox_regul(None, x, dict(reg, method="FGP_TV")), FGP_TV(x, 0.05, 5, 0, 0))
 
 
 def test_iterative_class_has_every_solver():

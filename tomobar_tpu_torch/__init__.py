@@ -7,8 +7,10 @@ Ported so far:
 
 * the iterative path: ``RecToolsIRCuPy`` (power method, Landweber, SIRT,
   CGLS, FISTA, ADMM, OSEM) with LS/PWLS/SWLS/KL fidelity, ordered subsets
-  and ROF-TV/PD-TV proxes, on the two-pass shear/resample projector pair
-  (its packed nz = 1 kernels for one slice);
+  and every prox of the JAX package (ROF-TV, PD-TV and the legacy FGP-TV,
+  SB-TV, LLT-ROF, TGV, NDF, Diff4th, NLTV, Haar wavelets), on the two-pass
+  shear/resample projector pair (its packed nz = 1 kernels for one slice)
+  or, under ``set_projector_backend("xla")``, the one-pass Joseph pair;
 * the direct path: ``RecToolsDIR``/``RecToolsDIRCuPy`` 2D and 3D ``FBP``,
   ``FORWPROJ``/``BACKPROJ``, 2D ``FOURIER`` and ``FOURIER_INV`` (the USFFT
   gridding and the fused axis-(-2) FFT pass).

@@ -4,9 +4,9 @@ PyTorch tensors.
 Counterpart of ``tomobar_tpu/models/iterative.py`` (reference
 ``tomobar/methodsIR_CuPy.py:36``): power method, Landweber, SIRT, CGLS,
 FISTA and ADMM with LS / PWLS / SWLS / KL fidelities, OSEM, ordered subsets,
-the ROF-TV and PD-TV proxes, warm start, detector padding (with recon-grid
-enlargement and final crop) and circular masking.  2D data run as one
-slice (detY = 1) and return ``(1, N, N)``.
+every prox that ``prox_regul`` serves, warm start, detector padding (with
+recon-grid enlargement and final crop) and circular masking.  2D data run
+as one slice (detY = 1) and return ``(1, N, N)``.
 """
 
 from __future__ import annotations

@@ -1,11 +1,28 @@
 """Parallel-beam Radon transform pair (FP / BP) on PyTorch tensors.
 
-Counterpart of ``tomobar_tpu/ops/projector.py`` on its Pallas backend: the
-operator is the two-pass shear/resample pair of
-:mod:`tomobar_tpu_torch.ops.projector_kernels` (K1-K4, and K1p/K4p in place
-of K1/K4 for one slice whose driven rows come in groups of 8, under the
-JAX package's conditions), an exact numerical adjoint pair.  Public layouts are the JAX package's canonical ones:
-volumes ``(nz, ny, nx)`` and sinograms ``(detY, angles, detX)``; 2D inputs
+Counterpart of ``tomobar_tpu/ops/projector.py``, with its two backends,
+each an exact numerical adjoint pair:
+
+* ``"pallas"``: the two-pass shear/resample pair of
+  :mod:`tomobar_tpu_torch.ops.projector_kernels` (K1-K4, and K1p/K4p in
+  place of K1/K4 for one slice whose driven rows come in groups of 8, under
+  the JAX package's conditions): the CUDA kernels for CUDA tensors, their
+  plain versions for CPU tensors.
+* ``"xla"``: the one-pass Joseph pair (``_fp_driven`` / ``_bp_driven``),
+  plain PyTorch gathers on either device, as the JAX package's XLA path.
+  It differs from the two-pass pair by ~1-2%, and ``GOLDEN_CPU`` of the
+  JAX package's tests was frozen on it.
+
+``set_projector_backend`` (or the ``TOMOBAR_TPU_PROJECTOR`` environment
+variable) picks one, with the JAX package's names.  ``"auto"`` is an alias
+of ``"pallas"``: the two-pass pair on every device, which is deliberately
+not the JAX package's choice (there "auto" is XLA on anything but a TPU):
+the port's operator is the counterpart of the TPU path, its CPU path is
+what every port test holds against the interpret-mode Pallas kernels, and
+the smoke run compares the GPU with the CPU on it.
+
+Public layouts are the JAX package's canonical ones: volumes
+``(nz, ny, nx)`` and sinograms ``(detY, angles, detX)``; 2D inputs
 ``(ny, nx)`` / ``(angles, detX)`` are accepted and returned as 2D.
 
 A detector cell ``t`` at angle ``theta`` sees the line
@@ -15,6 +32,7 @@ A detector cell ``t`` at angle ``theta`` sees the line
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Tuple
 
 import numpy as np
@@ -41,7 +59,19 @@ __all__ = [
     "forward_project",
     "back_project",
     "Projector",
+    "set_projector_backend",
 ]
+
+_BACKEND = os.environ.get("TOMOBAR_TPU_PROJECTOR", "auto")
+
+
+def set_projector_backend(name: str) -> None:
+    """Select the projector implementation by the JAX package's names
+    (see the module docstring)."""
+    global _BACKEND
+    if name not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown projector backend {name!r}")
+    _BACKEND = name
 
 
 # A stack of any depth goes through the kernels in z-chunks (slices are
@@ -95,6 +125,109 @@ def _vshift_sino(sino: torch.Tensor, dz: np.ndarray) -> torch.Tensor:
             acc = term if acc is None else acc + term
         out[:, a0:a1] = acc
     return out
+
+
+# ---------------------------------------------------------------------------
+# the one-pass Joseph pair (x-driven shown; the y-driven group swaps the
+# volume's y and x): the JAX package's float32 arithmetic in its order, in
+# blocks of rows (FP) or angles (BP) whose gathers stay under the budget
+# ---------------------------------------------------------------------------
+
+# elements of a block's gather intermediates
+_BLOCK_BUDGET_ELEMS = 16 * 1024 * 1024
+
+
+def _pick_block(total: int, other_elems: int) -> int:
+    """A block length that keeps other_elems * block under the budget."""
+    if total <= 0:
+        return 1
+    return int(min(total, max(1, _BLOCK_BUDGET_ELEMS // max(1, other_elems))))
+
+
+def _pad_to_multiple(x: torch.Tensor, dim: int, multiple: int, value: float = 0.0) -> torch.Tensor:
+    rem = (-x.shape[dim]) % multiple
+    if rem == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = rem
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype, device=x.device)], dim)
+
+
+def _as_f32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+
+def _fp_driven(vol: torch.Tensor, cos_v, sin_v, cor_v, det_x: int) -> torch.Tensor:
+    """Joseph x-driven FP for angles with |cos| >= |sin|: one linear
+    interpolation per crossed row.  vol (nz, ny, nx) float32 -> (nz, A,
+    det_x)."""
+    nz, ny, nx = vol.shape
+    dev = vol.device
+    n_ang = int(np.size(cos_v))
+    cos_t, sin_t, cor_t = (_as_f32(a, dev) for a in (cos_v, sin_v, cor_v))
+    inv_c = 1.0 / cos_t
+    t = torch.arange(det_x, dtype=torch.float32, device=dev)
+    # detector coordinate s_t = t - (det_x-1)/2 + cor, (A, T)
+    s_t = t[None, :] - (det_x - 1) / 2.0 + cor_t[:, None]
+    cx = (nx - 1) / 2.0
+    y_block = _pick_block(ny, nz * n_ang * det_x)
+    volp = _pad_to_multiple(torch.nn.functional.pad(vol, (1, 1)), 1, y_block)
+    y_base = torch.arange(y_block, dtype=torch.float32, device=dev)
+    acc = torch.zeros((nz, n_ang, det_x), dtype=torch.float32, device=dev)
+    shape = (nz, n_ang, y_block, det_x)
+    for yb in range(volp.shape[1] // y_block):
+        rows = volp[:, yb * y_block:(yb + 1) * y_block]  # (nz, B, nx+2)
+        yv = (yb * y_block + y_base) - (ny - 1) / 2.0
+        # sample position along x of each (angle, row, detector cell)
+        pos = (s_t[:, None, :] - yv[None, :, None] * sin_t[:, None, None]) * inv_c[:, None, None] + cx
+        i0 = torch.floor(pos)
+        frac = pos - i0
+        i0 = i0.to(torch.int64)
+        # the gather index is int64, 8 B per (angle, row, cell) of the block,
+        # expanded over the slices without a copy; rows likewise over angles
+        src = rows[:, None].expand(nz, n_ang, y_block, nx + 2)
+        g0 = torch.gather(src, 3, torch.clamp(i0 + 1, 0, nx + 1)[None].expand(shape))
+        g1 = torch.gather(src, 3, torch.clamp(i0 + 2, 0, nx + 1)[None].expand(shape))
+        contrib = (1.0 - frac)[None] * g0 + frac[None] * g1
+        acc = acc + torch.sum(contrib, dim=2)
+    return acc * torch.abs(inv_c)[None, :, None]
+
+
+def _bp_driven(sino: torch.Tensor, cos_v, sin_v, cor_v, ny: int, nx: int) -> torch.Tensor:
+    """Exact adjoint of :func:`_fp_driven`: the same hat weights, gathered
+    from the sinogram side.  sino (nz, A, det_x) float32 -> (nz, ny, nx)."""
+    nz, n_ang, det_x = sino.shape
+    dev = sino.device
+    ang_block = _pick_block(n_ang, nz * ny * nx)
+    sinop = _pad_to_multiple(torch.nn.functional.pad(sino, (2, 2)), 1, ang_block)
+    # padded angles get cos 1.0, so 1/cos stays finite
+    cosp = _pad_to_multiple(_as_f32(cos_v, dev), 0, ang_block, 1.0)
+    sinp = _pad_to_multiple(_as_f32(sin_v, dev), 0, ang_block)
+    corp = _pad_to_multiple(_as_f32(cor_v, dev), 0, ang_block)
+    xs = torch.arange(nx, dtype=torch.float32, device=dev) - (nx - 1) / 2.0
+    ys = torch.arange(ny, dtype=torch.float32, device=dev) - (ny - 1) / 2.0
+    acc = torch.zeros((nz, ny, nx), dtype=torch.float32, device=dev)
+    for ab in range(sinop.shape[1] // ang_block):
+        blk = slice(ab * ang_block, (ab + 1) * ang_block)
+        rows = sinop[:, blk]  # (nz, Ab, det_x+4)
+        c, s, r = cosp[blk], sinp[blk], corp[blk]
+        a_abs = torch.abs(1.0 / c)[:, None, None]
+        # detector coordinate of each voxel centre, (Ab, ny, nx)
+        t_c = (xs[None, None, :] * c[:, None, None] + ys[None, :, None] * s[:, None, None]
+               + (det_x - 1) / 2.0 - r[:, None, None])
+        tf = torch.floor(t_c)
+        part = None
+        for d in (-1, 0, 1):
+            tau = tf + d
+            w = torch.clamp(1.0 - a_abs * torch.abs(tau - t_c), min=0.0) * a_abs
+            # int64 index, 8 B per (angle, voxel) of the block, expanded
+            # over the slices without a copy
+            idx = torch.clamp(tau.to(torch.int64) + 2, 0, det_x + 3).reshape(1, ang_block, ny * nx)
+            g = torch.gather(rows, 2, idx.expand(nz, ang_block, ny * nx)).reshape(nz, ang_block, ny, nx)
+            term = torch.sum(w[None] * g, dim=1)
+            part = term if part is None else part + term
+        acc = acc + part
+    return acc
 
 
 class _Group(NamedTuple):
@@ -178,11 +311,45 @@ class _Plan:
             zc -= zc % 2
         return [(z0, min(z0 + zc, nz)) for z0 in range(0, nz, zc)]
 
+    def _fp_joseph(self, vol: torch.Tensor) -> torch.Tensor:
+        g = self.geom
+        cos_v, sin_v = np.cos(g.angles), np.sin(g.angles)
+        idx_x, idx_y = _angle_partition(g.angles)
+        cor, det_x = g.cor_horizontal, g.detectors_x_total
+        out = torch.zeros((vol.shape[0], g.n_angles, det_x), dtype=torch.float32, device=vol.device)
+        if idx_x.size:
+            out[:, torch.as_tensor(idx_x, device=vol.device)] = _fp_driven(
+                vol, cos_v[idx_x], sin_v[idx_x], cor[idx_x], det_x)
+        if idx_y.size:
+            # y-driven: x and y swap roles on the line y sin + x cos = s
+            out[:, torch.as_tensor(idx_y, device=vol.device)] = _fp_driven(
+                vol.transpose(1, 2), sin_v[idx_y], cos_v[idx_y], cor[idx_y], det_x)
+        return out
+
+    def _bp_joseph(self, sino: torch.Tensor) -> torch.Tensor:
+        g = self.geom
+        n = g.recon_size
+        cos_v, sin_v = np.cos(g.angles), np.sin(g.angles)
+        idx_x, idx_y = _angle_partition(g.angles)
+        cor = g.cor_horizontal
+        vol = torch.zeros((sino.shape[0], n, n), dtype=torch.float32, device=sino.device)
+        if idx_x.size:
+            vol = vol + _bp_driven(sino[:, torch.as_tensor(idx_x, device=sino.device)],
+                                   cos_v[idx_x], sin_v[idx_x], cor[idx_x], n, n)
+        if idx_y.size:
+            voly = _bp_driven(sino[:, torch.as_tensor(idx_y, device=sino.device)],
+                              sin_v[idx_y], cos_v[idx_y], cor[idx_y], n, n)
+            vol = vol + voly.transpose(1, 2)
+        return vol
+
     def _fp_core(self, vol: torch.Tensor) -> torch.Tensor:
         squeeze = vol.dim() == 2
         if squeeze:
             vol = vol[None]
         vol = vol.to(torch.float32).contiguous()
+        if _BACKEND == "xla":
+            out = self._fp_joseph(vol)
+            return out[0] if squeeze else out
         nz, ny, nx = vol.shape
         det_x = self.geom.detectors_x_total
         n_angles = self.geom.n_angles
@@ -221,6 +388,9 @@ class _Plan:
         if squeeze:
             sino = sino[None]
         sino = sino.to(torch.float32).contiguous()
+        if _BACKEND == "xla":
+            vol = self._bp_joseph(sino)
+            return vol[0] if squeeze else vol
         nz, n_angles, det_x = sino.shape
         n = self.geom.recon_size
         groups = self.groups(n, n, sino.device, nz == 1)

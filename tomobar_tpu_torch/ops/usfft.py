@@ -10,7 +10,12 @@ along axis -2, twice), then crop and multiply by the deconvolution factor
 phi.  The pipeline keeps the JAX package's split (re, im) pairs, its
 sign-flip fftshifts and its half-pixel shift, so every stage lines up with
 the JAX one.  What runs where follows the tensor's device: a CUDA tensor
-runs the kernels, a CPU tensor their plain versions.
+runs the kernels, a CPU tensor their plain versions.  ``set_usfft_backend``
+and the ``TOMOBAR_TPU_USFFT`` environment variable take the JAX package's
+names ("auto", "pallas", "xla") so that user code switches packages
+unchanged, but the port grids the same way under each: with the G kernel
+on a CUDA tensor at any n, with its plain version (``grid_plain``, the
+scatter that the JAX package's "xla" runs) on a CPU tensor.
 
 As in the JAX package, the output is a factor 8/pi hotter than the
 calibrated inverse Radon transform (the reference's ``calc_filter``
@@ -22,6 +27,7 @@ reconstructed.
 from __future__ import annotations
 
 import math
+import os
 from functools import lru_cache
 from typing import Tuple
 
@@ -37,7 +43,18 @@ from tomobar_tpu_torch.utils.tools import (
     free_device_bytes,
 )
 
-__all__ = ["fourier_inv", "usfft_grid"]
+__all__ = ["fourier_inv", "usfft_grid", "set_usfft_backend"]
+
+_USFFT_BACKEND = os.environ.get("TOMOBAR_TPU_USFFT", "auto")
+
+
+def set_usfft_backend(name: str) -> None:
+    """Accept the JAX package's gridding backend names ("auto", "pallas",
+    "xla"); the port's gridding follows the tensor's device under each."""
+    global _USFFT_BACKEND
+    if name not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown usfft backend {name!r}")
+    _USFFT_BACKEND = name
 
 
 def _edge_pad_last(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:

@@ -4,9 +4,8 @@
 Counterpart of ``tomobar_tpu/regularisers.py``.  ``PD_TV`` runs the CUDA
 kernel of :mod:`tomobar_tpu_torch.ops.pd_tv` for CUDA tensors and its plain
 PyTorch version for CPU tensors.  ``ROF_TV`` is plain PyTorch on either
-device, as the JAX package's is plain XLA.  The legacy methods of the JAX
-package's ``prox_regul`` are not ported yet and raise
-``NotImplementedError``.
+device, as the JAX package's is plain XLA, and so are the legacy methods
+that ``prox_regul`` reaches in :mod:`tomobar_tpu_torch.regularisers_legacy`.
 """
 
 from __future__ import annotations
@@ -18,10 +17,6 @@ from tomobar_tpu_torch.ops.pd_tv import pd_tv
 __all__ = ["ROF_TV", "PD_TV", "prox_regul"]
 
 _EPS_ROF = 1.0e-8
-
-# the legacy methods of the JAX package's prox_regul, not ported yet
-# (ROADMAP.md queue 1, item 10)
-_NOT_PORTED = ("FGP_TV", "SB_TV", "LLT_ROF", "TGV", "NDF", "Diff4th", "NLTV", "WAVELET")
 
 
 def _squeeze_2d(data: torch.Tensor):
@@ -47,6 +42,12 @@ def _fwd_diff(u: torch.Tensor, dim: int) -> torch.Tensor:
 def _prev_reflect(u: torch.Tensor, dim: int) -> torch.Tensor:
     """u[i-1] with reflect boundary at 0: prev[0]=u[1]."""
     return torch.cat([u.narrow(dim, 1, 1), u.narrow(dim, 0, u.shape[dim] - 1)], dim)
+
+
+def _bwd_diff_zero(p: torch.Tensor, dim: int) -> torch.Tensor:
+    """Backward difference with zero boundary at 0: d[0]=p[0]."""
+    prev = torch.cat([torch.zeros_like(p.narrow(dim, 0, 1)), p.narrow(dim, 0, p.shape[dim] - 1)], dim)
+    return p - prev
 
 
 def ROF_TV(
@@ -133,33 +134,61 @@ def PD_TV(
 
 def prox_regul(self, X: torch.Tensor, _regularisation_: dict) -> torch.Tensor:
     """Apply the proximal operator named by ``_regularisation_["method"]``
-    (substring match, as the reference's ``regularisersCuPy.py:6-38``):
-    ROF_TV or PD_TV."""
-    method = _regularisation_["method"]
+    (substring match, as the reference's ``regularisersCuPy.py:6-38``, so
+    combined strings such as ``"PD_TV_WAVELETS"`` work), tried in the JAX
+    package's order: ROF_TV, PD_TV, FGP_TV, SB_TV, LLT_ROF, TGV, NDF,
+    Diff4th, NLTV, then a name that starts with ``WAVELET`` (shrinkage
+    alone).  A name holding ``WAVELET`` shrinks the result by
+    :func:`~tomobar_tpu_torch.regularisers_legacy.WAVELET_SHRINK` with
+    ``wavelet_threshold``, else ``regul_param`` for a pure ``WAVELETS`` and
+    ``regul_param2`` for a combination, over ``wavelet_levels`` (3)."""
+    from tomobar_tpu_torch import regularisers_legacy as legacy
+
+    r = _regularisation_
+    method = r["method"]
     if method is None:
         raise ValueError(f"Unknown regularisation method: {method}")
-    for name in _NOT_PORTED:
-        if name in method:
-            raise NotImplementedError(
-                f"regulariser {name} is not ported to tomobar_tpu_torch yet: "
-                "ROADMAP.md queue 1, item 10 (legacy regularisers)"
-            )
     if "ROF_TV" in method:
-        return ROF_TV(
-            X,
-            _regularisation_["regul_param"],
-            _regularisation_["iterations"],
-            _regularisation_["time_marching_step"],
-            _regularisation_.get("half_precision", False),
-        )
-    if "PD_TV" not in method:
+        out = ROF_TV(X, r["regul_param"], r["iterations"], r["time_marching_step"],
+                     r.get("half_precision", False))
+    elif "PD_TV" in method:
+        out = PD_TV(X, r["regul_param"], r["iterations"], r["methodTV"],
+                    getattr(self, "nonneg_regul", 0), r["PD_LipschitzConstant"],
+                    r.get("half_precision", False))
+    elif "FGP_TV" in method:
+        out = legacy.FGP_TV(X, r["regul_param"], r["iterations"], r["methodTV"],
+                            getattr(self, "nonneg_regul", 0))
+    elif "SB_TV" in method:
+        out = legacy.SB_TV(X, r["regul_param"], r["iterations"], r["methodTV"])
+    elif "LLT_ROF" in method:
+        out = legacy.LLT_ROF(X, r["regul_param"], r.get("regul_param2", 1e-05),
+                             r["iterations"], r["time_marching_step"])
+    elif "TGV" in method:
+        out = legacy.TGV(X, r["regul_param"], r.get("alpha1", 1.0), r.get("alpha0", 2.0),
+                         r["iterations"], r.get("TGV_LipschitzConstant", 12.0))
+    elif "NDF" in method:
+        out = legacy.NDF(X, r["regul_param"], r.get("edge_param", 0.01), r["iterations"],
+                         r["time_marching_step"], r.get("NDF_penalty", 1))
+    elif "Diff4th" in method:
+        out = legacy.Diff4th(X, r["regul_param"], r.get("edge_param", 0.01),
+                             r["iterations"], r["time_marching_step"])
+    elif "NLTV" in method:
+        # legacy demo dicts give IterNumb and may leave out "iterations",
+        # so the fallback is read only when IterNumb is missing
+        iters = r.get("IterNumb")
+        if iters is None:
+            iters = r.get("iterations", 5)
+        out = legacy.NLTV(X, r["NLTV_H_i"], r["NLTV_H_j"], r["NLTV_Weights"],
+                          r["regul_param"], iters)
+    elif method.startswith("WAVELET"):
+        out = X  # shrinkage alone, below
+    else:
         raise ValueError(f"Unknown regularisation method: {method}")
-    return PD_TV(
-        X,
-        _regularisation_["regul_param"],
-        _regularisation_["iterations"],
-        _regularisation_["methodTV"],
-        getattr(self, "nonneg_regul", 0),
-        _regularisation_["PD_LipschitzConstant"],
-        _regularisation_.get("half_precision", False),
-    )
+    if "WAVELET" in method:
+        # wavelet_threshold, else regul_param for a pure WAVELETS and the
+        # legacy demos' regul_param2 for a combination
+        thr = r.get("wavelet_threshold")
+        if thr is None:
+            thr = r["regul_param"] if method.startswith("WAVELET") else r.get("regul_param2", 1e-05)
+        out = legacy.WAVELET_SHRINK(out, thr, r.get("wavelet_levels", 3))
+    return out
