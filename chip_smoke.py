@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of tomobar_tpu_torch on one NVIDIA GPU: builds the CUDA
-kernels, checks each against its plain PyTorch version, and drives the
-ported paths at the flagship shape: the iterative main path
-(``RecToolsIRCuPy.FISTA``, PWLS, ordered subsets, PD-TV), the direct
-path (``RecToolsDIRCuPy.FOURIER_INV`` and 3D ``FBP``) and the 2D path
-(2D ``FORWPROJ``/``FBP`` and every solver on one slice).
+kernels (and the native preprocessing library), checks each kernel against
+its plain PyTorch version, and drives the ported paths at the flagship
+shape: the iterative main path (``RecToolsIRCuPy.FISTA``, PWLS, ordered
+subsets, PD-TV), the direct path (``RecToolsDIRCuPy.FOURIER_INV`` and 3D
+``FBP``), the 2D path (2D ``FORWPROJ``/``FBP`` and every solver on one
+slice) and raw projections through normalisation, centre finding and the
+memory plan to a reconstruction.
 
 Run from the repository root with no arguments::
 
@@ -71,7 +73,8 @@ Phases, in order; any failure raises and exits non-zero:
    (first 8 slices against phase 7's within 1e-6 rel L2), then one PD-TV
    prox of 20 iterations on a 512 x 2560^2 volume that is constant along z
    (13.4 GB) against the one-slice prox of the same slice (1e-5 of max); the
-   times, chunk counts and peak memory of each.
+   times, chunk counts and peak memory of each; right before FOURIER_INV,
+   its shape-tuple estimate (held in phase 13).
 10. the regularisers: every method that ``prox_regul`` dispatches (ROF_TV,
    PD_TV, FGP_TV iso/aniso x nonneg, SB_TV, LLT_ROF, TGV, NDF x3, Diff4th,
    WAVELETS, PD_TV_WAVELETS, NLTV on ``patch_select``'s tables) on the GPU
@@ -91,6 +94,28 @@ Phases, in order; any failure raises and exits non-zero:
    flagship; FOURIER_INV at 64^2 x 4 x 60, below the JAX package's n >= 128
    rule, under ``set_usfft_backend`` "auto" and "xla": each must launch G
    and agree with the CPU (rel L2 1e-4).
+13. raw projections to a reconstruction: phase 6's phantom projected at
+   CoR offset 4.25 px, made into raw counts (1801 x 8 x 2560, 147 MB:
+   flat x exp(-p) with Poisson noise at 1e4 photons and a dark frame; 20
+   flats with a fixed pattern, 10 darks); ``normaliser`` (mean, median) on
+   the host (the native pass) and on the card, which must agree within
+   1e-6 rel L2, both timed, the normalised stack against the clean
+   sinogram at the noise level the counts predict (0.8-1.25 of it);
+   ``autocropper`` (addbox 20, strips 20), whose box must hold every
+   column where the clean sinogram exceeds 1% of its max; the centre from
+   ``find_center_correlation(stack=True)`` (rows as they are, all slices;
+   the JAX package's estimator printed beside it) within 0.25 px; the shape-tuple
+   plan of ``FOURIER_INV`` at 8 slices (and, taken in phase 9 right before
+   its call, at 512) with no launch and no allocation, its estimate 1.0-1.3
+   of the measured peak (above what was held, plus the input); FOURIER_INV
+   and FBP at the found centre, timed, with the launches of G, F, K3 and
+   K4; binned 4 x 4 (at 1e4 photons a direct reconstruction's noise
+   exceeds the phantom's contrast pixel by pixel), each must correlate with
+   the phantom at >= 0.9 inside the inscribed circle and, on the clean
+   sinogram, differ from the call at the true centre by no more than a
+   0.25 px shift of the true centre makes (the centre tolerance; unbinned
+   and noisy comparisons printed beside); the dynamic flat fields (host)
+   on a cut of 180 projections x 8 x 640, timed.
 
 The last three lines are the nvidia-smi line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.  A kernel's entry
@@ -128,6 +153,15 @@ TOL_SLICE = 1e-4  # rel L2 between the CPU and the GPU reconstruction
 MIN_CORR = 0.99  # FOURIER_INV vs Ram-Lak FBP inside the inscribed circle
 PEAK_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 PEAK_BYTES = 3.35e12  # HBM3 bytes per second, H100 SXM data sheet
+# phase 13: the raw stack, and what its path is held to
+C_TRUE = 4.25  # CoR offset of the raw stack, px
+I0_RAW = 1.0e4  # photons per pixel in the flat field
+DARK_LEVEL, DARK_NOISE = 100.0, 2.0  # dark counts and their read noise
+N_FLATS, N_DARKS = 20, 10
+TOL_NORMALISE = 1e-6  # rel L2 of the card's normalisation against the host's
+TOL_CENTRE = 0.25  # px
+MIN_CORR_PHANTOM = 0.9  # recon of the noisy stack vs phantom, binned, inscribed circle
+BIN = 4  # phase 13 compares images binned BIN x BIN
 
 KERNELS = {
     "K1": ("shear_fp", "tomobar_tpu_torch/csrc/projector.cu",
@@ -1019,16 +1053,19 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
             for k in TWO_D}, per_call
 
 
-def big_stack(torch, dev, clean, angles, small) -> dict:
+def big_stack(torch, dev, clean, angles, small):
     """9: a stack deeper than one launch can take (512 slices: the 2560^2
     volume has 3.4e9 voxels, the sinogram 2.4e9 samples), through the public
     entry points.  ``clean`` is phase 6's (8, angles, detX) sinogram, ``small``
-    phase 7's 8-slice FOURIER_INV and FBP results.  Returns the launches."""
+    phase 7's 8-slice FOURIER_INV and FBP results.  Returns the launches and
+    the shape-mode estimate of the FOURIER_INV call over its measured peak
+    (phase 13 holds it)."""
     from tomobar_tpu_torch import RecToolsDIRCuPy, _build
     from tomobar_tpu_torch.ops import pd_tv as PDT
     from tomobar_tpu_torch.ops import projector as P
     from tomobar_tpu_torch.ops import usfft as US
     from tomobar_tpu_torch.regularisers import PD_TV
+    from tomobar_tpu_torch.utils.memest import DeviceMemStack
 
     NZ8, NA, N = clean.shape
     REP = 64
@@ -1042,6 +1079,8 @@ def big_stack(torch, dev, clean, angles, small) -> dict:
           f"projector z-chunks: {len(chunks)} of at most {chunks[0][1]} slices "
           f"({P.CHUNK_BYTES / 2**30:.0f} GiB of u-lines)")
     require(sino.numel() > 2**31 and NZ * N * N > 2**31, "the stack fits one launch")
+
+    peaks = {}
 
     def run(label, fn):
         torch.cuda.synchronize()
@@ -1058,6 +1097,7 @@ def big_stack(torch, dev, clean, angles, small) -> dict:
               f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
               f"{held / 2**30:.2f} GiB held before the call")
         require(tuple(out.shape) == (NZ, N, N), f"{label}: shape {tuple(out.shape)}")
+        peaks[label] = peak - held
         return out
 
     _build.reset_launch_counts()
@@ -1068,8 +1108,23 @@ def big_stack(torch, dev, clean, angles, small) -> dict:
     print(f"[9] FBP: every block of {NZ8} slices equals phase 7's {NZ8}-slice result bit for bit")
     del rec
     n_chunks = US._fourier_inv_memory_chunks(NZ, N, {}, dev)
-    rec = run(f"FOURIER_INV {NA}x{NZ}x{N}, default kwargs ({n_chunks} z-chunks from the free memory)",
-              lambda: rt.FOURIER_INV(sino))
+    # phase 13's plan at 512 slices: the shape-tuple dry run right before the
+    # call, so that both see the same free memory (and chunk count)
+    torch.cuda.synchronize()
+    before, held = dict(_build.launch_counts), torch.cuda.memory_allocated(dev)
+    with DeviceMemStack() as mem:
+        shape = rt.FOURIER_INV(tuple(sino.shape))
+    torch.cuda.synchronize()
+    require(dict(_build.launch_counts) == before and torch.cuda.memory_allocated(dev) == held,
+            "the shape-tuple dry run at 512 slices launched or allocated")
+    label = f"FOURIER_INV {NA}x{NZ}x{N}, default kwargs ({n_chunks} z-chunks from the free memory)"
+    rec = run(label, lambda: rt.FOURIER_INV(sino))
+    require(tuple(shape) == tuple(rec.shape), f"shape mode gave {shape}")
+    measured = peaks[label] + sino.numel() * 4  # the input lay on the card before the call
+    plan = mem.highwater / measured
+    print(f"[9] shape mode (checked in phase 13): {tuple(shape)}, no launch, no allocation; "
+          f"estimate {mem.highwater / 2**30:.4f} GiB, measured peak plus the input "
+          f"{measured / 2**30:.4f} GiB: ratio {plan:.4f}")
     require(bool(torch.isfinite(rec).all()), "FOURIER_INV on the big stack: non-finite result")
     rel = rel_l2(torch, rec[:NZ8], small["FOURIER_INV"])
     rel_last = rel_l2(torch, rec[-NZ8:], small["FOURIER_INV"])
@@ -1099,7 +1154,7 @@ def big_stack(torch, dev, clean, angles, small) -> dict:
     print(f"[9] launch counts of the phase: {json.dumps(launches)}")
     for k in ("K3", "K4", "F", "G", "PD"):
         require(launches.get(k, 0) > 0, f"kernel {k} was not launched by the big stack")
-    return launches
+    return launches, plan
 
 
 def noisy_sinogram(torch, clean, seed: int):
@@ -1395,6 +1450,221 @@ def joseph_on_card(torch, dev) -> None:
         require(rel <= TOL_SLICE, f"FOURIER_INV at n = {n} under {name!r}: GPU vs CPU {rel:.3e}")
 
 
+def raw_stack(torch, clean, gen):
+    """Raw counts for a (detY, angles, detX) sinogram of unit-radius line
+    integrals: ``flat * exp(-p)`` with Poisson noise plus a dark frame (read
+    noise), 20 flats (the fixed pattern, Poisson noise, a dark frame each)
+    and 10 darks; the stack as [angles, detY, detX].  Returns the raw stack,
+    flats, darks and the flat field's pattern (detY, detX)."""
+    NZ, _, N = clean.shape
+    dev = clean.device
+    x = torch.arange(N, device=dev, dtype=torch.float32)
+    y = torch.arange(NZ, device=dev, dtype=torch.float32)
+    pattern = (1.0 + 0.05 * torch.cos(2 * np.pi * x / 300.0)[None, :] * torch.cos(y / 3.0)[:, None]
+               + 0.02 * torch.rand((NZ, N), generator=gen, device=dev))
+    flat = I0_RAW * pattern
+
+    def dark_frames(*shape):
+        return DARK_LEVEL + DARK_NOISE * torch.randn(shape, generator=gen, device=dev)
+
+    raw = torch.poisson(flat[:, None, :] * torch.exp(-clean), generator=gen) + dark_frames(*clean.shape)
+    flats = torch.poisson(flat.expand(N_FLATS, NZ, N).contiguous(), generator=gen) + dark_frames(N_FLATS, NZ, N)
+    darks = dark_frames(N_DARKS, NZ, N)
+    return raw.transpose(0, 1).contiguous(), flats, darks, flat
+
+
+def raw_to_reconstruction(torch, dev, angles, plan_512) -> dict:
+    """13: raw projections to a reconstruction through the port's
+    preprocessing and memory planning, on phase 6's phantom and angles;
+    returns the launches of its path.  ``plan_512`` is phase 9's shape-mode
+    estimate over its measured peak."""
+    from tomobar_tpu_torch import RecToolsDIRCuPy, _build, native
+    from tomobar_tpu_torch.utils.center import find_center_correlation
+    from tomobar_tpu_torch.utils import memest as ME
+    from tomobar_tpu_torch.utils.memest import DeviceMemStack
+    from tomobar_tpu_torch.utils.tools import autocropper, normaliser
+
+    N, NZ, NA = 2560, 8, len(angles)
+    px = 2.0 / N  # pixel size of the unit-radius field of view
+    t_phase = time.perf_counter()
+    require(native.available(), "the native preprocessing library did not build")
+    truth = torch.as_tensor(phantom(N, NZ), device=dev)
+    rt_true = RecToolsDIRCuPy(N, 0, NZ, C_TRUE, angles, N, device=dev)
+    clean = rt_true.FORWPROJ(truth) * px  # [detY, angles, detX]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    raw, flats, darks, flat = raw_stack(torch, clean, gen)
+    raw_np, flats_np, darks_np = (a.cpu().numpy() for a in (raw, flats, darks))
+    torch.cuda.synchronize()
+    print(f"[13] raw stack {tuple(raw.shape)} [angles, detY, detX], {raw.numel() * 4 / 1e6:.1f} MB; "
+          f"{N_FLATS} flats, {N_DARKS} darks; CoR offset {C_TRUE} px; made in "
+          f"{time.perf_counter() - t_phase:.2f} s")
+
+    # ---- normalise: the host (native fused pass) and the card -------------
+    _build.reset_launch_counts()
+    norm = {}
+    for method in ("mean", "median"):
+        t0 = time.perf_counter()
+        host = normaliser(raw_np, flats_np, darks_np, method=method)
+        t_host = (time.perf_counter() - t0) * 1e3
+        normaliser(raw, flats, darks, method=method)  # warm-up
+        t_dev = time_cuda(torch, lambda: normaliser(raw, flats, darks, method=method), 5)
+        norm[method] = normaliser(raw, flats, darks, method=method)
+        rel = rel_l2(torch, norm[method].cpu(), torch.from_numpy(host))
+        print(f"[13] normaliser {method}: host (native) {t_host:.1f} ms, card {t_dev:.3f} ms; "
+              f"rel L2 card vs host {rel:.3e} (tol {TOL_NORMALISE:g})")
+        require(rel <= TOL_NORMALISE, f"normaliser {method}: card vs host {rel:.3e}")
+    del raw_np, host
+    p = clean.transpose(0, 1)  # [angles, detY, detX], as the normalised stack
+    # the noise the stack should carry (delta method): the counts' Poisson
+    # and read noise, and the mean flat's, where the ratio is not clamped
+    counts = flat[None] * torch.exp(-p)
+    var = (counts + DARK_NOISE**2 * (1 + 1 / N_DARKS)) / counts**2 + 1.0 / (N_FLATS * flat[None])
+    predicted = float(torch.sqrt(var.sum()) / torch.linalg.vector_norm(p))
+    measured = rel_l2(torch, norm["mean"], p)
+    print(f"[13] normalised (mean) against the clean sinogram: rel L2 {measured:.4e}, the noise "
+          f"predicts {predicted:.4e} (ratio {measured / predicted:.3f}, allowed 0.8-1.25)")
+    require(0.8 <= measured / predicted <= 1.25, "the normalised stack is not at the noise level")
+    del counts, var
+
+    # ---- crop box ------------------------------------------------------------
+    cropped = autocropper(norm["mean"], 20, 20)
+    offset = cropped.storage_offset()
+    up, lft = offset // N, offset % N
+    down, rgt = up + cropped.shape[1], lft + cropped.shape[2]
+    cols = torch.nonzero(clean.amax(dim=(0, 1)) > 0.01 * clean.max()).flatten()
+    rows = torch.nonzero(clean.amax(dim=(1, 2)) > 0.01 * clean.max()).flatten()
+    c0, c1, r0, r1 = (int(v) for v in (cols.min(), cols.max(), rows.min(), rows.max()))
+    print(f"[13] autocropper (addbox 20, strips 20): rows {up}:{down}, columns {lft}:{rgt}; the "
+          f"clean sinogram exceeds 1% of its max in rows {r0}..{r1}, columns {c0}..{c1}")
+    require(up <= r0 and down > r1 and lft <= c0 and rgt > c1, "the crop box cuts the object")
+
+    # ---- centre ------------------------------------------------------------
+    stack = norm["mean"].transpose(0, 1)  # [detY, angles, detX]
+    c_jax = find_center_correlation(stack, angles)
+    c_mid = find_center_correlation(stack[NZ // 2 : NZ // 2 + 1], angles, stack=True)
+    c_found = find_center_correlation(stack, angles, stack=True)
+    print(f"[13] centre: the JAX package's estimator (middle slice, rows less their mean) "
+          f"{c_jax:.4f}; stack=True on the middle slice {c_mid:.4f}, on all {NZ} slices "
+          f"{c_found:.4f}; true {C_TRUE} (error {c_found - C_TRUE:+.4f}, tol {TOL_CENTRE})")
+    require(abs(c_found - C_TRUE) <= TOL_CENTRE, f"centre {c_found:.4f} is not within {TOL_CENTRE} px")
+
+    # ---- plan: the shape-tuple dry run, then the real call ------------------
+    sino = (stack / px).contiguous()  # pixel units, [detY, angles, detX]
+    by_angle = norm["mean"] / px
+    rt = RecToolsDIRCuPy(N, 0, NZ, c_found, angles, N, device=dev)
+    torch.cuda.synchronize()
+    before = dict(_build.launch_counts)
+    held = torch.cuda.memory_allocated(dev)
+    with DeviceMemStack() as mem:
+        shape = rt.FOURIER_INV(tuple(sino.shape))
+    torch.cuda.synchronize()
+    require(dict(_build.launch_counts) == before, "the shape-tuple dry run launched a kernel")
+    require(torch.cuda.memory_allocated(dev) == held, "the shape-tuple dry run allocated")
+    require(mem.current == 0 and mem.highwater > 0, "DeviceMemStack not balanced")
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fi = rt.FOURIER_INV(sino)
+    end.record()
+    torch.cuda.synchronize()
+    ms_fi = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated(dev) - held + sino.numel() * 4
+    require(tuple(shape) == tuple(fi.shape), f"shape mode gave {shape}, the call {tuple(fi.shape)}")
+    print(f"[13] plan, FOURIER_INV{tuple(sino.shape)}: shape mode {tuple(shape)} with no launch and "
+          f"no allocation; estimate {mem.highwater / 2**30:.4f} GiB, measured peak (above what was "
+          f"held, plus the input on the card) {peak / 2**30:.4f} GiB: ratio {mem.highwater / peak:.4f}")
+    for label, ratio in (("8 slices", mem.highwater / peak), ("512 slices (phase 9)", plan_512)):
+        require(1.0 <= ratio <= 1.3, f"memory estimate at {label}: {ratio:.4f} of the measured peak")
+    print(f"[13] estimate / measured peak: 8 slices {mem.highwater / peak:.4f}, 512 slices "
+          f"{plan_512:.4f} (allowed 1.0-1.3)")
+    # cuFFT's work area along the last axis (the STEP1 transform's shape, and
+    # a filter-stage row length), which the model counts as CUFFT_WORK
+    for fft_shape in ((NZ // 2, NA, N), (NZ // 2, NA, 8192)):
+        x = torch.zeros(fft_shape, dtype=torch.complex64, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before_fft = torch.cuda.memory_allocated(dev)
+        y = torch.fft.fft(x, dim=-1)
+        torch.cuda.synchronize()
+        work = torch.cuda.max_memory_allocated(dev) - before_fft - y.numel() * 8
+        print(f"[13] cuFFT work area of torch.fft along the last axis of {fft_shape}: {work} bytes "
+              f"(the model counts {ME.CUFFT_WORK})")
+        require(work <= ME.CUFFT_WORK, "cuFFT's work area exceeds the memory model's")
+        del x, y
+
+    # ---- reconstruct at the found centre -----------------------------------
+    start.record()
+    fbp = rt.FBP(by_angle)
+    end.record()
+    torch.cuda.synchronize()
+    ms_fbp = start.elapsed_time(end)
+    launches = {k: v for k, v in _build.launch_counts.items() if v}
+    print(f"[13] at the found centre, first calls: FOURIER_INV {ms_fi:.2f} ms, FBP (sinc) "
+          f"{ms_fbp:.2f} ms; launches of the path {json.dumps(launches)}")
+    for k in ("G", "F", "K3", "K4"):
+        require(launches.get(k, 0) > 0, f"kernel {k} was not launched by the raw-to-recon path")
+    print(f"[13] the next calls: FOURIER_INV {time_cuda(torch, lambda: rt.FOURIER_INV(sino), 3):.2f} ms, "
+          f"FBP (sinc) {time_cuda(torch, lambda: rt.FBP(by_angle), 3):.2f} ms")
+    # images are compared binned BIN x BIN: at 1e4 photons the noise of a
+    # direct reconstruction is larger than the phantom's contrast pixel by
+    # pixel, and moves with the centre (both printed unbinned too)
+    M = N // BIN
+    yy, xx = np.mgrid[0:M, 0:M]
+    inside = torch.as_tensor(np.hypot(yy - (M - 1) / 2, xx - (M - 1) / 2) < M / 2 - 1, device=dev)
+
+    def binned(x):
+        return x.reshape(x.shape[0], M, BIN, M, BIN).mean(dim=(2, 4))
+
+    truth_b = binned(truth)
+    clean_px = clean / px
+    # what the centre tolerance allows: the true centre against a shift of it
+    rt_tol = RecToolsDIRCuPy(N, 0, NZ, C_TRUE + TOL_CENTRE, angles, N, device=dev)
+    for label, got, run_found, run_true, run_tol in (
+        ("FOURIER_INV", fi, rt.FOURIER_INV, rt_true.FOURIER_INV, rt_tol.FOURIER_INV),
+        ("FBP", fbp, lambda s: rt.FBP(s.transpose(0, 1)), lambda s: rt_true.FBP(s.transpose(0, 1)),
+         lambda s: rt_tol.FBP(s.transpose(0, 1))),
+    ):
+        got_b = binned(got)
+        corr = min(float(torch.corrcoef(torch.stack([got_b[z][inside], truth_b[z][inside]]))[0, 1])
+                   for z in range(NZ))
+        corr_full = min(float(torch.corrcoef(torch.stack([got[z].flatten(), truth[z].flatten()]))[0, 1])
+                        for z in range(NZ))
+        true_noisy = run_true(sino)
+        found_clean, true_clean = run_found(clean_px), run_true(clean_px)
+        tol_b = rel_l2(torch, binned(run_tol(clean_px)), binned(true_clean))
+        rel = {
+            "clean, binned": rel_l2(torch, binned(found_clean), binned(true_clean)),
+            "clean": rel_l2(torch, found_clean, true_clean),
+            "normalised, binned": rel_l2(torch, got_b, binned(true_noisy)),
+            "normalised": rel_l2(torch, got, true_noisy),
+        }
+        print(f"[13] {label}: against the phantom, min corr over slices {corr:.4f} binned {BIN}x{BIN} "
+              f"inside the inscribed circle (min {MIN_CORR_PHANTOM}), {corr_full:.4f} unbinned; found "
+              f"vs true centre, rel L2 " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+              + f"; a {TOL_CENTRE} px shift of the true centre: {tol_b:.3e} (clean, binned; the "
+              f"found centre's must not exceed it)")
+        require(corr >= MIN_CORR_PHANTOM, f"{label}: correlation with the phantom {corr:.4f}")
+        require(rel["clean, binned"] <= tol_b,
+                f"{label}: found vs true centre {rel['clean, binned']:.3e} > {tol_b:.3e}")
+    del fi, fbp, got, got_b, true_noisy, found_clean, true_clean, sino, by_angle, clean_px
+
+    # ---- dynamic flat fields: host numpy/scipy on a cut -----------------------
+    cut = (slice(None), slice(0, 180), slice(0, 640))  # [detY, frames, detX]
+    d_raw = raw.transpose(0, 1)[cut].cpu().numpy()
+    d_flats = flats.transpose(0, 1)[:, :, :640].cpu().numpy()
+    d_darks = darks.transpose(0, 1)[:, :, :640].cpu().numpy()
+    t0 = time.perf_counter()
+    dyn = normaliser(d_raw, d_flats, d_darks, method="dynamic", axis=1)
+    t_dyn = time.perf_counter() - t0
+    ref = normaliser(d_raw, d_flats, d_darks, method="mean", axis=1)
+    require(dyn.shape == d_raw.shape and np.isfinite(dyn).all(), "dynamic: bad result")
+    print(f"[13] dynamic flat fields (host), cut to 180 projections x {NZ} x 640: {t_dyn:.2f} s; "
+          f"rel L2 against the mean method {np.linalg.norm(dyn - ref) / np.linalg.norm(ref):.3e}")
+    print(f"[13] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     pkg = os.path.join(REPO, "tomobar_tpu_torch")
     require(os.path.isdir(pkg), f"{pkg} not found: run chip_smoke.py from a checkout")
@@ -1673,7 +1943,8 @@ def main() -> int:
         whole.update(part)
 
     # ---- 9. the big stack -------------------------------------------------
-    for k, v in big_stack(torch, dev, clean, angles, small).items():
+    stack_launches, plan_512 = big_stack(torch, dev, clean, angles, small)
+    for k, v in stack_launches.items():
         launches[k] += v
     del small
 
@@ -1687,6 +1958,10 @@ def main() -> int:
 
     # ---- 12. the Joseph pair and the plain gridding ------------------------
     joseph_on_card(torch, dev)
+
+    # ---- 13. raw projections to a reconstruction ---------------------------
+    for k, v in raw_to_reconstruction(torch, dev, angles, plan_512).items():
+        launches[k] += v
 
     summary = {
         "kernels": [

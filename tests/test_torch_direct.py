@@ -207,8 +207,18 @@ def test_2d_projector_methods_name_the_next_slice(method):
 
 
 def test_shape_tuple_names_memest_item():
+    """The shape tuple is the memory estimate's dry run (``utils/memest.py``):
+    inside ``DeviceMemStack`` it gives the real call's output shape, outside
+    it raises."""
+    from tomobar_tpu_torch.utils.memest import DeviceMemStack
+
     rt = RecToolsDIRCuPy(32, 0, 4, 0.0, np.linspace(0, np.pi, 8), 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with DeviceMemStack() as stack:
+        shape = rt.FOURIER_INV((4, 8, 32))
+    assert stack.highwater > 0 and stack.current == 0
+    data = np.random.default_rng(16).standard_normal((4, 8, 32)).astype(np.float32)
+    assert tuple(shape) == tuple(rt.FOURIER_INV(data).shape)
+    with pytest.raises(ValueError, match="DeviceMemStack"):
         rt.FOURIER_INV((4, 8, 32))
 
 

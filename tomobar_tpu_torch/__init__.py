@@ -13,7 +13,13 @@ Ported so far:
   or, under ``set_projector_backend("xla")``, the one-pass Joseph pair;
 * the direct path: ``RecToolsDIR``/``RecToolsDIRCuPy`` 2D and 3D ``FBP``,
   ``FORWPROJ``/``BACKPROJ``, 2D ``FOURIER`` and ``FOURIER_INV`` (the USFFT
-  gridding and the fused axis-(-2) FFT pass).
+  gridding and the fused axis-(-2) FFT pass);
+* preprocessing and memory planning: ``utils.tools.normaliser`` and
+  ``autocropper`` (numpy on the host with the C++/OpenMP pass of
+  ``native/``, or tensors on their device), ``utils.dffc`` (dynamic flat
+  fields), ``utils.center`` (centre of rotation), ``utils.memest``
+  (``DeviceMemStack``, a model of ``FOURIER_INV``'s memory from the shapes,
+  which its shape-tuple dry run records).
 
 CUDA tensors run the kernels of ``csrc/`` (built with nvcc at first use);
 CPU tensors run their plain PyTorch versions.

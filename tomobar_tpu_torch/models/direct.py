@@ -8,8 +8,8 @@ Counterpart of ``tomobar_tpu/models/direct.py`` (reference ``RecToolsDIR``,
 
 Ported: 2D and 3D ``FBP``, ``FORWPROJ`` and ``BACKPROJ`` (2D runs the
 packed nz = 1 projector kernels K1p/K4p), 2D ``FOURIER`` and
-``FOURIER_INV`` (3D, and 2D promoted to detY = 1).  The shape-only memory
-estimate of ``FOURIER_INV`` waits for the memory estimator (ROADMAP.md).
+``FOURIER_INV`` (3D, and 2D promoted to detY = 1) with its shape-tuple
+dry run inside ``DeviceMemStack`` (``utils/memest.py``).
 """
 
 from __future__ import annotations
@@ -224,11 +224,32 @@ class RecToolsDIRTPU(RecToolsDIR):
     def FOURIER_INV(self, data, **kwargs):
         """Fourier direct inversion on unequally-spaced grids (USFFT); see
         :mod:`tomobar_tpu_torch.ops.usfft`.  ``data`` is
-        ``[detY, angles, detX]`` (or 2D ``[angles, detX]``)."""
+        ``[detY, angles, detX]`` (or 2D ``[angles, detX]``).
+
+        Shape-mode dry run: inside a ``with DeviceMemStack():`` block,
+        ``data`` may be a shape tuple (or list) instead of an array.  The
+        memory model of :func:`~tomobar_tpu_torch.utils.memest.estimate_fourier_inv_memory`
+        replays the call from the shapes, its peak is recorded on the
+        stack (``malloc`` then ``free``) and the output shape is returned;
+        nothing is launched or allocated on the device.  This matches the
+        reference's estimator-only mode (``methodsDIR_CuPy.py:253-258``,
+        return at ``:437-441``) used by HTTomo for slab planning.  Outside
+        such a block a shape tuple raises ``ValueError``.
+        """
+        from tomobar_tpu_torch.utils.memest import (
+            DeviceMemStack,
+            estimate_fourier_inv_memory,
+        )
+
         if isinstance(data, (tuple, list)):
-            raise NotImplementedError(
-                "FOURIER_INV on a shape tuple (the DeviceMemStack memory "
-                "estimate) is not ported yet: ROADMAP.md queue 1, item 11 "
-                "(utils/memest.py)"
-            )
+            mem_stack = DeviceMemStack.instance()
+            if mem_stack is None:
+                raise ValueError(
+                    "FOURIER_INV takes a shape tuple only inside a "
+                    "`with DeviceMemStack():` block (the memory estimate)"
+                )
+            est = estimate_fourier_inv_memory(self, tuple(data), **kwargs)
+            mem_stack.malloc(est["total"])
+            mem_stack.free(est["total"])
+            return est["output_shape"]
         return fourier_inv(self, _to_device(data, self.device), **kwargs)

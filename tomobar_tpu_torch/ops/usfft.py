@@ -29,7 +29,7 @@ from __future__ import annotations
 import math
 import os
 from functools import lru_cache
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +81,18 @@ def _filter_spectrum(ow: int, filter_type: str, cutoff: float, rotation_axis: fl
     return w_full.real.astype(np.float32), w_full.imag.astype(np.float32)
 
 
+def _oversampled_width(
+    raw_width: int, width: int, power_of_2_oversampling: bool, oversampling_level: int
+) -> int:
+    """Width of the grid the filter stage transforms on."""
+    if power_of_2_oversampling:
+        ow = 2 ** math.ceil(math.log2(raw_width * 3))
+        if width > ow:
+            ow = 2 ** math.ceil(math.log2(width))
+        return ow
+    return max(int(oversampling_level * raw_width), width)
+
+
 def _fbp_filter_stage(
     data: torch.Tensor,
     raw_width: int,
@@ -95,13 +107,7 @@ def _fbp_filter_stage(
     (``_fbp_filtering``, ``methodsDIR_CuPy.py:449-545``): edge-pad to the
     oversampled width, multiply the spectrum by ``calc_filter`` x the CoR
     phase ramp, inverse transform and crop the centred ``width`` window."""
-    if power_of_2_oversampling:
-        ow = 2 ** math.ceil(math.log2(raw_width * 3))
-        if width > ow:
-            ow = 2 ** math.ceil(math.log2(width))
-    else:
-        ow = max(int(oversampling_level * raw_width), width)
-
+    ow = _oversampled_width(raw_width, width, power_of_2_oversampling, oversampling_level)
     pad_m = ow // 2 - raw_width // 2
     unpad_m = ow // 2 - width // 2
     unpad_p = ow // 2 + width // 2
@@ -225,10 +231,18 @@ def _unpad_mul_phi(
     return out[:unpad_z].contiguous()
 
 
+def fourier_inv_pair_bytes(n: int) -> int:
+    """Bytes that the chunk count plans for per z-pair: 4 grid-sized
+    float32 (re, im) buffer pairs of (2n)^2, what the ifft2 stage holds at
+    its peak on a CUDA tensor.  ``utils/memest.py`` replays that stage and
+    its tests hold the two within 25% of each other."""
+    return 4 * 2 * (2 * n) * (2 * n) * 4
+
+
 def _fourier_inv_memory_chunks(nz: int, n: int, kwargs: dict, device=None) -> int:
     """Number of z-slice chunks for memory-bounded execution
     (``methodsDIR_CuPy.py:179-237``): an explicit ``chunk_count`` wins;
-    otherwise the chunk count keeps 4 grid-sized float32 buffer pairs per
+    otherwise the chunk count keeps :func:`fourier_inv_pair_bytes` per
     z-pair under a budget.  On the CPU that is ``mem_budget_gb`` (default 8)
     and applies only when ``min_mem_usage_filter``/``min_mem_usage_ifft2``
     ask for it, as in the JAX package, so both packages chunk alike.  On a
@@ -249,22 +263,29 @@ def _fourier_inv_memory_chunks(nz: int, n: int, kwargs: dict, device=None) -> in
         budget = float(kwargs.get("mem_budget_gb") or 8.0) * 1e9
     else:
         budget = free_device_bytes(device) / 3
-    per_pair = 4 * 2 * (2 * n) * (2 * n) * 4.0
-    pairs_per_chunk = max(int(budget // per_pair), 1)
+    pairs_per_chunk = max(int(budget // fourier_inv_pair_bytes(n)), 1)
     return max(-(-(nz // 2) // pairs_per_chunk), 1)
 
 
-def fourier_inv(model, data: torch.Tensor, **kwargs) -> torch.Tensor:
-    """Full FOURIER_INV pipeline on a (detY, angles, detX) tensor (2D
-    (angles, detX) data is promoted to detY = 1 and returned as 2D).
+class _Pipeline(NamedTuple):
+    """What the pipeline makes of a (detY, angles, detX) input shape and the
+    kwargs; :func:`fourier_inv` and the memory model of ``utils/memest.py``
+    share it."""
 
-    Accepts the reference's kwargs (``methodsDIR_CuPy.py:160-237``):
-    ``filter_type``, ``cutoff_freq``, ``padding``, ``power_of_2_cropping``,
-    ``power_of_2_oversampling``, ``oversampling_level``, ``chunk_count``,
-    ``min_mem_usage_filter``/``min_mem_usage_ifft2``/``mem_budget_gb``,
-    ``data_axes_labels_order`` and ``recon_mask_radius``; kwargs that only
-    set CUDA launch shapes in the reference are accepted and ignored.
-    """
+    filter_type: str
+    cutoff_freq: float
+    power_of_2_oversampling: bool
+    oversampling_level: int
+    nz: int  # detY, made even
+    nproj: int
+    data_n: int  # detX, made even
+    odd_vert: bool
+    odd_horiz: bool
+    n: int  # the transform size: data_n + the detector and the kwargs' padding
+    ow: int  # the filter stage's oversampled width
+
+
+def _pipeline(model, shape: Tuple[int, int, int], kwargs: dict) -> _Pipeline:
     cutoff_freq = kwargs.get("cutoff_freq")
     if cutoff_freq is None:
         cutoff_freq = 1.0
@@ -284,6 +305,41 @@ def fourier_inv(model, data: torch.Tensor, **kwargs) -> torch.Tensor:
         print(f"Invalid padding: {padding}. Set to 0")
         padding = 0
 
+    nz, nproj, data_n = shape
+    if model.recon_size > data_n:
+        raise ValueError(
+            f"The reconstruction size {model.recon_size} should not be larger than "
+            f"the size of the horizontal detector {data_n}"
+        )
+    odd_horiz = bool(data_n % 2)
+    odd_vert = bool(nz % 2)
+    nz += int(odd_vert)
+    data_n += int(odd_horiz)
+
+    n = data_n + model.detectors_x_pad * 2 + padding * 2
+    if kwargs.get("power_of_2_cropping", False):
+        n_pow2 = 2 ** math.ceil(math.log2(n))
+        if 0.9 < n / n_pow2:
+            n = n_pow2
+    p2 = kwargs.get("power_of_2_oversampling", True)
+    level = kwargs.get("oversampling_level", 4)
+    return _Pipeline(
+        filter_type, cutoff_freq, p2, level, nz, nproj, data_n, odd_vert,
+        odd_horiz, n, _oversampled_width(data_n, n, p2, level),
+    )
+
+
+def fourier_inv(model, data: torch.Tensor, **kwargs) -> torch.Tensor:
+    """Full FOURIER_INV pipeline on a (detY, angles, detX) tensor (2D
+    (angles, detX) data is promoted to detY = 1 and returned as 2D).
+
+    Accepts the reference's kwargs (``methodsDIR_CuPy.py:160-237``):
+    ``filter_type``, ``cutoff_freq``, ``padding``, ``power_of_2_cropping``,
+    ``power_of_2_oversampling``, ``oversampling_level``, ``chunk_count``,
+    ``min_mem_usage_filter``/``min_mem_usage_ifft2``/``mem_budget_gb``,
+    ``data_axes_labels_order`` and ``recon_mask_radius``; kwargs that only
+    set CUDA launch shapes in the reference are accepted and ignored.
+    """
     order = kwargs.get("data_axes_labels_order")
     data = data.float()
     squeeze_2d = data.dim() == 2
@@ -294,29 +350,13 @@ def fourier_inv(model, data: torch.Tensor, **kwargs) -> torch.Tensor:
     elif order is not None:
         data = data_dims_swapper(data, order, ["detY", "angles", "detX"])
 
-    nz, nproj, data_n = data.shape
-    recon_size = model.recon_size
-    if recon_size > data_n:
-        raise ValueError(
-            f"The reconstruction size {recon_size} should not be larger than "
-            f"the size of the horizontal detector {data_n}"
-        )
-
-    odd_horiz = bool(data_n % 2)
-    odd_vert = bool(nz % 2)
-    if odd_vert:
+    p = _pipeline(model, tuple(data.shape), kwargs)
+    if p.odd_vert:
         data = torch.cat([data, data[-1:]], dim=0)
-        nz += 1
-    if odd_horiz:
+    if p.odd_horiz:
         data = _edge_pad_last(data, 0, 1)
-        data_n += 1
-
-    n = data_n + model.detectors_x_pad * 2 + padding * 2
-    if kwargs.get("power_of_2_cropping", False):
-        n_pow2 = 2 ** math.ceil(math.log2(n))
-        if 0.9 < n / n_pow2:
-            n = n_pow2
-
+    nz, nproj, data_n, n = p.nz, p.nproj, p.data_n, p.n
+    odd_horiz, odd_vert, recon_size = p.odd_horiz, p.odd_vert, model.recon_size
     eps = 1e-4
     mu = -np.log(eps) / (2 * n * n)
     theta = -np.asarray(model.geom.angles, dtype=np.float64)
@@ -327,11 +367,11 @@ def fourier_inv(model, data: torch.Tensor, **kwargs) -> torch.Tensor:
             block,
             data_n,
             n,
-            filter_type,
-            cutoff_freq,
+            p.filter_type,
+            p.cutoff_freq,
             rotation_axis,
-            kwargs.get("power_of_2_oversampling", True),
-            kwargs.get("oversampling_level", 4),
+            p.power_of_2_oversampling,
+            p.oversampling_level,
         )
         dre, dim = _pack_pairs(filtered)
         fre, fim = usfft_grid(dre, dim, n, theta, eps)
