@@ -116,6 +116,31 @@ Phases, in order; any failure raises and exits non-zero:
    0.25 px shift of the true centre makes (the centre tolerance; unbinned
    and noisy comparisons printed beside); the dynamic flat fields (host)
    on a cut of 180 projections x 8 x 640, timed.
+14. the sharded layer (``tomobar_tpu_torch.parallel``) on phase 6's
+   flagship: worlds of ranks on the meshes (z, angles) = (2, 1), (1, 2)
+   and (2, 2), one subprocess per rank (NCCL with one rank per card where
+   the machine has as many cards as ranks, else gloo with every rank on
+   card 0, its CUDA tensors staged through pinned host memory).  Each rank
+   loads its z-slab of phase 6's noisy sinogram and runs ``fp_sub`` /
+   ``bp_sub`` of subset 0 on phase 6's result, ``solvers.core.fista``
+   (OS10, PWLS, nonneg, the halo PD-TV prox, phase 6's Lipschitz constant)
+   for 1, 2 and 3 outer iterations and, on mesh (2, 1),
+   ``ShardedDirect.fbp`` and ``.fourier_inv`` on phase 7's clean sinogram
+   and one PD-TV prox (20 iterations) on 64 x 2560^2 of noise, where the
+   halo (20 slices) is shorter than the other slab (32); rank 0 gathers
+   the results.  Held: on z-only meshes every result equal
+   to phases 6 and 7 bit for bit; where angles are dealt ``fp_sub`` bit
+   for bit, ``bp_sub`` within 1e-6 and FISTA after 3 iterations within
+   1e-5 rel L2; the RMSE against the phantom falls from iteration 1 to 3
+   on every mesh; the 64-slice prox equal to the single card's bit for
+   bit on each slab, its z_halo moving fewer slices than a slab holds;
+   every rank launched K1-K4 and PD (and G and F on the direct path).  Each rank prints its launches, outer-iteration ms,
+   peak memory and the bytes each collective moved and staged.  A rank
+   that fails or times out fails the run.
+
+``python3 chip_smoke.py --sharded-rank <dir> <n_z> <n_angles> <backend>``
+is one rank of phase 14 (the rendezvous in the environment); the phase
+starts it, nobody else needs to.
 
 The last three lines are the nvidia-smi line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.  A kernel's entry
@@ -136,10 +161,14 @@ from a CUDA graph (null for the other kernels).
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -208,6 +237,19 @@ PROX_CASES = (
     ("PD_TV_WAVELETS", "PD_TV_WAVELETS", {}, 1),
 )
 TWO_D = ("K1p", "K4p")  # measured in phase 8
+# the 3D flagship (phases 6, 7 and 14): N, NZ, angles, OS subsets; its prox
+FLAGSHIP = (2560, 8, 1801, 10)
+FLAGSHIP_REG = {"method": "PD_TV", "regul_param": 5e-4, "iterations": 20}
+# phase 14: the meshes (n_z, n_angles), and what a rank's path launches
+SHARDED_MESHES = ((2, 1), (1, 2), (2, 2))
+SHARDED_PATH = ("K1", "K2", "K3", "K4", "PD")
+SHARDED_DIRECT = ("G", "F", "K3", "K4")  # mesh (2, 1) also runs FBP and FOURIER_INV
+TOL_SHARD_BP = 1e-6  # rel L2: partial volumes summed over the angle group
+TOL_SHARD_FISTA = 1e-5  # rel L2 after 3 outer iterations, angles dealt
+# mesh (2, 1) also runs one PD-TV prox (FLAGSHIP_REG) on a volume of
+# HALO_DEPTH slices at full width: its halo (20) is shorter than a slab (32)
+HALO_DEPTH = 64
+RANK_TIMEOUT = 420  # seconds for one world of ranks
 
 
 # (operations, bytes) of one call: what the function must do on these
@@ -1267,9 +1309,9 @@ def regularisers_on_card(torch, dev) -> None:
     del tables, reg, img
 
 
-def fista_calls(torch, rt, data: dict, iters, lc: float, reg: dict):
+def fista_calls(torch, rt, data: dict, iters, lc: float, reg: dict, after=None):
     """FISTA calls of ``iters`` outer iterations (nonneg), each between CUDA
-    events; returns the results and their ms."""
+    events, ``after()`` run after each; returns the results and their ms."""
     recs, ms = [], []
     for it in iters:
         start = torch.cuda.Event(enable_timing=True)
@@ -1280,6 +1322,8 @@ def fista_calls(torch, rt, data: dict, iters, lc: float, reg: dict):
         end.record()
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
+        if after is not None:
+            after()
     return recs, ms
 
 
@@ -1665,6 +1709,343 @@ def raw_to_reconstruction(torch, dev, angles, plan_512) -> dict:
     return launches
 
 
+def flagship_data(torch, dev):
+    """6's inputs: the angles, the phantom, its clean sinogram and the
+    noisy one (seed 6), on ``dev``."""
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops.projector import radon_fp
+
+    N, NZ, NA, _ = FLAGSHIP
+    angles = np.linspace(0.0, np.pi, NA, endpoint=False)
+    truth = torch.as_tensor(phantom(N, NZ), device=dev)
+    clean = radon_fp(truth, Geometry(N, NZ, angles, 0.0, N))
+    return angles, truth, clean, noisy_sinogram(torch, clean, 6)
+
+
+def sharded_references(torch, dev):
+    """14's inputs and references made as phases 6 and 7 make them, without
+    their checks (``tools/torch_sharded_flagship.py`` runs 14 alone).
+    Returns the work directory, the references and the single card's FISTA
+    ms."""
+    from tomobar_tpu_torch import RecToolsDIRCuPy, RecToolsIRCuPy
+
+    N, NZ, _, OS = FLAGSHIP
+    angles, truth, clean, data = flagship_data(torch, dev)
+    rt = RecToolsIRCuPy(N, 0, NZ, 0.0, angles, N, OS_number=OS)
+    lc = rt.powermethod({"projection_data": data, "data_fidelity": "PWLS"})
+    recs, ms = fista_calls(torch, rt, {"projection_data": data, "data_fidelity": "PWLS"},
+                           (1, 2, 3), lc, FLAGSHIP_REG)
+    work, refs = sharded_inputs(rt, data, truth, recs, lc)
+    rd = RecToolsDIRCuPy(N, 0, NZ, 0.0, angles, N, device=dev)
+    sharded_direct_inputs(work, refs, clean, {"FOURIER_INV": rd.FOURIER_INV(clean),
+                                              "FBP": rd.FBP(clean.transpose(0, 1))})
+    return work, refs, ms
+
+
+def sharded_inputs(rt, data, truth, recs, lc: float):
+    """14's inputs from phase 6 (files its ranks read, in a temporary
+    directory removed at exit) and its references (host copies): ``rt`` the
+    flagship's ``RecToolsIRCuPy``, ``data`` its noisy sinogram, ``truth``
+    the phantom, ``recs`` FISTA after 1, 2, 3 outer iterations, ``lc`` the
+    Lipschitz constant.  Returns the directory and the references."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
+    x = recs[-1].contiguous()
+    refs = {"fp_sub0": rt.Atools.fp_sub(x, 0).cpu().numpy(),
+            "bp_sub0": rt.Atools.bp_sub(rt.Atools.sino_subset(data, 0), 0).cpu().numpy(),
+            "truth": truth.cpu().numpy().astype(np.float64)}
+    for i, out in enumerate(recs):
+        refs[f"fista{i + 1}"] = out.cpu().numpy()
+    np.save(os.path.join(work, "data.npy"), data.cpu().numpy())
+    np.save(os.path.join(work, "x3.npy"), refs["fista3"])
+    NZ, NA, N = data.shape
+    with open(os.path.join(work, "config.json"), "w") as f:
+        json.dump({"N": N, "NZ": NZ, "NA": NA, "OS": rt.OS_number, "lc": lc}, f)
+    return work, refs
+
+
+def sharded_direct_inputs(work: str, refs: dict, clean, small: dict) -> None:
+    """14's inputs from phase 7: its clean sinogram and its FOURIER_INV and
+    FBP results."""
+    refs.update({k: v.cpu().numpy() for k, v in small.items()})
+    np.save(os.path.join(work, "clean.npy"), clean.cpu().numpy())
+
+
+def sharded_rank(work: str, n_z: int, n_a: int, backend: str) -> int:
+    """14, one rank (``--sharded-rank``): its slab of phase 6's flagship
+    through the sharded layer; rank 0 writes the gathered results and every
+    rank its report (launches, ms, peak memory, collective bytes)."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    from tomobar_tpu_torch import RecToolsDIRCuPy, _build
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.parallel import (
+        ShardedDirect, ShardedProjector, comm, distributed_init, make_mesh, sharded_regul_fn)
+    from tomobar_tpu_torch.solvers import core as solvers
+    from tomobar_tpu_torch.utils.tools import check_kwargs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(work, "config.json")) as f:
+        cfg = json.load(f)
+    dev = distributed_init(backend=backend)
+    rank = dist.get_rank()
+    mesh = make_mesh(n_z, n_a)
+    N, NZ, NA, OS = cfg["N"], cfg["NZ"], cfg["NA"], cfg["OS"]
+    angles = np.linspace(0.0, np.pi, NA, endpoint=False)
+    sp = ShardedProjector(Geometry(N, NZ, angles, 0.0, N, os_number=OS), mesh)
+
+    def load(name):
+        return np.load(os.path.join(work, name + ".npy"), mmap_mode="r")
+
+    data = sp.device_put_sino(load("data"))
+    x3 = sp.device_put_vol(load("x3"))
+    reg = sharded_regul_fn(mesh, FLAGSHIP_REG, nonneg=True)
+    keep = {}
+
+    def gather(name, t):
+        # every rank of the z group calls it; its bytes are not the path's
+        path_stats = {op: dict(v) for op, v in comm.stats.items()}
+        full = sp.gather_vol(t)
+        comm.stats.clear()
+        comm.stats.update(path_stats)
+        if rank == 0:
+            keep[name] = full.cpu().numpy()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    _build.reset_launch_counts()
+    comm.reset_stats()
+    gather("fp_sub0", sp.fp_sub(x3, 0))
+    gather("bp_sub0", sp.bp_sub(sp.sino_subset(data, 0), 0))
+    del x3
+    ms = []
+    for iters in (1, 2, 3):
+        dist.barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        x = solvers.fista(sp, data, iters, cfg["lc"], nonnegativity=True, fidelity="PWLS",
+                          regul_fn=reg)
+        x = check_kwargs(x, recon_mask_radius=1.0)  # as RecToolsIRCuPy.FISTA ends
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        gather(f"fista{iters}", x)
+    del x, data
+    path = dict(_build.launch_counts)
+    direct, halo = {}, {}
+    if (n_z, n_a) == (2, 1):
+        _build.reset_launch_counts()
+        rd = RecToolsDIRCuPy(N, 0, NZ, 0.0, angles, N, device=dev)
+        sd = ShardedDirect(rd, mesh)
+        clean = sd.device_put_sino(load("clean"))
+        gather("FBP", sd.fbp(clean))
+        gather("FOURIER_INV", sd.fourier_inv(clean))
+        direct = dict(_build.launch_counts)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if (n_z, n_a) == (2, 1):
+        path_stats = {op: dict(v) for op, v in comm.stats.items()}
+        halo = sharded_halo_prox(torch, mesh, dev, N)
+        comm.stats.clear()
+        comm.stats.update(path_stats)
+    torch.cuda.synchronize()
+    report = {
+        "rank": rank, "z": mesh.z_index, "a": mesh.angle_index, "device": str(dev),
+        "launches": path, "direct_launches": direct, "halo": halo, "ms": ms,
+        "peak_mib": peak / 2**20, "comm": comm.stats,
+    }
+    if rank == 0:
+        for name, arr in keep.items():
+            np.save(os.path.join(work, f"out_{n_z}x{n_a}_{name}.npy"), arr)
+    with open(os.path.join(work, f"report_{n_z}x{n_a}_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_halo_prox(torch, mesh, dev, n: int) -> dict:
+    """14, mesh (2, 1): the halo prox where the halo is shorter than a
+    slab.  Every rank makes the same ``HALO_DEPTH`` x n x n uniform noise on
+    the card (seed 14), runs the sharded PD-TV prox (``FLAGSHIP_REG``,
+    nonneg) on its slab, then the single-card prox of the whole volume, and
+    holds its slab of that against its own result.  Returns the sharded
+    prox's launches, the slices its z_halo moved, the slab's depth, whether
+    the two are bit-equal and their rel L2."""
+    import torch.distributed as dist
+
+    from tomobar_tpu_torch import _build
+    from tomobar_tpu_torch.parallel import comm, sharded_regul_fn
+    from tomobar_tpu_torch.regularisers import PD_TV
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    whole = torch.rand((HALO_DEPTH, n, n), generator=gen, device=dev)
+    z0, z1 = mesh.z_slab(HALO_DEPTH)
+    prox = sharded_regul_fn(mesh, FLAGSHIP_REG, nonneg=True)
+    slab = whole[z0:z1].clone()
+    torch.cuda.synchronize()
+    dist.barrier()
+    _build.reset_launch_counts()
+    comm.reset_stats()
+    got = prox(slab)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    moved = comm.stats.get("z_halo", {}).get("bytes", 0) // (n * n * 4)
+    ref = PD_TV(whole, FLAGSHIP_REG["regul_param"], FLAGSHIP_REG["iterations"], 0, 1, 12.0)
+    ref = ref[z0:z1]
+    rel = float(torch.linalg.vector_norm((got - ref).double())
+                / torch.linalg.vector_norm(ref.double()))
+    return {"launches": launches, "moved_slices": int(moved), "slab": z1 - z0,
+            "equal": bool(torch.equal(got, ref)), "rel": rel}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(torch, work: str, n_z: int, n_a: int) -> str:
+    """Start the ranks of one mesh, wait for all of them (``RANK_TIMEOUT``
+    seconds in all) and fail with each rank's tail if one fails or hangs;
+    returns the backend used."""
+    world = n_z * n_a
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= world else "gloo"
+    layout = ("one rank per card" if backend == "nccl"
+              else f"all {world} ranks on cuda:0, CUDA tensors staged through pinned host memory")
+    print(f"[14] mesh (z, angles) = ({n_z}, {n_a}): {world} ranks, {backend}, {layout}")
+    port = _free_port()
+    procs, logs = [], []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log = open(os.path.join(work, f"rank_{n_z}x{n_a}_{rank}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank", work, str(n_z),
+             str(n_a), backend], env=env, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_TIMEOUT
+    failed = []
+    while not failed and any(p.poll() is None for p in procs):
+        failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode not in (None, 0)]
+        if not failed and time.monotonic() > deadline:
+            failed = [(r, f"timed out after {RANK_TIMEOUT} s") for r, p in enumerate(procs)
+                      if p.poll() is None]
+        time.sleep(0.2)
+    failed = failed or [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    for p in procs:  # a failed rank leaves the others waiting in a collective
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for log in logs:
+        log.close()
+    if failed:
+        for r in range(world):
+            with open(os.path.join(work, f"rank_{n_z}x{n_a}_{r}.log")) as f:
+                tail = f.read()[-3000:]
+            print(f"[14] rank {r} of mesh ({n_z}, {n_a}) output (tail):\n{tail}")
+        require(False, f"phase 14: mesh ({n_z}, {n_a}): rank(s) failed: {failed}")
+    return backend
+
+
+def sharded_path(torch, work: str, refs: dict) -> dict:
+    """14: the sharded layer on phase 6's flagship; ``refs`` holds phases 6
+    and 7's single-device results (numpy, on the host).  Returns the
+    launches of every rank's path, summed."""
+    launches = {}
+    t_phase = time.perf_counter()
+    truth = refs["truth"]
+    for n_z, n_a in SHARDED_MESHES:
+        t0 = time.perf_counter()
+        backend = run_world(torch, work, n_z, n_a)
+        world = n_z * n_a
+        for rank in range(world):
+            with open(os.path.join(work, f"report_{n_z}x{n_a}_{rank}.json")) as f:
+                rep = json.load(f)
+            ms = rep["ms"]
+            comm_line = ", ".join(
+                f"{op} {v['calls']} calls {v['bytes'] / 2**20:.1f} MiB moved "
+                f"{v['staged'] / 2**20:.1f} MiB staged {v['seconds']:.2f} s"
+                for op, v in sorted(rep["comm"].items()))
+            t_comm = sum(v["seconds"] for v in rep["comm"].values())
+            comm_line += (f"; collectives {t_comm:.2f} s (host) against "
+                          f"{sum(ms) / 1e3:.2f} s of FISTA calls")
+            print(f"[14] ({n_z}, {n_a}) rank {rank} (z {rep['z']}, a {rep['a']}, {rep['device']}): "
+                  f"launches {json.dumps({k: v for k, v in rep['launches'].items() if v})}; "
+                  f"FISTA calls {', '.join(f'{t:.1f}' for t in ms)} ms, per outer iteration "
+                  f"{ms[2] - ms[1]:.1f} ms (the 3- less the 2-iteration call; the first call "
+                  f"carries set-up); peak {rep['peak_mib']:.1f} MiB; "
+                  f"{comm_line or 'no collective'}")
+            for k in SHARDED_PATH:
+                require(rep["launches"].get(k, 0) > 0,
+                        f"phase 14 ({n_z}, {n_a}) rank {rank}: {k} was not launched")
+            if rep["direct_launches"]:
+                print(f"[14] ({n_z}, {n_a}) rank {rank} direct path launches "
+                      f"{json.dumps({k: v for k, v in rep['direct_launches'].items() if v})}")
+                for k in SHARDED_DIRECT:
+                    require(rep["direct_launches"].get(k, 0) > 0,
+                            f"phase 14 ({n_z}, {n_a}) rank {rank}: {k} was not launched "
+                            "by FBP and FOURIER_INV")
+            halo = rep["halo"]
+            if halo:
+                print(f"[14] ({n_z}, {n_a}) rank {rank} PD-TV prox on {HALO_DEPTH} slices: "
+                      f"z_halo moved {halo['moved_slices']} slices against a slab of "
+                      f"{halo['slab']}; {'bit-equal' if halo['equal'] else 'not bit-equal'} "
+                      f"to the whole volume's prox, rel L2 {halo['rel']:.3e}; launches "
+                      f"{json.dumps({k: v for k, v in halo['launches'].items() if v})}")
+                require(halo["launches"].get("PD", 0) > 0,
+                        f"phase 14 ({n_z}, {n_a}) rank {rank}: the halo prox did not launch PD")
+                require(0 < halo["moved_slices"] < halo["slab"],
+                        f"phase 14 ({n_z}, {n_a}) rank {rank}: the halo moved "
+                        f"{halo['moved_slices']} slices, not fewer than a slab's {halo['slab']}")
+                require(halo["equal"], f"phase 14 ({n_z}, {n_a}) rank {rank}: the halo prox "
+                        f"on {HALO_DEPTH} slices is not bit-equal to the whole volume's")
+            for part in (rep["launches"], rep["direct_launches"], halo.get("launches", {})):
+                for k, v in part.items():
+                    launches[k] = launches.get(k, 0) + v
+
+        def out(name):
+            return np.load(os.path.join(work, f"out_{n_z}x{n_a}_{name}.npy"))
+
+        zonly = n_a == 1
+        checks = [("fp_sub0", 0.0), ("bp_sub0", 0.0 if zonly else TOL_SHARD_BP),
+                  ("fista1", 0.0 if zonly else None), ("fista2", 0.0 if zonly else None),
+                  ("fista3", 0.0 if zonly else TOL_SHARD_FISTA)]
+        if (n_z, n_a) == (2, 1):
+            checks += [("FBP", 0.0), ("FOURIER_INV", 0.0)]
+        rmse = []
+        for name, tol in checks:
+            got, ref = out(name), refs[name]
+            require(got.shape == ref.shape, f"phase 14 {name}: shape {got.shape} != {ref.shape}")
+            require(bool(np.isfinite(got).all()), f"phase 14 {name}: non-finite values")
+            equal = bool(np.array_equal(got, ref))
+            rel = float(np.linalg.norm((got - ref).astype(np.float64))
+                        / np.linalg.norm(ref.astype(np.float64)))
+            held = ("bit for bit" if tol == 0.0 else "printed" if tol is None
+                    else f"tol {tol:g} rel L2")
+            print(f"[14] ({n_z}, {n_a}) {name} against the single device: "
+                  f"{'bit-equal' if equal else 'not bit-equal'}, rel L2 {rel:.3e} ({held})")
+            if tol == 0.0:
+                require(equal, f"phase 14 ({n_z}, {n_a}) {name}: not bit-equal to the single device")
+            elif tol is not None:
+                require(rel <= tol, f"phase 14 ({n_z}, {n_a}) {name}: rel L2 {rel:.3e} > {tol:g}")
+            if name.startswith("fista"):
+                rmse.append(float(np.sqrt(np.mean((got.astype(np.float64) - truth) ** 2))))
+        print(f"[14] ({n_z}, {n_a}) RMSE vs phantom after 1, 2, 3 outer iterations: "
+              + ", ".join(f"{r:.6f}" for r in rmse))
+        require(rmse[0] > rmse[1] > rmse[2], f"phase 14 ({n_z}, {n_a}): RMSE does not fall {rmse}")
+        print(f"[14] mesh ({n_z}, {n_a}) on {backend}: {time.perf_counter() - t0:.1f} s wall")
+    print(f"[14] the phase took {time.perf_counter() - t_phase:.1f} s; launches of its ranks "
+          f"{json.dumps(launches)}")
+    return launches
+
+
 def main() -> int:
     pkg = os.path.join(REPO, "tomobar_tpu_torch")
     require(os.path.isdir(pkg), f"{pkg} not found: run chip_smoke.py from a checkout")
@@ -1786,17 +2167,13 @@ def main() -> int:
     require(rel <= TOL_SLICE, f"slice: GPU vs CPU {rel:.3e} > {TOL_SLICE:g}")
 
     # ---- 6. the flagship: 1801 x 8 x 2560, OS10 ----------------------------
-    N, NZ, NA, OS = 2560, 8, 1801, 10
-    angles = np.linspace(0.0, np.pi, NA, endpoint=False)
+    N, NZ, NA, OS = FLAGSHIP
     t0 = time.perf_counter()
-    truth = torch.as_tensor(phantom(N, NZ), device=dev)
-    clean = radon_fp(truth, Geometry(N, NZ, angles, 0.0, N))
-    data = noisy_sinogram(torch, clean, 6)
+    angles, truth, clean, data = flagship_data(torch, dev)
     torch.cuda.synchronize()
     print(f"[6] data: phantom, FP and Poisson noise in {time.perf_counter() - t0:.2f} s")
 
     rt = RecToolsIRCuPy(N, 0, NZ, 0.0, angles, N, OS_number=OS)
-    reg = {"method": "PD_TV", "regul_param": 5e-4, "iterations": 20}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launch_counts()
@@ -1804,21 +2181,10 @@ def main() -> int:
     lc = rt.powermethod({"projection_data": data, "data_fidelity": "PWLS"})
     torch.cuda.synchronize()
     t_power = time.perf_counter() - t0
-    recs, ms, counts_after = [], [], [dict(_build.launch_counts)]
-    for iters in (1, 2, 3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = rt.FISTA(
-            {"projection_data": data, "data_fidelity": "PWLS"},
-            {"iterations": iters, "nonnegativity": True, "lipschitz_const": lc},
-            dict(reg),
-        )
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end))
-        recs.append(out)
-        counts_after.append(dict(_build.launch_counts))
+    counts_after = [dict(_build.launch_counts)]
+    recs, ms = fista_calls(torch, rt, {"projection_data": data, "data_fidelity": "PWLS"},
+                           (1, 2, 3), lc, FLAGSHIP_REG,
+                           lambda: counts_after.append(dict(_build.launch_counts)))
     launches = dict(_build.launch_counts)
     per_call = outer_iteration_launches(counts_after, ITERATIVE, "3D FISTA outer iteration")
     print("[6] launches per outer iteration: "
@@ -1930,6 +2296,7 @@ def main() -> int:
     }
     print("[6] one OS subset by stage (ms): " + json.dumps(
         {k: round(time_cuda(torch, fn, 5), 3) for k, fn in stages.items()}))
+    work, refs = sharded_inputs(rt, data, truth, recs, lc6)
     del b0
     del x, recs, data, truth
 
@@ -1937,6 +2304,7 @@ def main() -> int:
     *parts, small = direct_path(torch, errs, measure, dev, clean, angles)
     for part, whole in zip(parts, (launches, per_call)):
         whole.update(part)
+    sharded_direct_inputs(work, refs, clean, small)
 
     # ---- 8. the 2D path ----------------------------------------------------
     for part, whole in zip(two_d_path(torch, K, errs, measure, dev), (launches, per_call)):
@@ -1962,6 +2330,13 @@ def main() -> int:
     # ---- 13. raw projections to a reconstruction ---------------------------
     for k, v in raw_to_reconstruction(torch, dev, angles, plan_512).items():
         launches[k] += v
+
+    # ---- 14. the sharded layer on the flagship -----------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share this card
+    for k, v in sharded_path(torch, work, refs).items():
+        launches[k] += v
+    del refs
 
     summary = {
         "kernels": [
@@ -2002,4 +2377,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] == "--sharded-rank":
+        sys.exit(sharded_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

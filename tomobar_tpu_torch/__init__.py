@@ -19,7 +19,10 @@ Ported so far:
   ``native/``, or tensors on their device), ``utils.dffc`` (dynamic flat
   fields), ``utils.center`` (centre of rotation), ``utils.memest``
   (``DeviceMemStack``, a model of ``FOURIER_INV``'s memory from the shapes,
-  which its shape-tuple dry run records).
+  which its shape-tuple dry run records);
+* several devices: ``tomobar_tpu_torch.parallel`` (a ("z", "angles") mesh
+  of ``torch.distributed`` ranks; ``ShardedProjector`` under the solvers,
+  ``ShardedDirect``).
 
 CUDA tensors run the kernels of ``csrc/`` (built with nvcc at first use);
 CPU tensors run their plain PyTorch versions.

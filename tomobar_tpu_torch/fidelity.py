@@ -8,7 +8,7 @@ post-log data for LS/PWLS/SWLS and pre-log raw counts for KL.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -28,10 +28,13 @@ def _median(x: torch.Tensor, dim: int) -> torch.Tensor:
     return ((lo + hi) * 0.5).squeeze(dim)
 
 
-def swls_weights(b: torch.Tensor, beta: float = 0.1, window: int = 9) -> torch.Tensor:
+def swls_weights(b: torch.Tensor, beta: float = 0.1, window: int = 9,
+                 global_max: Optional[Callable] = None) -> torch.Tensor:
     """Stripe weights from post-log data ``b`` (detY, angles, detX):
     ``w = beta^2 / (beta^2 + d^2)``, max-normalised, with ``d`` the
-    per-element angle-median minus its sliding detX median."""
+    per-element angle-median minus its sliding detX median.  ``global_max``
+    turns the maximum of ``b``'s weights into that of the whole stack (a
+    z-slab's projector passes its own)."""
     med = _median(b, -2)  # (detY, detX)
     half = window // 2
     padded = torch.nn.functional.pad(med[None], (half, half), mode="reflect")[0]
@@ -41,7 +44,10 @@ def swls_weights(b: torch.Tensor, beta: float = 0.1, window: int = 9) -> torch.T
     d = med - _median(stack, 0)
     beta2 = float(np.float32(beta * beta))
     w = beta2 / (beta2 + d * d)
-    w = (w / torch.max(w))[:, None, :]
+    w_max = torch.max(w)
+    if global_max is not None:
+        w_max = global_max(w_max)
+    w = (w / w_max)[:, None, :]
     return w.expand(b.shape).to(torch.float32)
 
 

@@ -33,6 +33,25 @@ from tomobar_tpu_torch.utils.tools import (
 __all__ = ["RecToolsDIR", "RecToolsDIRTPU"]
 
 
+def filtered_bp(data: torch.Tensor, bp, detectors_x_pad: int, cutoff: float,
+                **kwargs) -> torch.Tensor:
+    """FBP's body on 2D ``(angles, detX)`` or canonical ``(detY, angles,
+    detX)`` data: the horizontal padding, the sinc filter (``cutoff``) or,
+    with ``filter_type``, a classic one (``filter_parameter``,
+    ``filter_d``), the back-projector ``bp``, then ``check_kwargs``
+    (``recon_mask_radius``)."""
+    data = apply_horiz_detector_padding(data, detectors_x_pad)
+    filter_type = kwargs.get("filter_type", None)
+    if filter_type is not None:
+        data = filter_sino_classic(
+            data, filter_type, kwargs.get("filter_parameter", None),
+            kwargs.get("filter_d", 1.0),
+        )
+    else:
+        data = filter_sino_sinc(data, cutoff)
+    return check_kwargs(bp(data), recon_mask_radius=kwargs.get("recon_mask_radius"))
+
+
 def _labels(ndim: int):
     return ["angles", "detX"] if ndim == 2 else ["detY", "angles", "detX"]
 
@@ -137,7 +156,6 @@ class RecToolsDIR:
         ``filter_d``."""
         data = _to_device(data, self.device)
         cutoff = kwargs.get("cutoff_freq", None)
-        filter_type = kwargs.get("filter_type", None)
         order = kwargs.get("data_axes_labels_order")
         if data.dim() == 2:
             if order is not None:
@@ -155,16 +173,8 @@ class RecToolsDIR:
                     f"data_axes_labels_order to reorder)"
                 )
             default_cutoff = 0.35
-        data = apply_horiz_detector_padding(data, self.detectors_x_pad)
-        if filter_type is not None:
-            data = filter_sino_classic(
-                data, filter_type, kwargs.get("filter_parameter", None),
-                kwargs.get("filter_d", 1.0),
-            )
-        else:
-            data = filter_sino_sinc(data, default_cutoff if cutoff is None else cutoff)
-        rec = self.Atools.bp(data)
-        rec = check_kwargs(rec, recon_mask_radius=kwargs.get("recon_mask_radius"))
+        rec = filtered_bp(data, self.Atools.bp, self.detectors_x_pad,
+                          default_cutoff if cutoff is None else cutoff, **kwargs)
         return self._out(rec)
 
     def FOURIER(self, data, **kwargs):

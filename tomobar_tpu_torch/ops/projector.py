@@ -33,7 +33,7 @@ A detector cell ``t`` at angle ``theta`` sees the line
 from __future__ import annotations
 
 import os
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,7 @@ from tomobar_tpu_torch.ops.projector_kernels import (
     DrivenParams,
     _partition,
     driven_params,
+    packed_splits,
     resample_bp,
     resample_fp,
     shear_fp,
@@ -233,70 +234,141 @@ def _bp_driven(sino: torch.Tensor, cos_v, sin_v, cor_v, ny: int, nx: int) -> tor
 class _Group(NamedTuple):
     """One driven-angle group with its parameters on the device."""
 
-    idx: torch.Tensor  # angle indices of the group in the geometry
+    idx: torch.Tensor  # where BP (K3) reads the group's angles in the sinogram
+    pos: torch.Tensor  # where FP writes them in its output
     prm: DrivenParams
     alpha: torch.Tensor
     beta: torch.Tensor
     gamma: torch.Tensor
     swap: bool  # y-driven: the kernels see the volume's y and x swapped
+    splits: Optional[int]  # K1p's runs of rows (None: not packed)
+
+
+class _DrivenPlan:
+    """One driven group given by per-angle data: the counterpart of
+    ``fp_driven_pallas_from_data`` / ``bp_driven_pallas_from_data``
+    (``tomobar_tpu/ops/projector_pallas.py``).  A geometry's :class:`_Plan`
+    is its x- and y-driven groups; a shard of
+    :class:`~tomobar_tpu_torch.parallel.sharding.ShardedProjector` runs its
+    deal of each group as one, with the U0 and LU of its own shapes.
+
+    ``idx`` are the angles' positions in the sinogram that BP reads, ``pos``
+    those that FP writes (default ``idx``); ``c``, ``s``, ``cor`` their
+    kernel-side (cos, sin, cor) in float64 (the y-driven group, ``swap``,
+    passes (sin, cos)).  K1p cuts the rows as for a group of
+    ``split_angles`` angles, so that a shard of a group sums as the whole
+    group does."""
+
+    def __init__(self, idx, c, s, cor, det_x: int, swap: bool, split_angles: int,
+                 pos=None):
+        self.idx = np.asarray(idx, dtype=np.int64)
+        self.pos = self.idx if pos is None else np.asarray(pos, dtype=np.int64)
+        self.c, self.s, self.cor = (np.asarray(a, dtype=np.float64) for a in (c, s, cor))
+        self.det_x = int(det_x)
+        self.swap = bool(swap)
+        self.split_angles = int(split_angles)
+        self._groups = {}
+        self._index = {}
+
+    def index(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(idx, pos) on ``device``."""
+        if device not in self._index:
+            idx = torch.as_tensor(self.idx, device=device)
+            pos = idx if self.pos is self.idx else torch.as_tensor(self.pos, device=device)
+            self._index[device] = (idx, pos)
+        return self._index[device]
+
+    def group(self, ny: int, nx: int, device: torch.device, single_slice: bool) -> _Group:
+        """The group's kernel parameters on a (ny, nx) slice (x-driven rows
+        are image rows, y-driven rows columns); with ``single_slice`` (nz ==
+        1) packed where the driven rows number a multiple of 8
+        (``radon_fp_pallas``/``radon_bp_pallas``' conditions)."""
+        key = (ny, nx, device, single_slice)
+        if key not in self._groups:
+            shape = (nx, ny) if self.swap else (ny, nx)
+            packed = single_slice and shape[0] % 8 == 0
+            prm = driven_params(self.c, self.s, self.cor, self.det_x, *shape, packed=packed)
+
+            def put(a):
+                return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+            splits = packed_splits(shape[0], self.split_angles) if packed else None
+            self._groups[key] = _Group(*self.index(device), prm, put(prm.alpha),
+                                       put(prm.beta), put(prm.gamma), self.swap, splits)
+        return self._groups[key]
+
+
+def _fp_group(part: torch.Tensor, g: _Group, det_x: int) -> torch.Tensor:
+    """K1 (or K1p) then K2 of one group on a chunk of slices: (nz, A, det_x)."""
+    if g.prm.packed:
+        # the y-driven group reads one explicit transpose of the slice
+        rows = part.transpose(1, 2).contiguous() if g.swap else part
+        s = shear_fp_packed(rows, g.beta, g.prm.U0, g.prm.LU, g.splits)
+    else:
+        s = shear_fp(part, g.beta, g.prm.U0, g.prm.LU, g.swap)
+    return resample_fp(s, g.alpha, g.gamma, g.prm.U0, det_x)
+
+
+def _bp_group(part: torch.Tensor, g: _Group, n: int, out: torch.Tensor,
+              accumulate: bool, index: Optional[torch.Tensor]) -> None:
+    """K3 then K4 (or K4p) of one group on a chunk of sinogram slices,
+    written into (or, with ``accumulate``, added to) ``out``; K3 reads the
+    group's angles at ``index`` of ``part`` (None: ``part`` holds exactly
+    the group's angles in order)."""
+    q = resample_bp(part, g.alpha, g.gamma, g.prm.U0, g.prm.LU, index=index)
+    if g.prm.packed:
+        unshear_bp_packed(q, g.beta, g.prm.U0, n, g.swap, out=out, accumulate=accumulate)
+    else:
+        unshear_bp(q, g.beta, g.prm.U0, n, n, g.swap, out=out, accumulate=accumulate)
 
 
 class _Plan:
-    """A geometry with its per-group kernel parameters, uploaded once per
-    (volume shape, device)."""
+    """Driven groups with their kernel parameters, uploaded once per (slice
+    shape, device): a geometry's two, or (:meth:`from_driven`) any given by
+    per-angle data, as a shard's deal.  FP writes ``n_out`` angles of
+    ``det_x`` cells (zeros where no group writes); BP reads any sinogram
+    that holds every group's ``idx``."""
 
     def __init__(self, geom: Geometry):
-        self.geom = geom
-        self._groups = {}
+        cos_v, sin_v, idx_x, idx_y = _partition(geom.angles)
+        cor = geom.cor_horizontal
+        det_x = geom.detectors_x_total
+        # the y-driven group: the kernels run with (sin, cos) swapped
+        driven = [_DrivenPlan(idx, c[idx], s[idx], cor[idx], det_x, swap, idx.size)
+                  for idx, c, s, swap in ((idx_x, cos_v, sin_v, False),
+                                          (idx_y, sin_v, cos_v, True)) if idx.size]
+        self._init(driven, geom.n_angles, det_x, geom.recon_size)
+        dzv = geom.cor_vertical
+        self.cor_vertical = dzv if dzv is not None and np.any(dzv) else None
+
+    @classmethod
+    def from_driven(cls, driven: List[_DrivenPlan], n_out: int, det_x: int,
+                    recon_size: int) -> "_Plan":
+        plan = cls.__new__(cls)
+        plan._init(driven, n_out, det_x, recon_size)
+        plan.cor_vertical = None
+        return plan
+
+    def _init(self, driven, n_out: int, det_x: int, recon_size: int) -> None:
+        self.driven = driven
+        self.n_out, self.det_x, self.recon_size = int(n_out), int(det_x), int(recon_size)
+        # FP's output needs no zeros where the groups write every angle
+        self._dense = sum(dp.pos.size for dp in driven) == self.n_out
 
     def groups(self, ny: int, nx: int, device: torch.device,
                single_slice: bool = False) -> List[_Group]:
-        """The driven-angle groups of a (ny, nx) slice; with
-        ``single_slice`` (nz == 1) a group whose driven rows number a
-        multiple of 8 is packed (``radon_fp_pallas``/``radon_bp_pallas``'
-        conditions: ny % 8 for the x-driven group, nx % 8 for the y-driven
-        one, n % 8 for both in BP, where ny == nx == n)."""
-        key = (ny, nx, device, single_slice)
-        if key not in self._groups:
-            g = self.geom
-            cos_v, sin_v, idx_x, idx_y = _partition(g.angles)
-            cor = g.cor_horizontal
-            det_x = g.detectors_x_total
-            out = []
-            # x-driven rows are image rows (y); y-driven rows are columns (x)
-            for idx, c, s, shape, swap in (
-                (idx_x, cos_v, sin_v, (ny, nx), False),
-                (idx_y, sin_v, cos_v, (nx, ny), True),
-            ):
-                if idx.size == 0:
-                    continue
-                packed = single_slice and shape[0] % 8 == 0
-                prm = driven_params(
-                    c[idx], s[idx], cor[idx], det_x, *shape, packed=packed
-                )
-
-                def put(a, dtype=torch.float32):
-                    return torch.as_tensor(a, dtype=dtype, device=device)
-
-                out.append(
-                    _Group(
-                        put(idx, torch.int64), prm, put(prm.alpha),
-                        put(prm.beta), put(prm.gamma), swap,
-                    )
-                )
-            self._groups[key] = out
-        return self._groups[key]
+        """The driven groups on a (ny, nx) slice (:meth:`_DrivenPlan.group`;
+        BP's slice is n x n, where ny == nx)."""
+        return [dp.group(ny, nx, device, single_slice) for dp in self.driven]
 
     def fp(self, vol: torch.Tensor) -> torch.Tensor:
-        dzv = self.geom.cor_vertical
-        if dzv is not None and vol.dim() == 3 and np.any(dzv):
-            return _vshift_sino(self._fp_core(vol), dzv)
+        if self.cor_vertical is not None and vol.dim() == 3:
+            return _vshift_sino(self._fp_core(vol), self.cor_vertical)
         return self._fp_core(vol)
 
     def bp(self, sino: torch.Tensor) -> torch.Tensor:
-        dzv = self.geom.cor_vertical
-        if dzv is not None and sino.dim() == 3 and np.any(dzv):
-            sino = _vshift_sino(sino, -np.asarray(dzv))
+        if self.cor_vertical is not None and sino.dim() == 3:
+            sino = _vshift_sino(sino, -np.asarray(self.cor_vertical))
         return self._bp_core(sino)
 
     def _z_chunks(self, nz: int, groups: List[_Group], *per_slice: int):
@@ -311,76 +383,38 @@ class _Plan:
             zc -= zc % 2
         return [(z0, min(z0 + zc, nz)) for z0 in range(0, nz, zc)]
 
-    def _fp_joseph(self, vol: torch.Tensor) -> torch.Tensor:
-        g = self.geom
-        cos_v, sin_v = np.cos(g.angles), np.sin(g.angles)
-        idx_x, idx_y = _angle_partition(g.angles)
-        cor, det_x = g.cor_horizontal, g.detectors_x_total
-        out = torch.zeros((vol.shape[0], g.n_angles, det_x), dtype=torch.float32, device=vol.device)
-        if idx_x.size:
-            out[:, torch.as_tensor(idx_x, device=vol.device)] = _fp_driven(
-                vol, cos_v[idx_x], sin_v[idx_x], cor[idx_x], det_x)
-        if idx_y.size:
-            # y-driven: x and y swap roles on the line y sin + x cos = s
-            out[:, torch.as_tensor(idx_y, device=vol.device)] = _fp_driven(
-                vol.transpose(1, 2), sin_v[idx_y], cos_v[idx_y], cor[idx_y], det_x)
-        return out
-
-    def _bp_joseph(self, sino: torch.Tensor) -> torch.Tensor:
-        g = self.geom
-        n = g.recon_size
-        cos_v, sin_v = np.cos(g.angles), np.sin(g.angles)
-        idx_x, idx_y = _angle_partition(g.angles)
-        cor = g.cor_horizontal
-        vol = torch.zeros((sino.shape[0], n, n), dtype=torch.float32, device=sino.device)
-        if idx_x.size:
-            vol = vol + _bp_driven(sino[:, torch.as_tensor(idx_x, device=sino.device)],
-                                   cos_v[idx_x], sin_v[idx_x], cor[idx_x], n, n)
-        if idx_y.size:
-            voly = _bp_driven(sino[:, torch.as_tensor(idx_y, device=sino.device)],
-                              sin_v[idx_y], cos_v[idx_y], cor[idx_y], n, n)
-            vol = vol + voly.transpose(1, 2)
-        return vol
-
     def _fp_core(self, vol: torch.Tensor) -> torch.Tensor:
         squeeze = vol.dim() == 2
         if squeeze:
             vol = vol[None]
         vol = vol.to(torch.float32).contiguous()
-        if _BACKEND == "xla":
-            out = self._fp_joseph(vol)
-            return out[0] if squeeze else out
         nz, ny, nx = vol.shape
-        det_x = self.geom.detectors_x_total
-        n_angles = self.geom.n_angles
-        groups = self.groups(ny, nx, vol.device, nz == 1)
-        if not groups:
-            out = torch.zeros((nz, 0, det_x), dtype=torch.float32, device=vol.device)
+        det_x, dev = self.det_x, vol.device
+        shape = (nz, self.n_out, det_x)
+        if _BACKEND == "xla":
+            out = torch.zeros(shape, dtype=torch.float32, device=dev)
+            for dp in self.driven:
+                # y-driven: x and y swap roles on the line y sin + x cos = s
+                out[:, dp.index(dev)[1]] = _fp_driven(
+                    vol.transpose(1, 2) if dp.swap else vol, dp.c, dp.s, dp.cor, det_x)
             return out[0] if squeeze else out
-        chunks = self._z_chunks(nz, groups, ny * nx, n_angles * det_x)
-        out = None
+        groups = self.groups(ny, nx, dev, nz == 1)
+        # one group that writes every angle in order needs no scatter
+        whole = len(groups) == 1 and self._dense
+        chunks = self._z_chunks(nz, groups, ny * nx, self.n_out * det_x)
+        if whole and len(chunks) == 1:
+            out = _fp_group(vol, groups[0], det_x)
+            return out[0] if squeeze else out
+        out = (torch.empty if self._dense else torch.zeros)(shape, dtype=torch.float32,
+                                                            device=dev)
         for z0, z1 in chunks:
             part = vol[z0:z1]
             for g in groups:
-                if g.prm.packed:
-                    # the y-driven group reads one explicit transpose of the slice
-                    rows = part.transpose(1, 2).contiguous() if g.swap else part
-                    s = shear_fp_packed(rows, g.beta, g.prm.U0, g.prm.LU)
-                else:
-                    s = shear_fp(part, g.beta, g.prm.U0, g.prm.LU, g.swap)
-                p = resample_fp(s, g.alpha, g.gamma, g.prm.U0, det_x)
-                del s
-                if len(groups) == 1 and len(chunks) == 1:
-                    out = p
-                    break
-                if out is None:
-                    out = torch.empty(
-                        (nz, n_angles, det_x), dtype=torch.float32, device=vol.device,
-                    )
-                if len(groups) == 1:
+                p = _fp_group(part, g, det_x)
+                if whole:
                     out[z0:z1] = p
                 else:
-                    out[z0:z1, g.idx] = p
+                    out[z0:z1, g.pos] = p
         return out[0] if squeeze else out
 
     def _bp_core(self, sino: torch.Tensor) -> torch.Tensor:
@@ -388,30 +422,27 @@ class _Plan:
         if squeeze:
             sino = sino[None]
         sino = sino.to(torch.float32).contiguous()
+        nz, n_in, det_x = sino.shape
+        n, dev = self.recon_size, sino.device
         if _BACKEND == "xla":
-            vol = self._bp_joseph(sino)
+            vol = torch.zeros((nz, n, n), dtype=torch.float32, device=dev)
+            for dp in self.driven:
+                part = _bp_driven(sino[:, dp.index(dev)[0]], dp.c, dp.s, dp.cor, n, n)
+                vol = vol + (part.transpose(1, 2) if dp.swap else part)
             return vol[0] if squeeze else vol
-        nz, n_angles, det_x = sino.shape
-        n = self.geom.recon_size
-        groups = self.groups(n, n, sino.device, nz == 1)
+        groups = self.groups(n, n, dev, nz == 1)
         if not groups:
-            vol = torch.zeros((nz, n, n), dtype=torch.float32, device=sino.device)
+            vol = torch.zeros((nz, n, n), dtype=torch.float32, device=dev)
             return vol[0] if squeeze else vol
-        vol = torch.empty((nz, n, n), dtype=torch.float32, device=sino.device)
-        for z0, z1 in self._z_chunks(nz, groups, n * n, n_angles * det_x):
+        # K3 reads each group's angles where they lie in the sinogram, unless
+        # one group holds all of them in order
+        whole = len(groups) == 1 and groups[0].prm.A == n_in
+        vol = torch.empty((nz, n, n), dtype=torch.float32, device=dev)
+        for z0, z1 in self._z_chunks(nz, groups, n * n, n_in * det_x):
             part = sino[z0:z1]
             for k, g in enumerate(groups):
-                # K3 reads the group's angles where they lie in the sinogram
-                q = resample_bp(part, g.alpha, g.gamma, g.prm.U0, g.prm.LU,
-                                index=None if len(groups) == 1 else g.idx)
                 # the first group writes the chunk's slices, the others add
-                if g.prm.packed:
-                    unshear_bp_packed(q, g.beta, g.prm.U0, n, g.swap, out=vol[z0:z1],
-                                      accumulate=k > 0)
-                else:
-                    unshear_bp(q, g.beta, g.prm.U0, n, n, g.swap, out=vol[z0:z1],
-                               accumulate=k > 0)
-                del q
+                _bp_group(part, g, n, vol[z0:z1], k > 0, None if whole else g.idx)
         return vol[0] if squeeze else vol
 
 
@@ -492,6 +523,21 @@ class Projector:
 
     def bp_sub(self, sino: torch.Tensor, sub: int) -> torch.Tensor:
         return _BackProject.apply(sino, self._sub_plans[sub])
+
+    # reductions over the whole volume or sinogram: the identity on one
+    # device; the sharded projector reduces them over its z-slabs
+    @staticmethod
+    def global_sum(t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    @staticmethod
+    def global_max(t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    @staticmethod
+    def global_norm(t: torch.Tensor) -> torch.Tensor:
+        """The L2 norm of ``t`` (a whole volume or sinogram)."""
+        return torch.linalg.vector_norm(t)
 
     def sino_subset(self, sino: torch.Tensor, sub: int) -> torch.Tensor:
         key = (sub, sino.device)

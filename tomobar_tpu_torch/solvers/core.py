@@ -5,7 +5,12 @@ Counterpart of ``tomobar_tpu/solvers/core.py`` (reference
 ``tomobar/methodsIR_CuPy.py``: Landweber:128, SIRT:174, CGLS:233,
 powermethod:311, FISTA:401, ADMM:486, OSEM:587).  PyTorch runs eagerly, so
 the outer and the ordered-subset loops are plain Python loops and nothing
-is compiled or cached per call.  The reference's solver quirks that the JAX
+is compiled or cached per call.  Every sum, norm and maximum of a whole
+volume or sinogram goes through the projector's ``global_sum``,
+``global_norm`` and ``global_max``: the identity on one device, a
+reduction over the z-slabs under
+:class:`~tomobar_tpu_torch.parallel.sharding.ShardedProjector`, where a
+rank holds one slab of each.  The reference's solver quirks that the JAX
 package keeps for parity are kept too, and noted where they occur (CGLS's
 in-loop clamp, ADMM's late relaxation and once-per-outer-iteration dual
 update, OSEM's multiplication by the clipped subset-0 sensitivity).
@@ -70,7 +75,7 @@ def power_method(
     s = torch.ones((), dtype=torch.float32, device=y.device)
     for _ in range(iterations):
         x1 = Atb(y)
-        s = torch.linalg.vector_norm(x1)
+        s = projector.global_norm(x1)
         y = Ax(x1 / s)
     return float(s)
 
@@ -119,8 +124,8 @@ def sirt(
     return x
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+def _dot(projector: Projector, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return projector.global_sum(torch.dot(a.reshape(-1), b.reshape(-1)))
 
 
 def cgls(
@@ -132,15 +137,15 @@ def cgls(
     """Conjugate gradients on the normal equations, from zero."""
     x = _volume(sino, projector.geom.recon_size)
     d = projector.bp(sino)
-    normr2 = _dot(d, d)
+    normr2 = _dot(projector, d, d)
     r = sino
     for _ in range(iterations):
         Ad = projector.fp(d)
-        alpha = normr2 / _dot(Ad, Ad)
+        alpha = normr2 / _dot(projector, Ad, Ad)
         x = x + alpha * d
         r = r - alpha * Ad
         s = projector.bp(r)
-        normr2_new = _dot(s, s)
+        normr2_new = _dot(projector, s, s)
         d = s + (normr2_new / normr2) * d
         normr2 = normr2_new
         if nonnegativity:
@@ -150,34 +155,36 @@ def cgls(
     return x
 
 
-def _prepare_pwls_weights(sino: torch.Tensor) -> torch.Tensor:
+def _prepare_pwls_weights(projector: Projector, sino: torch.Tensor) -> torch.Tensor:
     """PWLS weights from the (padded, post-log) data
     (``methodsIR_CuPy.py:392-397``)."""
     w = torch.clamp(sino, min=1e-6)
-    return w / torch.max(w)
+    return w / projector.global_max(torch.max(w))
 
 
-def _prepare_weights(sino, fidelity: str, fid_kwargs: dict):
+def _prepare_weights(projector: Projector, sino, fidelity: str, fid_kwargs: dict):
     if fidelity == "PWLS":
-        return _prepare_pwls_weights(sino)
+        return _prepare_pwls_weights(projector, sino)
     if fidelity == "SWLS":
-        return swls_weights(sino, fid_kwargs.get("beta_SWLS", 0.1))
+        return swls_weights(sino, fid_kwargs.get("beta_SWLS", 0.1),
+                            global_max=projector.global_max)
     return None
 
 
-def _rel_update(x_new: torch.Tensor, x_prev: torch.Tensor) -> float:
-    num = torch.linalg.vector_norm(x_new - x_prev)
-    den = torch.clamp(torch.linalg.vector_norm(x_new), min=1e-12)
+def _rel_update(projector: Projector, x_new: torch.Tensor, x_prev: torch.Tensor) -> float:
+    num = projector.global_norm(x_new - x_prev)
+    den = torch.clamp(projector.global_norm(x_new), min=1e-12)
     return float(num / den)
 
 
-def _stop(name: str, it: int, x, x_prev, tolerance: float, verbose: bool) -> bool:
+def _stop(projector: Projector, name: str, it: int, x, x_prev, tolerance: float,
+          verbose: bool) -> bool:
     """Progress print and early stop after outer iteration ``it``: the
     relative update norm is printed when ``verbose`` and ends the solve once
     below ``tolerance > 0``."""
     if not (verbose or (tolerance and tolerance > 0.0)):
         return False
-    rel = _rel_update(x, x_prev)
+    rel = _rel_update(projector, x, x_prev)
     if verbose:
         print(f"{name} iteration ({it + 1}) relative update: {rel:.3e}")
     if tolerance and tolerance > 0.0 and rel < tolerance:
@@ -212,7 +219,7 @@ def fista(
     fid_kwargs = fid_kwargs or {}
     L_inv = float(np.float32(1.0 / lipschitz_const))
 
-    w = _prepare_weights(sino, fidelity, fid_kwargs)
+    w = _prepare_weights(projector, sino, fidelity, fid_kwargs)
     subs, w_subs = _subset_slices(projector, sino, w)
 
     if x0 is None:
@@ -241,7 +248,7 @@ def fista(
                 x = regul_fn(x)
             t = np.float32((one + np.sqrt(one + four * t * t)) * half)
             x_t = x + float(np.float32((t_old - one) / t)) * (x - x_old)
-        if _stop("FISTA", it, x, x_prev, tolerance, verbose):
+        if _stop(projector, "FISTA", it, x, x_prev, tolerance, verbose):
             break
     return x
 
@@ -270,7 +277,7 @@ def admm(
     fid_kwargs = fid_kwargs or {}
     tau = float(np.float32(0.9 / (lipschitz_const + rho_const)))
 
-    w = _prepare_weights(sino, fidelity, fid_kwargs)
+    w = _prepare_weights(projector, sino, fidelity, fid_kwargs)
     subs, w_subs = _subset_slices(projector, sino, w)
 
     if x0 is None:
@@ -300,7 +307,7 @@ def admm(
             if regul_fn is not None:
                 x = regul_fn(x)
         u = u + (z - x)
-        if _stop("ADMM", it, x, x_prev, tolerance, verbose):
+        if _stop(projector, "ADMM", it, x, x_prev, tolerance, verbose):
             break
     return x
 
