@@ -6,7 +6,8 @@ shape: the iterative main path (``RecToolsIRCuPy.FISTA``, PWLS, ordered
 subsets, PD-TV), the direct path (``RecToolsDIRCuPy.FOURIER_INV`` and 3D
 ``FBP``), the 2D path (2D ``FORWPROJ``/``FBP`` and every solver on one
 slice) and raw projections through normalisation, centre finding and the
-memory plan to a reconstruction.
+memory plan to a reconstruction, then the sharded layer and the bench
+modules.
 
 Run from the repository root with no arguments::
 
@@ -40,7 +41,9 @@ Phases, in order; any failure raises and exits non-zero:
    against the phantom, peak memory, then each kernel's time beside its
    plain version's at that shape (K1-K4 on both driven groups of OS
    subset 0, PD-TV for one prox of 20 iterations on the whole volume, and
-   for one iteration), and one OS subset of the FISTA step by stage.
+   for one iteration), and one OS subset of the FISTA step by stage
+   (``bench.breakdown.flagship_breakdown``: fp_sub, bp_sub, one PD-TV prox,
+   ms and utilisation of the H100 bounds).
 7. the direct path: G (USFFT gridding) against its plain version at
    n=512, 2 z-pairs, 360 angles with 0 and pi/2 (both driven groups), at
    n=500 (tiles that the grid does not fill) with 5 z-pairs (an odd count
@@ -50,7 +53,8 @@ Phases, in order; any failure raises and exits non-zero:
    and n = 3000 (the run-time plan) and both signs; FOURIER_INV and
    3D FBP at 256^2 x 4 x 90 on the CPU and on the GPU; then on phase 6's
    clean 1801 x 8 x 2560 sinogram: FOURIER_INV and FBP times after a
-   warm-up call, G/F launch counts per path, both paths' time by stage,
+   warm-up call, G/F launch counts per path, both paths' time by stage
+   (FOURIER_INV's through ``bench.fourier_breakdown``),
    its correlation with a Ram-Lak FBP inside the inscribed circle, peak
    memory, and G and F beside their plain versions at the flagship shapes
    (G against a float64 plain sum, and twice for bit-equal grids).
@@ -135,8 +139,29 @@ Phases, in order; any failure raises and exits non-zero:
    on every mesh; the 64-slice prox equal to the single card's bit for
    bit on each slab, its z_halo moving fewer slices than a slab holds;
    every rank launched K1-K4 and PD (and G and F on the direct path).  Each rank prints its launches, outer-iteration ms,
-   peak memory and the bytes each collective moved and staged.  A rank
-   that fails or times out fails the run.
+   peak memory and the bytes each collective moved and staged, and counts
+   the collectives of one more outer iteration
+   (``bench.scaling.count_collectives_in_step``).  A rank that fails or
+   times out fails the run.
+15. the bench modules (``tomobar_tpu_torch/bench``) at BASELINE's shapes:
+   phase 6's ``flagship_breakdown`` read (every utilisation in (0, 1] and
+   none clamped, that is no ``*_raw`` key; its outer estimate beside phase
+   6's measured iteration); phase 7's ``fourier_breakdown`` read, whose
+   stages must sum to within 15% of phase 7's FOURIER_INV call;
+   ``estimate_memory`` on meta tensors: a FORWPROJ plan
+   for 4096 x 2560^2 (more than the card holds) with no launch and no
+   allocation, and at 8 slices the plans of ``fp`` and a PD-TV prox within
+   0.98-1.05 of the card's peak; ``run_northstar`` at 2560^2 x 20 slices x
+   1801 angles (OS10, TV20, 20 FISTA-PWLS and 3 warm-started ADMM-OS24
+   iterations): first its kernels against their plain versions on its own
+   inputs (K1-K4 on both driven groups of OS subset 0 at 20 slices, one
+   PD-TV prox of 20 iterations on its FBP at 20 x 2560^2, F on the FBP
+   filter's packed rows, both signs), then the run, with the counters reset
+   before it and read after it (K1-K4,
+   PD and F must be launched), FISTA's rel-RMSE falling at every step and
+   reaching FBP's, ADMM's ending below FBP's (the TPU run's quality
+   printed beside); and ``comm_model`` equal, call for call and byte for
+   byte, to the collectives each rank of phase 14 counted.
 
 ``python3 chip_smoke.py --sharded-rank <dir> <n_z> <n_angles> <backend>``
 is one rank of phase 14 (the rendezvous in the environment); the phase
@@ -174,14 +199,32 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+from tomobar_tpu_torch.bench.breakdown import (  # noqa: E402
+    H100_SXM_FP32_FLOPS as PEAK_FLOPS,
+    H100_SXM_HBM_BYTES as PEAK_BYTES,
+    card_line,
+    work_fft,
+    work_grid,
+    work_pd,
+    work_resample,
+    work_shear,
+    work_unshear,
+)
+from tomobar_tpu_torch.bench.breakdown import flagship_breakdown  # noqa: E402
+from tomobar_tpu_torch.bench.fourier_breakdown import (  # noqa: E402
+    STAGES,
+    fourier_breakdown,
+    fourier_inv_by_stage,
+)
+from tomobar_tpu_torch.bench.harness import time_cuda, time_device  # noqa: E402
 
 TOL_KERNEL = 1e-5  # max|kernel - plain| / max|plain|, fp32 sums in another order
 TOL_PD_BF16 = 1e-3  # bf16 duals: a one-ulp fp32 difference can flip a rounding
 TOL_ADJOINT = 1e-5  # |<Ax,y> - <x,A^T y>| / |<Ax,y>|
 TOL_SLICE = 1e-4  # rel L2 between the CPU and the GPU reconstruction
 MIN_CORR = 0.99  # FOURIER_INV vs Ram-Lak FBP inside the inscribed circle
-PEAK_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
-PEAK_BYTES = 3.35e12  # HBM3 bytes per second, H100 SXM data sheet
 # phase 13: the raw stack, and what its path is held to
 C_TRUE = 4.25  # CoR offset of the raw stack, px
 I0_RAW = 1.0e4  # photons per pixel in the flat field
@@ -250,52 +293,15 @@ TOL_SHARD_FISTA = 1e-5  # rel L2 after 3 outer iterations, angles dealt
 # HALO_DEPTH slices at full width: its halo (20) is shorter than a slab (32)
 HALO_DEPTH = 64
 RANK_TIMEOUT = 420  # seconds for one world of ranks
-
-
-# (operations, bytes) of one call: what the function must do on these
-# inputs, each input read once and each output written once
-def work_shear(A, nz, n_rows, row_len, LU):
-    """K1/K1p: a (angle, slice, row) reaches row_len + 1 values of u with two
-    products and two sums each."""
-    return 4 * A * nz * n_rows * (row_len + 1), 4 * (nz * n_rows * row_len + A + A * nz * LU)
-
-
-def work_unshear(A, nz, n, LU):
-    """K4/K4p: two products and two sums per voxel and angle."""
-    return 4 * A * nz * n * n, 4 * (A * nz * LU + A + nz * n * n)
-
-
-def work_resample(A, nz, LU, det_x, per_output):
-    """K2 (13 operations per sinogram sample: position, two hats, two
-    weighted taps) and K3 (26 per u, as a thread per u spends them: four
-    candidate positions and hats, two weighted taps; the rows of p that the
-    group reads are counted once, whether they were copied out or are read
-    through an index)."""
-    n_out = nz * A * det_x if per_output == 13 else A * nz * LU
-    return per_output * n_out, 4 * (A * nz * LU + nz * A * det_x + 2 * A)
-
-
-def work_pd(nz, n, iterations):
-    """PD, one prox: data read and u written once, whatever the iteration
-    count.  Per voxel and iteration (iso, nonneg) 36 operations, 28 for one
-    slice: the differences (3), the dual ascent (6), the norm (5), compare,
-    clamp, rsqrt, select and scaling (7), the divergence (5), the clamp of u
-    (1) and the primal step with its relaxation (9); one slice has no z
-    term."""
-    return (36 if nz > 1 else 28) * iterations * nz * n * n, 8 * nz * n * n
-
-
-def work_grid(nz2, n_angles, n, m=5):
-    """G: per polar sample and tap 8 operations for the weight and a product
-    and a sum per z-pair and channel; spectra read, the (2n)^2 grids written."""
-    taps = n_angles * n * (2 * m + 1) ** 2
-    return taps * (8 + 4 * nz2), 8 * nz2 * n_angles * n + 8 * nz2 * 4 * n * n + 8 * n_angles
-
-
-def work_fft(shape):
-    """F: 5 n log2 n operations per column; re and im read and written."""
-    n, count = shape[-2], int(np.prod(shape))
-    return 5 * count * np.log2(n), 16 * count
+# phase 15: the north-star run (BASELINE's 2560^2 x 20 shape), what it
+# launches, and the TPU run's quality (NORTHSTAR_r04.json; rel-RMSE only)
+NORTHSTAR = dict(N=2560, nz=20, nproj=1801, os_number=10, tv_iters=20, fista_outer=20,
+                 admm_outer=3, regul_param=2e-4, i0=8000.0)
+NORTHSTAR_PATH = ("K1", "K2", "K3", "K4", "PD", "F")
+NORTHSTAR_TPU = {"fbp": 0.5097, "fista": 0.3247, "admm": 0.2403}
+TOL_STAGE_SUM = 0.15  # FOURIER_INV's staged sum against phase 7's call
+MEMPLAN_DEPTH = 4096  # slices of a 2560^2 volume larger than the card (107 GB)
+TOL_PLAN = (0.98, 1.05)  # a meta plan against the card's measured peak
 
 
 class SmokeFailure(RuntimeError):
@@ -526,33 +532,6 @@ def check_pd_shapes(torch, PDT, errs, dev) -> None:
                      PDT.pd_tv(*args), PDT.pd_tv_plain(*args), tol=TOL_PD_BF16)
 
 
-def time_cuda(torch, fn, reps: int) -> float:
-    """Mean milliseconds of fn() over reps calls, after one warm-up call."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def time_device(torch, fn, calls: int = 20, reps: int = 5) -> float:
-    """Mean milliseconds of one fn() on the device alone: ``calls`` calls are
-    captured in a CUDA graph and the graph is replayed, so the host's time to
-    enqueue a call, which is more than a small kernel takes, is left out."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return time_cuda(torch, graph.replay, reps) / calls
-
-
 def outer_iteration_launches(counts_after, keys, path: str) -> dict:
     """Launches of one outer iteration: those of the 2-iteration FISTA call
     less those of the 1-iteration call, from the counters read before the
@@ -572,7 +551,9 @@ def timed_calls(torch, dev, launches, label, title, fn, shape, reps=3):
     peak-memory statistic reset first; prints the times, the launches per
     call and the peak after ``title``, checks the result's shape and that it
     is finite, keeps the launches in ``launches[label]`` and returns the
-    last result and the mean ms."""
+    last result and the median ms (a call slowed by the host, 49.5 ms
+    beside 26.0 and 26.7 ms on an NVIDIA H100 80GB HBM3 at 700 W, moves
+    the mean of three calls by a third and the median not at all)."""
     from tomobar_tpu_torch import _build
 
     torch.cuda.synchronize()
@@ -594,7 +575,7 @@ def timed_calls(torch, dev, launches, label, title, fn, shape, reps=3):
     require(tuple(res.shape) == shape, f"{title}: shape {tuple(res.shape)}")
     require(bool(torch.isfinite(res).all()), f"{title}: non-finite result")
     launches[label] = counts
-    return res, float(np.mean(ms))
+    return res, float(np.median(ms))
 
 
 def check_direct_kernels(torch, errs, dev) -> None:
@@ -640,40 +621,6 @@ def check_direct_kernels(torch, errs, dev) -> None:
             )
 
 
-def fourier_inv_by_stage(torch, rt, data):
-    """FOURIER_INV on 3D data with no odd axis and default kwargs, stage by
-    stage with CUDA events around each stage; returns the ms per stage, the
-    recon and the gridding input (the spectra the path gives G)."""
-    from tomobar_tpu_torch.ops import fft_real as FR
-    from tomobar_tpu_torch.ops import usfft as US
-    from tomobar_tpu_torch.ops import usfft_kernels as UK
-
-    nz, nproj, n = data.shape
-    theta = -np.asarray(rt.geom.angles, dtype=np.float64)
-    rot = float(np.mean(rt.geom.cor_horizontal)) + 0.5
-    mu = -np.log(1e-4) / (2 * n * n)
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    events[0].record()
-    filtered = US._fbp_filter_stage(data, n, n, "shepp", 1.0, rot)
-    events[1].record()
-    dre, dim = US._pack_pairs(filtered)
-    sre, sim = FR.fft_pairs(dre, dim)
-    scale = US._sign_vector(n, data.device) * (4.0 / n)
-    sre, sim = sre * scale, sim * scale
-    events[2].record()
-    fre, fim = UK.grid(sre, sim, n, theta)
-    events[3].record()
-    fre, fim = US._ifft2_centered(fre, fim, n)
-    events[4].record()
-    rec = US._unpad_mul_phi(fre, fim, n, nproj, nz, False, False, rt.recon_size, mu)
-    events[5].record()
-    torch.cuda.synchronize()
-    names = ("filter (F n=8192 x2)", "pack + STEP1 FFT", "G gridding",
-             "ifft2 (F n=5120 x2)", "unpad x phi")
-    ms = {k: events[i].elapsed_time(events[i + 1]) for i, k in enumerate(names)}
-    return ms, rec, (sre, sim)
-
-
 def fbp_by_stage(torch, rt, by_angle):
     """3D FBP with the default sinc filter, with CUDA events around the
     filter and the back-projection; returns (ms per stage, recon)."""
@@ -692,8 +639,9 @@ def fbp_by_stage(torch, rt, by_angle):
 
 def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     """7: the direct path; returns the G and F launches of its main run,
-    their launches per FOURIER_INV call, and the FOURIER_INV and FBP
-    results (what the big stack of phase 9 is held against)."""
+    their launches per FOURIER_INV call, the FOURIER_INV and FBP results
+    (what the big stack of phase 9 is held against), FOURIER_INV's median
+    ms and its ``fourier_breakdown`` (whose stages phase 15 holds to it)."""
     from tomobar_tpu_torch import RecToolsDIRCuPy
     from tomobar_tpu_torch.geometry import Geometry
     from tomobar_tpu_torch.ops import fft_kernels as FK
@@ -738,8 +686,10 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     require(launches["FBP (sinc)"].get("F", 0) > 0, "FBP did not launch F")
     print(f"[7] FBP / FOURIER_INV time ratio: {ms_fbp / ms_fi:.3f}")
 
-    stages, fi_staged, spectra = fourier_inv_by_stage(torch, rt, clean)
-    print("[7] FOURIER_INV by stage (ms): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    print(f"[7] FOURIER_INV by stage, fourier_breakdown {NA}x{NZ}x{N} on this sinogram:")
+    fb = fourier_breakdown(N, NZ, NA, device=dev, data=clean)
+    print(f"[7] fourier_breakdown: {json.dumps(fb)}")
+    _, fi_staged, spectra = fourier_inv_by_stage(rt, clean)  # its marks go unread
     rel = rel_l2(torch, fi_staged, fi)
     require(rel <= TOL_KERNEL, f"staged FOURIER_INV differs from the call: {rel:.3e}")
     stages, fbp_staged = fbp_by_stage(torch, rt, by_angle)
@@ -800,7 +750,7 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     return {
         "G": launches["FOURIER_INV"].get("G", 0),
         "F": launches["FOURIER_INV"].get("F", 0) + launches["FBP (sinc)"].get("F", 0),
-    }, per_call, {"FOURIER_INV": fi, "FBP": fbp}
+    }, per_call, {"FOURIER_INV": fi, "FBP": fbp}, ms_fi, fb
 
 
 def check_packed_kernels(torch, K, errs, geom, dev, seed: int) -> None:
@@ -1000,7 +950,7 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
         "FBP back-projection (K3 x2, K4p x2)": lambda: rd.Atools.bp(data),
     }
     print("[8] 2D by stage (ms): " + json.dumps(
-        {k: round(time_cuda(torch, fn, 5), 3) for k, fn in stages.items()}))
+        {k: round(time_cuda(fn, 5), 3) for k, fn in stages.items()}))
     del b0
 
     # the other solvers at the flagship: finite, residuals fall
@@ -1085,12 +1035,12 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
             else:
                 errs.compare("K1p", f"flagship, {label}", k1p(), k1p_plain(), tol=0.0)
                 errs.compare("K4p", f"flagship, {label}", k4p(), k4p_plain(), tol=0.0)
-                print(f"[8] K1p shear_fp_packed, {label}: kernel {time_cuda(torch, k1p, 5):.3f} ms, "
-                      f"plain {time_cuda(torch, k1p_plain, 1):.3f} ms")
-                print(f"[8] K4p unshear_bp_packed, {label}: kernel {time_cuda(torch, k4p, 5):.3f} ms, "
-                      f"plain {time_cuda(torch, k4p_plain, 1):.3f} ms")
-            print(f"[8] K1 at nz=1, {label}: {time_cuda(torch, k1, 5):.3f} ms; "
-                  f"K4 at nz=1: {time_cuda(torch, k4, 5):.3f} ms")
+                print(f"[8] K1p shear_fp_packed, {label}: kernel {time_cuda(k1p, 5):.3f} ms, "
+                      f"plain {time_cuda(k1p_plain, 1):.3f} ms")
+                print(f"[8] K4p unshear_bp_packed, {label}: kernel {time_cuda(k4p, 5):.3f} ms, "
+                      f"plain {time_cuda(k4p_plain, 1):.3f} ms")
+            print(f"[8] K1 at nz=1, {label}: {time_cuda(k1, 5):.3f} ms; "
+                  f"K4 at nz=1: {time_cuda(k4, 5):.3f} ms")
     return {k: sum(launches[p].get(k, 0) for p in ("FORWPROJ", "FBP (sinc 1.1)", "FISTA"))
             for k in TWO_D}, per_call
 
@@ -1269,7 +1219,7 @@ def regularisers_on_card(torch, dev) -> None:
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        ms = time_cuda(torch, lambda: prox_regul(owner, vol, dict(reg)), 2)
+        ms = time_cuda(lambda: prox_regul(owner, vol, dict(reg)), 2)
         peak = (torch.cuda.max_memory_allocated(dev) - held) / 2**20
         times[label] = {"ms": round(ms, 3), "peak_mib_above_input": round(peak, 1)}
         print(f"[10] {label}, one prox of 20 iterations on {NZ}x{N}x{N}: {ms:.3f} ms, "
@@ -1291,7 +1241,7 @@ def regularisers_on_card(torch, dev) -> None:
             t_ps = time.perf_counter() - t0
             reg = {"method": "NLTV", "regul_param": 0.03, "NLTV_H_i": tables[0],
                    "NLTV_H_j": tables[1], "NLTV_Weights": tables[2], "IterNumb": 5}
-            ms = time_cuda(torch, lambda: prox_regul(None, img, dict(reg)), 2)
+            ms = time_cuda(lambda: prox_regul(None, img, dict(reg)), 2)
         except torch.cuda.OutOfMemoryError:
             print(f"[10] patch_select + NLTV at {n}^2: out of device memory, next size down")
             tables = reg = None
@@ -1386,7 +1336,7 @@ def legacy_main_path(torch, dev, clean, angles, lc: float) -> dict:
         "FGP_TV prox, 20 iterations": lambda: FGP_TV(x, 5e-4, 20, 0, 1),
     }
     print("[11] one OS subset by stage (ms): " + json.dumps(
-        {k: round(time_cuda(torch, fn, 5), 3) for k, fn in stages.items()}))
+        {k: round(time_cuda(fn, 5), 3) for k, fn in stages.items()}))
     del b0, x, data, truth
 
     # the 2D flagship, OS10, LS
@@ -1415,7 +1365,7 @@ def legacy_main_path(torch, dev, clean, angles, lc: float) -> dict:
         "FGP_TV prox, 20 iterations": lambda: FGP_TV(x, 5e-4, 20, 0, 1),
     }
     print("[11] 2D, one OS subset by stage (ms): " + json.dumps(
-        {k: round(time_cuda(torch, fn, 5), 3) for k, fn in stages.items()}))
+        {k: round(time_cuda(fn, 5), 3) for k, fn in stages.items()}))
     for k, v in two_d.items():
         launches[k] = launches.get(k, 0) + v
     return launches
@@ -1467,7 +1417,7 @@ def joseph_on_card(torch, dev) -> None:
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-            ms = time_cuda(torch, fn, 2)
+            ms = time_cuda(fn, 2)
             peak = (torch.cuda.max_memory_allocated(dev) - held) / 2**20
             print(f"[12] Joseph {label} at the 2D flagship {N}^2 x {NA}: {ms:.1f} ms; peak "
                   f"{peak:.1f} MiB above what was held")
@@ -1551,7 +1501,7 @@ def raw_to_reconstruction(torch, dev, angles, plan_512) -> dict:
         host = normaliser(raw_np, flats_np, darks_np, method=method)
         t_host = (time.perf_counter() - t0) * 1e3
         normaliser(raw, flats, darks, method=method)  # warm-up
-        t_dev = time_cuda(torch, lambda: normaliser(raw, flats, darks, method=method), 5)
+        t_dev = time_cuda(lambda: normaliser(raw, flats, darks, method=method), 5)
         norm[method] = normaliser(raw, flats, darks, method=method)
         rel = rel_l2(torch, norm[method].cpu(), torch.from_numpy(host))
         print(f"[13] normaliser {method}: host (native) {t_host:.1f} ms, card {t_dev:.3f} ms; "
@@ -1648,8 +1598,8 @@ def raw_to_reconstruction(torch, dev, angles, plan_512) -> dict:
           f"{ms_fbp:.2f} ms; launches of the path {json.dumps(launches)}")
     for k in ("G", "F", "K3", "K4"):
         require(launches.get(k, 0) > 0, f"kernel {k} was not launched by the raw-to-recon path")
-    print(f"[13] the next calls: FOURIER_INV {time_cuda(torch, lambda: rt.FOURIER_INV(sino), 3):.2f} ms, "
-          f"FBP (sinc) {time_cuda(torch, lambda: rt.FBP(by_angle), 3):.2f} ms")
+    print(f"[13] the next calls: FOURIER_INV {time_cuda(lambda: rt.FOURIER_INV(sino), 3):.2f} ms, "
+          f"FBP (sinc) {time_cuda(lambda: rt.FBP(by_angle), 3):.2f} ms")
     # images are compared binned BIN x BIN: at 1e4 photons the noise of a
     # direct reconstruction is larger than the phantom's contrast pixel by
     # pixel, and moves with the centre (both printed unbinned too)
@@ -1774,12 +1724,14 @@ def sharded_direct_inputs(work: str, refs: dict, clean, small: dict) -> None:
 def sharded_rank(work: str, n_z: int, n_a: int, backend: str) -> int:
     """14, one rank (``--sharded-rank``): its slab of phase 6's flagship
     through the sharded layer; rank 0 writes the gathered results and every
-    rank its report (launches, ms, peak memory, collective bytes)."""
-    sys.path.insert(0, REPO)
+    rank its report (launches, ms, peak memory, collective bytes, and what
+    the collectives of one more outer iteration counted, which phase 15
+    holds the collective model to)."""
     import torch
     import torch.distributed as dist
 
     from tomobar_tpu_torch import RecToolsDIRCuPy, _build
+    from tomobar_tpu_torch.bench.scaling import count_collectives_in_step
     from tomobar_tpu_torch.geometry import Geometry
     from tomobar_tpu_torch.parallel import (
         ShardedDirect, ShardedProjector, comm, distributed_init, make_mesh, sharded_regul_fn)
@@ -1835,8 +1787,12 @@ def sharded_rank(work: str, n_z: int, n_a: int, backend: str) -> int:
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
         gather(f"fista{iters}", x)
-    del x, data
     path = dict(_build.launch_counts)
+    path_stats = {op: dict(v) for op, v in comm.stats.items()}
+    step_comm = count_collectives_in_step(mesh, sp, data, cfg["lc"], FLAGSHIP_REG)
+    comm.stats.clear()
+    comm.stats.update(path_stats)
+    del x, data
     direct, halo = {}, {}
     if (n_z, n_a) == (2, 1):
         _build.reset_launch_counts()
@@ -1857,7 +1813,7 @@ def sharded_rank(work: str, n_z: int, n_a: int, backend: str) -> int:
     report = {
         "rank": rank, "z": mesh.z_index, "a": mesh.angle_index, "device": str(dev),
         "launches": path, "direct_launches": direct, "halo": halo, "ms": ms,
-        "peak_mib": peak / 2**20, "comm": comm.stats,
+        "peak_mib": peak / 2**20, "comm": comm.stats, "step_comm": step_comm,
     }
     if rank == 0:
         for name, arr in keep.items():
@@ -1957,8 +1913,9 @@ def run_world(torch, work: str, n_z: int, n_a: int) -> str:
 def sharded_path(torch, work: str, refs: dict) -> dict:
     """14: the sharded layer on phase 6's flagship; ``refs`` holds phases 6
     and 7's single-device results (numpy, on the host).  Returns the
-    launches of every rank's path, summed."""
-    launches = {}
+    launches of every rank's path, summed, and per mesh each rank's z
+    coordinate and the collectives its one counted outer iteration made."""
+    launches, counted = {}, {}
     t_phase = time.perf_counter()
     truth = refs["truth"]
     for n_z, n_a in SHARDED_MESHES:
@@ -2006,6 +1963,7 @@ def sharded_path(torch, work: str, refs: dict) -> dict:
                         f"{halo['moved_slices']} slices, not fewer than a slab's {halo['slab']}")
                 require(halo["equal"], f"phase 14 ({n_z}, {n_a}) rank {rank}: the halo prox "
                         f"on {HALO_DEPTH} slices is not bit-equal to the whole volume's")
+            counted.setdefault((n_z, n_a), []).append((rep["z"], rep["step_comm"]))
             for part in (rep["launches"], rep["direct_launches"], halo.get("launches", {})):
                 for k, v in part.items():
                     launches[k] = launches.get(k, 0) + v
@@ -2043,13 +2001,200 @@ def sharded_path(torch, work: str, refs: dict) -> dict:
         print(f"[14] mesh ({n_z}, {n_a}) on {backend}: {time.perf_counter() - t0:.1f} s wall")
     print(f"[14] the phase took {time.perf_counter() - t_phase:.1f} s; launches of its ranks "
           f"{json.dumps(launches)}")
+    return launches, counted
+
+
+def memory_plans(torch, dev) -> None:
+    """15: ``estimate_memory`` on meta tensors: a plan for a volume larger
+    than the card (FORWPROJ of ``MEMPLAN_DEPTH`` slices) launches and
+    allocates nothing, and at the flagship's 8 slices the plans of
+    ``fp`` and one PD-TV prox match the card's measured peak."""
+    from tomobar_tpu_torch import _build
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops.projector import Projector
+    from tomobar_tpu_torch.regularisers import PD_TV
+    from tomobar_tpu_torch.utils.memest import estimate_memory
+
+    N, NZ, NA, _ = FLAGSHIP
+    angles = np.linspace(0.0, np.pi, NA, endpoint=False)
+    big = Projector(Geometry(N, MEMPLAN_DEPTH, angles, 0.0, N))
+    card = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.synchronize()
+    held, before = torch.cuda.memory_allocated(dev), dict(_build.launch_counts)
+    t0 = time.perf_counter()
+    plan = estimate_memory(big.fp, torch.empty((MEMPLAN_DEPTH, N, N), device="meta"))
+    t_plan = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    print(f"[15] estimate_memory of FORWPROJ on {MEMPLAN_DEPTH}x{N}^2 ({plan['argument'] / 1e9:.1f} "
+          f"GB in, the card holds {card / 1e9:.1f} GB): total {plan['total'] / 1e9:.2f} GB, "
+          f"output {plan['output'] / 1e9:.2f} GB, in {t_plan:.2f} s wall, with no launch and no "
+          f"allocation")
+    require(dict(_build.launch_counts) == before and torch.cuda.memory_allocated(dev) == held,
+            "the meta plan launched or allocated on the card")
+    require(plan["argument"] > card and plan["total"] >= plan["argument"] + plan["output"],
+            f"the plan of a volume larger than the card: {plan}")
+    proj = Projector(Geometry(N, NZ, angles, 0.0, N))
+    for label, fn in (("fp", proj.fp), ("PD-TV prox", lambda v: PD_TV(v, 5e-4, 20, 0, 1, 12.0))):
+        x = torch.rand((NZ, N, N), device=dev)
+        est = estimate_memory(fn, torch.empty(x.shape, device="meta"))["total"]
+        fn(x)  # the first call makes the kernel parameters, which stay
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        fn(x)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated(dev) - held + x.numel() * 4
+        print(f"[15] {label} on {NZ}x{N}^2: meta plan {est / 2**20:.1f} MiB, the card's peak "
+              f"above what was held, plus the input, {measured / 2**20:.1f} MiB: ratio "
+              f"{est / measured:.4f} (allowed {TOL_PLAN[0]}-{TOL_PLAN[1]})")
+        require(TOL_PLAN[0] <= est / measured <= TOL_PLAN[1], f"{label}: meta plan {est / measured:.4f}")
+        del x
+
+
+def check_northstar_kernels(torch, errs, dev) -> None:
+    """15: the kernels of the north-star path against their plain versions
+    on its own inputs and shapes: K1-K4 on both driven groups of OS subset
+    0 at its slice count (fp_sub's chain on the phantom, bp_sub's on the
+    noisy sinogram's subset), F on the FBP filter's packed rows (the
+    forward transform, then the inverse of the filtered spectrum) and one
+    PD-TV prox of its iterations on its FBP, clamped at 0 (2 iterations a
+    launch, as for every volume of more than 16 slices)."""
+    from tomobar_tpu_torch import RecToolsDIRCuPy
+    from tomobar_tpu_torch.bench.northstar import northstar_inputs
+    from tomobar_tpu_torch.ops import fft_kernels as FK
+    from tomobar_tpu_torch.ops import pd_tv as PDT
+    from tomobar_tpu_torch.ops import projector_kernels as K
+    from tomobar_tpu_torch.ops.filters import hermitian_extend_real, sinc_filter_half
+    from tomobar_tpu_torch.ops.projector import Projector
+
+    ns = NORTHSTAR
+    N, NZ, NA = ns["N"], ns["nz"], ns["nproj"]
+    P, phantom, sino = northstar_inputs(N, NZ, NA, ns["os_number"], ns["i0"], dev)
+    sub0 = Projector(P._sub_geoms[0])
+    b0 = P.sino_subset(sino, 0)
+    for g in sub0._plan.groups(N, N, dev):
+        U0, LU, A = g.prm.U0, g.prm.LU, g.prm.A
+        label = f"north star, {'y' if g.swap else 'x'}-driven {A} angles x {NZ} x LU {LU}"
+        s = K.shear_fp_plain(phantom, g.beta, U0, LU, g.swap)
+        errs.compare("K1", label, K.shear_fp(phantom, g.beta, U0, LU, g.swap), s, tol=0.0)
+        errs.compare("K2", label, K.resample_fp(s, g.alpha, g.gamma, U0, N),
+                     K.resample_fp_plain(s, g.alpha, g.gamma, U0, N))
+        del s
+        q = K.resample_bp_plain(b0, g.alpha, g.gamma, U0, LU, index=g.idx)
+        errs.compare("K3", label + f", rows by index from {b0.shape[1]} angles",
+                     K.resample_bp(b0, g.alpha, g.gamma, U0, LU, index=g.idx), q, tol=0.0)
+        errs.compare("K4", label, K.unshear_bp(q, g.beta, U0, N, N, g.swap),
+                     K.unshear_bp_plain(q, g.beta, U0, N, N, g.swap), tol=0.0)
+        del q
+    del b0, phantom
+    # the FBP filter's F: slices' rows packed in pairs, transposed to (N, rows)
+    rows = torch.nn.functional.pad(sino, (0, 0, 0, NA % 2))
+    re = rows[:, 0::2].reshape(-1, N).transpose(0, 1).contiguous()
+    im = rows[:, 1::2].reshape(-1, N).transpose(0, 1).contiguous()
+    del rows
+    label = f"north star, the FBP filter's {N} x {re.shape[1]} rows"
+    fre, fim = FK.fft_axis2_plain(re, im, -1)
+    errs.compare("F", label + ", sign -1", FK.fft_axis2(re, im, -1), (fre, fim))
+    w = torch.as_tensor(hermitian_extend_real(sinc_filter_half(N, 1.1, 1.0 / NA), N),
+                        device=dev)[:, None]
+    gre, gim = fre * w, fim * w
+    del re, im, fre, fim
+    errs.compare("F", label + ", filtered, sign +1", FK.fft_axis2(gre, gim, 1),
+                 FK.fft_axis2_plain(gre, gim, 1))
+    del gre, gim
+    angles = np.linspace(0, np.pi, NA, endpoint=False).astype(np.float32)
+    x = torch.clamp(RecToolsDIRCuPy(N, 0, NZ, 0.0, angles, N, device=dev).FBP(
+        sino.transpose(0, 1), cutoff_freq=1.1), min=0.0).contiguous()
+    del sino
+    args = (x, ns["regul_param"], ns["tv_iters"], 0, 1, 12.0)
+    errs.compare("PD", f"north star, one prox of {ns['tv_iters']} iterations on its FBP, "
+                 f"{NZ} x {N}^2", PDT.pd_tv(*args), PDT.pd_tv_plain(*args))
+
+
+def bench_phase(torch, errs, dev, ms_outer: float, bd: dict, ms_fi: float, fb: dict,
+                counted: dict) -> dict:
+    """15: the bench modules (``tomobar_tpu_torch/bench``) at BASELINE's
+    shapes.  ``ms_outer`` is phase 6's outer iteration and ``bd`` its
+    ``flagship_breakdown``, ``ms_fi`` phase 7's FOURIER_INV call and ``fb``
+    its ``fourier_breakdown``, ``counted`` phase 14's collectives of one
+    outer iteration per mesh and rank.  Returns the north-star run's
+    launches."""
+    from tomobar_tpu_torch import _build
+    from tomobar_tpu_torch.bench.northstar import run_northstar
+    from tomobar_tpu_torch.bench.scaling import comm_model
+
+    t_phase = time.perf_counter()
+    N, NZ, NA, OS = FLAGSHIP
+    records = {stage: rec for stage, rec in bd.items() if isinstance(rec, dict)}
+    utils = {f"{stage}.{k}": v for stage, rec in records.items()
+             for k, v in rec.items() if k.endswith("_util")}
+    clamped = {f"{stage}.{k}": v for stage, rec in records.items()
+               for k, v in rec.items() if k.endswith("_raw")}
+    print(f"[15] phase 6's flagship_breakdown: utilisations {json.dumps(utils)}")
+    require(len(utils) == 6 and all(0.0 < v <= 1.0 for v in utils.values()),
+            f"a utilisation outside (0, 1]: {utils}")
+    require(not clamped, f"a work model above the card's bound (clamped to 1): {clamped}")
+    print(f"[15] outer_estimate_ms {bd['outer_estimate_ms']:.3f} against phase 6's outer "
+          f"iteration {ms_outer:.3f} ms: ratio {bd['outer_estimate_ms'] / ms_outer:.4f}")
+
+    stages = fb["stages"]
+    clamped = {f"{k}.{u}": v for k in STAGES for u, v in stages[k].items() if u.endswith("_raw")}
+    rel = abs(stages["stage_sum_ms"] - ms_fi) / ms_fi
+    print(f"[15] phase 7's FOURIER_INV stages sum to {stages['stage_sum_ms']:.3f} ms against its "
+          f"call, {ms_fi:.3f} ms: {100 * rel:.2f}% apart (allowed {100 * TOL_STAGE_SUM:.0f}%); "
+          + ", ".join(f"{k} {stages[k]['ms']:.3f}" for k in STAGES))
+    require(rel <= TOL_STAGE_SUM, f"FOURIER_INV's stages {stages['stage_sum_ms']:.3f} ms, the call "
+            f"{ms_fi:.3f} ms")
+    require(not clamped, f"a FOURIER_INV stage's model above the card's bound: {clamped}")
+
+    memory_plans(torch, dev)
+
+    shape = f"{NORTHSTAR['N']}^2 x {NORTHSTAR['nz']} x {NORTHSTAR['nproj']}"
+    print(f"[15] the north star's kernels against their plain versions on its inputs, {shape}:")
+    check_northstar_kernels(torch, errs, dev)
+    print(f"[15] run_northstar {shape}, OS{NORTHSTAR['os_number']}, TV{NORTHSTAR['tv_iters']}, "
+          f"{NORTHSTAR['fista_outer']} FISTA and {NORTHSTAR['admm_outer']} ADMM iterations:")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ns = run_northstar(**NORTHSTAR, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.launch_counts.items() if v}
+    print(f"[15] north-star run {time.perf_counter() - t0:.1f} s wall, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {json.dumps(launches)}")
+    print(f"[15] run_northstar: {json.dumps(ns)}")
+    for k in NORTHSTAR_PATH:
+        require(launches.get(k, 0) > 0, f"kernel {k} was not launched by the north-star run")
+    fista = [r for _, r, _ in ns["fista"]["trajectory"]]
+    admm = [r for _, r, _ in ns["admm"]["trajectory"]]
+    fbp = ns["rel_rmse_fbp"]
+    print(f"[15] rel-RMSE: FBP {fbp:.4f}; FISTA " + ", ".join(f"{r:.4f}" for r in fista)
+          + f"; ADMM " + ", ".join(f"{r:.4f}" for r in admm))
+    print(f"[15] FISTA reached FBP's rel-RMSE after {ns['fista']['time_to_fbp_rmse_s']} s, 1.02 x "
+          f"its best after {ns['fista']['time_to_rmse_s']} s; {ns['fista']['iter_s']} outer "
+          f"iterations/s; step s " + ", ".join(f"{d:.4f}" for _, _, d in ns["fista"]["trajectory"]))
+    print(f"[15] the TPU run's quality (NORTHSTAR_r04.json, rel-RMSE, not times): FBP "
+          f"{NORTHSTAR_TPU['fbp']}, FISTA {NORTHSTAR_TPU['fista']}, ADMM {NORTHSTAR_TPU['admm']}; "
+          f"here FBP {fbp:.4f}, FISTA {fista[-1]:.4f}, ADMM {admm[-1]:.4f}")
+    require(all(a > b for a, b in zip(fista, fista[1:])), f"FISTA's rel-RMSE does not fall: {fista}")
+    require(ns["fista"]["time_to_fbp_rmse_s"] is not None,
+            f"FISTA did not reach FBP's rel-RMSE {fbp} in {len(fista)} iterations: {fista}")
+    require(admm[-1] < fbp, f"ADMM's rel-RMSE {admm[-1]} is not below FBP's {fbp}")
+
+    for (n_z, n_a), ranks in sorted(counted.items()):
+        for z, got in sorted(ranks, key=lambda r: r[0]):
+            model = comm_model(N, NZ, OS, ms_outer / 1e3, (n_z, n_a),
+                               FLAGSHIP_REG["iterations"], NA, z)["stats"]
+            print(f"[15] comm_model mesh ({n_z}, {n_a}), z {z}: {json.dumps(model)}; counted in "
+                  f"phase 14: {json.dumps(got)}")
+            require(got == model, f"comm_model mesh ({n_z}, {n_a}) z {z} differs from the counts")
+    print(f"[15] the phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
 def main() -> int:
     pkg = os.path.join(REPO, "tomobar_tpu_torch")
-    require(os.path.isdir(pkg), f"{pkg} not found: run chip_smoke.py from a checkout")
-    sys.path.insert(0, REPO)
     import torch
 
     # ---- 1. device ---------------------------------------------------------
@@ -2060,10 +2205,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(os.cpu_count() or 1)
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(f"[1] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"[1] nvidia-smi name, power.limit: {smi}")
 
@@ -2231,8 +2373,8 @@ def main() -> int:
         if check:
             errs.compare(key, f"flagship, {label}", kern(), plain(), tol=tol)
         t = times[key]
-        t_kern = time_cuda(torch, kern, reps)
-        t_plain = time_cuda(torch, plain, plain_reps)
+        t_kern = time_cuda(kern, reps)
+        t_plain = time_cuda(plain, plain_reps)
         ops_ms, bytes_ms = work[0] / PEAK_FLOPS * 1e3, work[1] / PEAK_BYTES * 1e3
         t["ms"] += t_kern
         t["plain_ms"] += t_plain
@@ -2243,16 +2385,16 @@ def main() -> int:
                 f"plain {t_plain:.3f} ms, bound {max(ops_ms, bytes_ms):.3f} ms "
                 f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
         if small:
-            t_dev = time_device(torch, kern)
+            t_dev = time_device(kern)
             t["device_ms"] = (t["device_ms"] or 0.0) + t_dev
             line += f", on the device alone (CUDA graph) {t_dev:.3f} ms"
         if library is not None:
-            t_lib = time_cuda(torch, library, reps)
+            t_lib = time_cuda(library, reps)
             t["library_ms"] = (t["library_ms"] or 0.0) + t_lib
             line += f", library call {t_lib:.3f} ms"
         print(line)
 
-    t_copy = time_cuda(torch, lambda: x.transpose(1, 2).contiguous(), 10)
+    t_copy = time_cuda(lambda: x.transpose(1, 2).contiguous(), 10)
     print(f"[6] transposed copy of the volume, inside K1's y-driven time: {t_copy:.3f} ms")
     sub0 = Projector(rt.Atools._sub_geoms[0])
     b0 = rt.Atools.sino_subset(data, 0)  # what bp_sub hands K3, with each group's idx
@@ -2281,27 +2423,23 @@ def main() -> int:
     errs.compare("PD", "flagship, 20 iterations", PDT.pd_tv(*pd_args), PDT.pd_tv_plain(*pd_args))
     one = (*pd_args[:2], 1, *pd_args[3:])
     print(f"[6] PD pd_tv, one iteration on {NZ}x{N}x{N}: "
-          f"kernel {time_cuda(torch, lambda: PDT.pd_tv(*one), 10):.3f} ms, "
-          f"plain {time_cuda(torch, lambda: PDT.pd_tv_plain(*one), 2):.3f} ms")
+          f"kernel {time_cuda(lambda: PDT.pd_tv(*one), 10):.3f} ms, "
+          f"plain {time_cuda(lambda: PDT.pd_tv_plain(*one), 2):.3f} ms")
     measure("PD", f"one prox of 20 iterations on {NZ}x{N}x{N}",
             lambda: PDT.pd_tv(*pd_args), lambda: PDT.pd_tv_plain(*pd_args),
             work_pd(NZ, N, 20), reps=5, plain_reps=1, check=False)
-    # one OS subset of the FISTA step by stage (CUDA events), as phase 8 does
-    from tomobar_tpu_torch.regularisers import PD_TV
-
-    stages = {
-        "fp_sub (K1 x2, K2 x2)": lambda: rt.Atools.fp_sub(x, 0),
-        "bp_sub (K3 x2, K4 x2)": lambda: rt.Atools.bp_sub(b0, 0),
-        "PD-TV prox, 20 iterations": lambda: PD_TV(x, 5e-4, 20, 0, 1, 12.0),
-    }
-    print("[6] one OS subset by stage (ms): " + json.dumps(
-        {k: round(time_cuda(torch, fn, 5), 3) for k, fn in stages.items()}))
+    # one OS subset of the FISTA step by stage: fp_sub (K1 x2, K2 x2),
+    # bp_sub (K3 x2, K4 x2) and one PD-TV prox of 20 iterations
+    print(f"[6] one OS subset by stage, flagship_breakdown {NA}x{NZ}x{N}, OS{OS}, TV20, against "
+          f"the H100 SXM's {PEAK_FLOPS / 1e12:.0f} TFLOP/s and {PEAK_BYTES / 1e12:.2f} TB/s:")
+    bd = flagship_breakdown(N, NZ, NA, OS, FLAGSHIP_REG["iterations"], device=dev)
+    print(f"[6] flagship_breakdown: {json.dumps(bd)}")
     work, refs = sharded_inputs(rt, data, truth, recs, lc6)
     del b0
     del x, recs, data, truth
 
     # ---- 7. the direct path ------------------------------------------------
-    *parts, small = direct_path(torch, errs, measure, dev, clean, angles)
+    *parts, small, ms_fi, fb = direct_path(torch, errs, measure, dev, clean, angles)
     for part, whole in zip(parts, (launches, per_call)):
         whole.update(part)
     sharded_direct_inputs(work, refs, clean, small)
@@ -2334,9 +2472,14 @@ def main() -> int:
     # ---- 14. the sharded layer on the flagship -----------------------------
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # the ranks share this card
-    for k, v in sharded_path(torch, work, refs).items():
+    sharded_launches, counted = sharded_path(torch, work, refs)
+    for k, v in sharded_launches.items():
         launches[k] += v
     del refs
+
+    # ---- 15. the bench modules ---------------------------------------------
+    for k, v in bench_phase(torch, errs, dev, per_iter[2], bd, ms_fi, fb, counted).items():
+        launches[k] += v
 
     summary = {
         "kernels": [

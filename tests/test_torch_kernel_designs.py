@@ -1291,6 +1291,15 @@ def test_pd_launch_plan(iterations, fuse, counts):
     assert [last for _, _, last in plan] == [i == len(counts) - 1 for i in range(len(counts))]
 
 
+@pytest.mark.parametrize("nz", [1, 8, 16, 17, 512])
+def test_pd_fuse_mirrors_the_kernel(nz):
+    """``pd_tv.fuse``, which a memory plan on meta tensors reads instead of
+    ``tt_pd_tv_fuse``, takes the kernel's constants."""
+    want = cu_const("pd_tv.cu", "kPDK") if nz <= cu_const("pd_tv.cu", "kPDZMax") \
+        else cu_const("pd_tv.cu", "kPDKz")
+    assert PDT.fuse(nz) == want
+
+
 # ---------------------------------------------------------------------------
 # G: csrc/usfft_grid.cu, usfft_grid_kernel (the grid cell owns the sum)
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ CPU its peak must lie within [1.0, 1.3] of the peak that
 numpy array shares its memory, so the tracker does not see it).
 """
 
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -171,3 +172,92 @@ def test_live_bytes_counts_storages_once():
         assert live.live == 4000  # the view keeps the storage
         del b
     assert live.live == 0 and live.peak == 8000
+
+
+def test_live_bytes_tells_meta_storages_apart():
+    """Every meta storage has the address 0: storages are told apart by
+    identity."""
+    with M.LiveBytes() as live:
+        a = torch.empty(1000, device="meta")
+        b = torch.empty(500, device="meta")
+        c = a + 1.0
+        assert live.live == 4000 + 2000 + 4000
+        del a, c
+        assert live.live == 2000
+        del b
+    assert live.live == 0 and live.peak == 10000
+
+
+def test_estimate_memory_of_an_example_larger_than_the_machine():
+    """An example larger than the machine's memory (64 GiB, or twice the
+    physical memory where that is more) is planned on meta tensors: the
+    estimate covers it, and nothing of its size is allocated."""
+    import resource
+
+    phys = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    numel = max(64 * 2**30, 2 * phys) // 4
+    example = torch.zeros(1).expand(numel)  # its shape, one float of storage
+    before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    res = M.estimate_memory(lambda x: x * 2.0 + 1.0, example)
+    grown = (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - before) * 1024
+    assert res["argument"] == res["output"] == 4 * numel
+    assert res["total"] >= 64 * 2**30 and res["total"] >= 3 * 4 * numel  # x, x*2, +1
+    assert grown < 2**30, grown
+
+
+def test_estimate_memory_of_a_card_path_on_meta():
+    """PD-TV's prox on a 64 GiB meta volume: the wrapper's buffers (u twice,
+    three duals twice, per z-chunk), no launch, and the same keys as the
+    measured path."""
+    from tomobar_tpu_torch import _build
+    from tomobar_tpu_torch.regularisers import PD_TV
+
+    _build.reset_launch_counts()
+    vol = torch.empty((2**34 // (1024 * 1024), 1024, 1024), device="meta")
+    res = M.estimate_memory(lambda v: PD_TV(v, 1e-3, 8, 0, 1, 12.0), vol)
+    assert set(res) == {"argument", "output", "temp", "generated_code", "alias", "total"}
+    assert res["argument"] == res["output"] == 2**36
+    assert res["total"] > 2 * 2**36
+    assert all(v == 0 for v in _build.launch_counts.values())
+
+
+META_PATHS = ["fp", "bp", "fp_sub", "fp_2d", "bp_2d", "pd_tv", "pd_tv_2d", "fourier_inv", "fbp"]
+
+
+@pytest.mark.parametrize("path", META_PATHS)
+def test_meta_branches_give_the_plain_shapes(monkeypatch, path):
+    """Each path through the kernel wrappers, planned on meta (forced), makes
+    the result the CPU run makes, launches nothing, and PD-TV holds its nine
+    volumes (the input, u twice, three duals twice)."""
+    from tomobar_tpu_torch import _build
+    from tomobar_tpu_torch.geometry import Geometry
+    from tomobar_tpu_torch.ops.projector import Projector
+    from tomobar_tpu_torch.regularisers import PD_TV
+
+    n, nz, na = 64, 4, 30
+    angles = np.linspace(0, np.pi, na, endpoint=False)
+    proj = Projector(Geometry(n, nz, angles, 0.0, n, os_number=3))
+    proj1 = Projector(Geometry(n, 1, angles, 0.0, n))
+    rd = {d: RecToolsDIRCuPy(n, 0, nz, 0.0, angles, n, device=d) for d in ("cpu", "meta")}
+    cases = {
+        "fp": (proj.fp, (nz, n, n)), "bp": (proj.bp, (nz, na, n)),
+        "fp_sub": (lambda v: proj.fp_sub(v, 1), (nz, n, n)),
+        "fp_2d": (proj1.fp, (1, n, n)), "bp_2d": (proj1.bp, (1, na, n)),
+        "pd_tv": (lambda v: PD_TV(v, 1e-3, 20, 0, 1, 12.0), (nz, n, n)),
+        "pd_tv_2d": (lambda v: PD_TV(v, 1e-3, 20, 0, 1, 12.0), (n, n)),
+        "fourier_inv": (None, (nz, na, n)), "fbp": (None, (na, nz, n)),
+    }
+    fn, shape = cases[path]
+    outs = {}
+    for dev in ("cpu", "meta"):
+        call = fn or getattr(rd[dev], path.upper())
+        outs[dev] = call(torch.zeros(shape, device=dev))
+    assert outs["meta"].is_meta and outs["meta"].shape == outs["cpu"].shape
+    monkeypatch.setattr(M, "_fits", lambda nbytes, device: False)
+    _build.reset_launch_counts()
+    res = M.estimate_memory(fn or getattr(rd["meta"], path.upper()), torch.zeros(shape))
+    assert all(v == 0 for v in _build.launch_counts.values())
+    assert res["output"] == outs["cpu"].numel() * 4
+    assert res["total"] >= res["argument"] + res["output"]
+    if path.startswith("pd_tv"):  # one slice: two duals a set
+        assert res["total"] == (9 if path == "pd_tv" else 7) * res["argument"]

@@ -13,19 +13,23 @@ Held:
   result on meshes that deal angles within 1e-5 rel;
 * against the JAX package's sharded step, on the Joseph pair on both
   sides, at 2e-4 rel L2 (``tests/test_torch_solvers.py``);
-* the halo prox of PD_TV and ROF_TV against the unsharded prox, bit for
-  bit, with halos below and above the slab's depth; the other methods
-  raise under ``n_z > 1`` and run unsharded under ``n_z == 1``;
+* the halo prox of every ``prox_regul`` method against the unsharded
+  prox, bit for bit, with halos below and above the slab's depth (the Haar
+  shrinkage on blocks of 2, 4 and 8 slices; NLTV gathers the volume and
+  refuses its slices as one device does); under ``n_z == 1`` a method runs
+  on the whole volume;
 * the ``ValueError`` of ``make_mesh``, ``Mesh.z_slab`` and
   ``ShardedDirect``, ``distributed_init`` called twice, the device of a
   group started outside it, and a package that imports neither jax nor
   ``tomobar_tpu``.
 """
 
+import json
 import os
 import subprocess
 import sys
 import textwrap
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -35,15 +39,36 @@ from test_torch_sharding import (
     REPO, WORLD_TIMEOUT, finish_world, run_in_cpu_mesh_subprocess, start_world)
 from tomobar_tpu_torch.geometry import Geometry
 from tomobar_tpu_torch.ops import projector as P
-from tomobar_tpu_torch.regularisers import PD_TV, ROF_TV
+from tomobar_tpu_torch.regularisers import PD_TV, ROF_TV, prox_regul
 from tomobar_tpu_torch.regularisers_legacy import FGP_TV
 from tomobar_tpu_torch.solvers import core as S
+from tomobar_tpu_torch.utils.dicts import dicts_check
 
 MESHES = [(4, 1), (2, 2), (1, 4)]
 TOL_REL = 2e-4  # rel L2 against the JAX package (tests/test_torch_solvers.py)
 TOL_SHARD = 1e-5  # rel: global reductions summed slab by slab
 N, NZ, NA, OS = 32, 8, 16, 2
 PROX_CASES = [("PD_TV", 1), ("PD_TV", 5), ("ROF_TV", 1), ("ROF_TV", 5)]
+# the other methods of prox_regul on z-slabs: (label, regularisation dict),
+# each at 1 and 5 iterations (halos of 1-2 and 5-10 slices against slabs of
+# 2 and 4)
+LEGACY_CASES = [
+    (f"{label}_{its}", dict(reg, iterations=its))
+    for its in (1, 5)
+    for label, reg in (
+        ("FGP_TV", {"method": "FGP_TV", "regul_param": 0.05}),
+        ("FGP_TV_aniso", {"method": "FGP_TV", "regul_param": 0.05, "methodTV": 1}),
+        ("SB_TV", {"method": "SB_TV", "regul_param": 0.05}),
+        ("LLT_ROF", {"method": "LLT_ROF", "regul_param": 0.05, "regul_param2": 0.02}),
+        ("TGV", {"method": "TGV", "regul_param": 0.05}),
+        ("NDF_1", {"method": "NDF", "regul_param": 0.05, "edge_param": 0.1, "NDF_penalty": 1}),
+        ("NDF_3", {"method": "NDF", "regul_param": 0.05, "edge_param": 0.1, "NDF_penalty": 3}),
+        ("Diff4th", {"method": "Diff4th", "regul_param": 0.05, "edge_param": 0.1}),
+        ("PD_TV_WAVELETS", {"method": "PD_TV_WAVELETS", "regul_param": 0.05,
+                            "regul_param2": 0.02}),
+    )
+] + [(f"WAVELETS_levels{lv}", {"method": "WAVELETS", "regul_param": 0.3, "wavelet_levels": lv})
+     for lv in (1, 2, 3)]
 
 
 def _inputs() -> dict:
@@ -60,12 +85,12 @@ def _inputs() -> dict:
         "x0": rng.standard_normal((NZ, N, N)).astype(np.float32),
         "noisy": (phantom + 0.1 * rng.standard_normal(phantom.shape)).astype(np.float32),
         "L": np.float64(S.power_method(P.Projector(Geometry(N, NZ, angles, 0.0, N, os_number=OS)),
-                                       (NZ, N, N))),
+                                       (NZ, N, N), device="cpu")),
     }
 
 
 _TORCH_WORLD = """
-import os, sys
+import json, os, sys
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -75,7 +100,7 @@ from tomobar_tpu_torch import RecToolsDIRCuPy
 from tomobar_tpu_torch.geometry import Geometry
 from tomobar_tpu_torch.ops.projector import set_projector_backend
 from tomobar_tpu_torch.parallel import (
-    ShardedDirect, ShardedProjector, distributed_init, make_mesh, sharded_regul_fn)
+    ShardedDirect, ShardedProjector, comm, distributed_init, make_mesh, sharded_regul_fn)
 from tomobar_tpu_torch.solvers import core as S
 
 d = sys.argv[1]
@@ -130,11 +155,17 @@ for (zm, am), mesh in meshes.items():
                               nonneg=True)
         out[f"{tag}/prox_{method}_{its}"] = sp.gather_vol(fn(noisy))
     fgp = {"method": "FGP_TV", "regul_param": 0.05, "iterations": 5}
+    out[f"{tag}/prox_FGP_TV_5"] = sp.gather_vol(sharded_regul_fn(mesh, fgp)(noisy))
     if zm > 1:
-        out[f"{tag}/fgp_raises"] = raises(
-            NotImplementedError, lambda: sharded_regul_fn(mesh, fgp), "ROADMAP item 12")
-    else:
-        out[f"{tag}/prox_FGP_TV_5"] = sp.gather_vol(sharded_regul_fn(mesh, fgp)(noisy))
+        for label, reg in json.loads(sys.argv[6]):
+            out[f"{tag}/legacy_{label}"] = sp.gather_vol(
+                sharded_regul_fn(mesh, reg, nonneg=True)(noisy))
+        nltv = {"method": "NLTV", "regul_param": 0.03, "NLTV_H_i": 0, "NLTV_H_j": 0,
+                "NLTV_Weights": 0}
+        comm.reset_stats()
+        out[f"{tag}/nltv_refused"] = raises(
+            ValueError, lambda: sharded_regul_fn(mesh, nltv)(noisy), "2D")
+        out[f"{tag}/nltv_collectives"] = len(comm.stats)
 
 # the JAX package's step on the Joseph pair: LS, L = 200, PD-TV (1e-4, 5)
 set_projector_backend("xla")
@@ -213,7 +244,8 @@ def worlds(tmp_path_factory):
     d = tmp_path_factory.mktemp("sharded_solvers")
     np.savez(d / "inputs.npz", **_inputs())
     args = (str(d), N, NZ, NA, OS)
-    procs = start_world(_TORCH_WORLD, args)  # the ranks run beside the JAX side
+    # the ranks run beside the JAX side
+    procs = start_world(_TORCH_WORLD, args + (json.dumps(LEGACY_CASES),))
     try:
         run_in_cpu_mesh_subprocess(f"ARGS = {args!r}\n" + textwrap.dedent(_JAX_STEP),
                                    timeout=WORLD_TIMEOUT)
@@ -249,6 +281,11 @@ def single(worlds):
         out[f"prox_PD_TV_{its}"] = _pd(noisy, its, 0.05)
         out[f"prox_ROF_TV_{its}"] = ROF_TV(noisy, 0.05, its, 0.005)
     out["prox_FGP_TV_5"] = FGP_TV(noisy, 0.05, 5, 0, 0)
+    owner = SimpleNamespace(nonneg_regul=1, OS_number=1)
+    for label, reg in LEGACY_CASES:
+        _, _, r = dicts_check(owner, {"projection_data": np.zeros((1, 1, 1), np.float32)},
+                              {"nonnegativity": True}, dict(reg), "FISTA")
+        out[f"legacy_{label}"] = prox_regul(owner, noisy, r)
     return {k: v.numpy() for k, v in out.items()}
 
 
@@ -300,8 +337,29 @@ def test_halo_prox_matches_unsharded(worlds, single, mesh, method, its):
 
 
 @pytest.mark.parametrize("mesh", [(4, 1), (2, 2)], ids=lambda m: f"{m[0]}x{m[1]}")
-def test_other_prox_raises_on_z_slabs(worlds, mesh):
-    assert worlds[0][f"{mesh[0]}x{mesh[1]}/fgp_raises"]
+def test_other_prox_raises_on_z_slabs(worlds, single, mesh):
+    """FGP-TV no longer raises on z-slabs: with a halo of its 5 iterations
+    its slab equals the whole volume's prox bit for bit."""
+    got = worlds[0][f"{mesh[0]}x{mesh[1]}/prox_FGP_TV_5"]
+    np.testing.assert_array_equal(got, single["prox_FGP_TV_5"])
+
+
+@pytest.mark.parametrize("label", [label for label, _ in LEGACY_CASES])
+@pytest.mark.parametrize("mesh", [(4, 1), (2, 2)], ids=lambda m: f"{m[0]}x{m[1]}")
+def test_legacy_prox_matches_unsharded(worlds, single, mesh, label):
+    """Every other ``prox_regul`` method with a halo of its iterations
+    times its reach along z (the Haar shrinkage on its blocks), on slabs of
+    2 and 4 slices, against the prox of the whole volume, bit for bit."""
+    got = worlds[0][f"{mesh[0]}x{mesh[1]}/legacy_{label}"]
+    np.testing.assert_array_equal(got, single[f"legacy_{label}"])
+
+
+@pytest.mark.parametrize("mesh", [(4, 1), (2, 2)], ids=lambda m: f"{m[0]}x{m[1]}")
+def test_nltv_on_z_slabs_refuses_as_one_device(worlds, mesh):
+    """A volume split along z has more than one slice, which NLTV refuses
+    on one device too; the refusal comes before any collective."""
+    assert worlds[0][f"{mesh[0]}x{mesh[1]}/nltv_refused"]
+    assert worlds[0][f"{mesh[0]}x{mesh[1]}/nltv_collectives"] == 0
 
 
 def test_other_prox_runs_whole_under_one_z_shard(worlds, single):

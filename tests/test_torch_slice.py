@@ -72,7 +72,7 @@ def test_power_method_matches_jax(jax_pallas):
     )
     port = solvers.power_method(
         Projector(geometry_from_reference(jg)), shape, iterations=5,
-        x0=tensor_from_reference(start, "volume"),
+        x0=tensor_from_reference(start, "volume"), device="cpu",
     )
     assert port == pytest.approx(ref, rel=1e-4)
 
@@ -81,9 +81,35 @@ def test_power_method_seeded_start():
     g = geometry_from_reference(
         JaxGeometry(detectors_x=N, detectors_y=1, angles=_angles(), recon_size=N)
     )
-    a = solvers.power_method(Projector(g), (1, N, N), iterations=3, seed=4)
-    b = solvers.power_method(Projector(g), (1, N, N), iterations=3, seed=4)
+    a = solvers.power_method(Projector(g), (1, N, N), iterations=3, seed=4, device="cpu")
+    b = solvers.power_method(Projector(g), (1, N, N), iterations=3, seed=4, device="cpu")
     assert a == b and a > 0.0
+
+
+def test_power_method_runs_on_the_card_unless_asked(monkeypatch):
+    """With no start vector and no device the power method takes the card
+    (the JAX package's runs on its default device): without CUDA it raises
+    and names ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = geometry_from_reference(
+        JaxGeometry(detectors_x=N, detectors_y=1, angles=_angles(), recon_size=N)
+    )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solvers.power_method(Projector(g), (1, N, N), iterations=3)
+
+
+def test_power_method_cpu_matches_jax(jax_pallas):
+    """``device="cpu"`` with the seeded start runs on the host; the value is
+    the operator's norm, so it matches the JAX package's from its own start
+    vector to the iteration's convergence (15 iterations, 1e-3)."""
+    jg = JaxGeometry(
+        detectors_x=N, detectors_y=NZ, angles=_angles(), recon_size=N,
+        os_number=OS,
+    )
+    ref = jax_solvers.power_method(jax_projector.Projector(jg), (NZ, N, N), iterations=15)
+    port = solvers.power_method(Projector(geometry_from_reference(jg)), (NZ, N, N),
+                                iterations=15, device="cpu")
+    assert port == pytest.approx(ref, rel=1e-3)
 
 
 def test_fista_slice_matches_jax(jax_pallas):

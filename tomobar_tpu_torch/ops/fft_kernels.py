@@ -135,7 +135,7 @@ def fft_axis2(re: torch.Tensor, im: torch.Tensor, sign: int):
     forward transform, +1 the unnormalised inverse."""
     if re.device.type == "cpu":
         return fft_axis2_plain(re, im, sign)
-    if re.device.type != "cuda" or im.device != re.device:
+    if re.device.type not in ("cuda", "meta") or im.device != re.device:
         raise ValueError(f"F: tensors on {re.device} and {im.device}; the kernel takes CUDA tensors")
     if re.dtype != torch.float32 or im.dtype != torch.float32:
         raise TypeError(f"F: expected float32, got {re.dtype} and {im.dtype}")
@@ -152,6 +152,8 @@ def fft_axis2(re: torch.Tensor, im: torch.Tensor, sign: int):
     im = im.contiguous()
     ore = torch.empty_like(re)
     oim = torch.empty_like(im)
+    if ore.is_meta:  # a memory plan: the outputs, no launch
+        return ore, oim
     tables = _device_tables(n, B, C, re.device)
     plan = stage_plan(C)
     radices = (ctypes.c_int * len(plan))(*plan)

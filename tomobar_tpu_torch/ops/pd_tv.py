@@ -22,7 +22,7 @@ import torch
 from tomobar_tpu_torch import _build
 from tomobar_tpu_torch.utils.tools import free_device_bytes
 
-__all__ = ["pd_tv", "pd_tv_plain", "pd_tv_constants", "launch_plan", "z_chunks",
+__all__ = ["pd_tv", "pd_tv_plain", "pd_tv_constants", "launch_plan", "z_chunks", "fuse",
            "CHUNK_BYTES", "MAX_ELEMENTS"]
 
 # A prox holds eight volumes beside its input and output (u and three duals,
@@ -36,6 +36,15 @@ __all__ = ["pd_tv", "pd_tv_plain", "pd_tv_constants", "launch_plan", "z_chunks",
 # under MAX_ELEMENTS.
 CHUNK_BYTES = 8 * 2**30
 MAX_ELEMENTS = 2**31 - 1
+# iterations per launch (csrc/pd_tv.cu kPDK, kPDKz above kPDZMax slices):
+# tt_pd_tv_fuse's values, for a memory plan on meta tensors, which reaches
+# no library
+FUSE, FUSE_Z, FUSE_Z_MAX = 4, 2, 16
+
+
+def fuse(nz: int) -> int:
+    """Iterations one launch takes on nz slices (``tt_pd_tv_fuse``)."""
+    return FUSE if nz <= FUSE_Z_MAX else FUSE_Z
 
 
 def pd_tv_constants(regularisation_parameter: float, lipschitz_const: float):
@@ -178,7 +187,7 @@ def pd_tv(
             lipschitz_const, half_precision,
         )
     _check_shape(data)
-    if data.device.type != "cuda":
+    if data.device.type not in ("cuda", "meta"):
         raise ValueError(f"PD: data on {data.device}; the kernel takes CUDA tensors")
     if data.dtype != torch.float32 or not data.is_contiguous():
         raise ValueError("PD: data must be contiguous float32")
@@ -192,13 +201,13 @@ def pd_tv(
 def _pd_tv_cuda(data, regularisation_parameter, iterations, methodTV, nonneg,
                 lipschitz_const, half_precision):
     """One prox on a contiguous float32 CUDA volume, :func:`launch_plan`'s
-    launches of the kernel."""
+    launches of the kernel; on a meta volume its buffers and no launch."""
     assert data.numel() <= MAX_ELEMENTS  # z_chunks keeps a chunk below the cap
     sigma, tau, lt, theta = pd_tv_constants(regularisation_parameter, lipschitz_const)
     nz, ny, nx = data.shape
     dual_dtype = torch.bfloat16 if half_precision else torch.float32
-    lib = _build.library()
-    plan = launch_plan(iterations, lib.tt_pd_tv_fuse(nz))
+    lib = None if data.is_meta else _build.library()
+    plan = launch_plan(iterations, fuse(nz) if lib is None else lib.tt_pd_tv_fuse(nz))
     if not plan:
         return data.clone()
     # launch i reads u[(i - 1) % 2] and the duals ps[(i - 1) % 2] and writes
@@ -211,6 +220,8 @@ def _pd_tv_cuda(data, regularisation_parameter, iterations, methodTV, nonneg,
          for _ in range(3 if nz > 1 else 2)]
         for _ in range(min(len(plan) - 1, 2))
     ]
+    if lib is None:
+        return u[(len(plan) - 1) % 2]
     stream = torch.cuda.current_stream(data.device).cuda_stream
     unused = data.data_ptr()  # stands in for a buffer the launch does not touch
     with torch.cuda.device(data.device):

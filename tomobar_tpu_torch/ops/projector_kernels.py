@@ -299,8 +299,11 @@ def unshear_bp_packed_plain(q, beta, U0: int, n: int, swap: bool = False,
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """CUDA tensors for the kernel, or meta tensors for a memory plan: the
+    wrappers make their outputs and workspaces on ``meta`` as on the card,
+    and launch nothing (``utils/memest.py`` ``estimate_memory``)."""
     dev = tensors[0].device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: tensors on {dev}; the kernel takes CUDA tensors")
     for t in tensors:
         if t.device != dev:
@@ -339,6 +342,8 @@ def shear_fp(vol, beta, U0: int, LU: int, swap: bool = False):
     _params_ok("K1", A, beta)
     s = torch.empty((A, nz, LU), dtype=torch.float32, device=vol.device)
     _check_cuda("K1", s)
+    if s.is_meta:
+        return s
     lib = _build.library()
     with torch.cuda.device(vol.device):
         err = lib.tt_shear_fp(
@@ -361,6 +366,8 @@ def resample_fp(s, alpha, gamma, U0: int, det_x: int):
     _params_ok("K2", A, alpha, gamma)
     p = torch.empty((nz, A, det_x), dtype=torch.float32, device=s.device)
     _check_cuda("K2", p)
+    if p.is_meta:
+        return p
     lib = _build.library()
     with torch.cuda.device(s.device):
         err = lib.tt_resample_fp(
@@ -395,6 +402,8 @@ def resample_bp(p, alpha, gamma, U0: int, LU: int,
     _params_ok("K3", A, alpha, gamma)
     q = torch.empty((A, nz, LU), dtype=torch.float32, device=p.device)
     _check_cuda("K3", q)
+    if q.is_meta:
+        return q
     lib = _build.library()
     with torch.cuda.device(p.device):
         err = lib.tt_resample_bp(
@@ -426,6 +435,8 @@ def unshear_bp(q, beta, U0: int, ny: int, nx: int, swap: bool = False,
         if tuple(vol.shape) != (nz, ny, nx):
             raise ValueError(f"K4: out must have shape {(nz, ny, nx)}")
     _check_cuda("K4", q, vol)
+    if vol.is_meta:
+        return vol
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.tt_unshear_bp(
@@ -462,6 +473,8 @@ def shear_fp_packed(rows, beta, U0: int, LU: int, splits: Optional[int] = None):
     part = s if splits == 1 else torch.empty(
         (splits, A, LU), dtype=torch.float32, device=rows.device)
     _check_cuda("K1p", s, part)
+    if s.is_meta:
+        return s
     lib = _build.library()
     if lib.tt_shear_fp_packed_band() != K1P_BAND:
         raise RuntimeError("K1p: the kernel's band differs from K1P_BAND")
@@ -495,6 +508,8 @@ def unshear_bp_packed(q, beta, U0: int, n: int, swap: bool = False,
         if tuple(vol.shape) != (1, n, n):
             raise ValueError(f"K4p: out must have shape {(1, n, n)}")
     _check_cuda("K4p", q, vol)
+    if vol.is_meta:
+        return vol
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.tt_unshear_bp_packed(

@@ -13,7 +13,8 @@ onto the (2n, 2n) grid over the (2m+1)^2 footprint around
 
 :func:`grid_plain` is the plain version (the oracle's scatter, as one
 ``index_add_`` per footprint offset); :func:`grid` runs it for a tensor on
-the CPU, and for a CUDA tensor launches the kernel or raises.
+the CPU, and for a CUDA tensor launches the kernel or raises (for a meta
+tensor it makes the grids and launches nothing: a memory plan).
 """
 
 from __future__ import annotations
@@ -146,7 +147,7 @@ def grid(
     theta = np.asarray(theta, dtype=np.float64)
     if g_re.device.type == "cpu":
         return grid_plain(g_re, g_im, n, theta, eps)
-    if g_re.device.type != "cuda" or g_im.device != g_re.device:
+    if g_re.device.type not in ("cuda", "meta") or g_im.device != g_re.device:
         raise ValueError(f"G: tensors on {g_re.device} and {g_im.device}; the kernel takes CUDA tensors")
     if g_re.dtype != torch.float32 or g_im.dtype != torch.float32:
         raise TypeError(f"G: expected float32, got {g_re.dtype} and {g_im.dtype}")
@@ -156,15 +157,17 @@ def grid(
     prm = grid_params(n, eps)
     if prm.m >= n:
         raise ValueError(f"G: n = {n} is smaller than the footprint (m = {prm.m})")
-    cos_t, sin_t = _device_angles(theta.tobytes(), g_re.device)
     g_re = g_re.contiguous()
     g_im = g_im.contiguous()
+    fre = torch.empty((nz2, 2 * n, 2 * n), dtype=torch.float32, device=g_re.device)
+    fim = torch.empty_like(fre)
+    if fre.is_meta:  # a memory plan: the grids, no launch
+        return fre, fim
+    cos_t, sin_t = _device_angles(theta.tobytes(), g_re.device)
     lib = _build.library()
     order = _device_tile_order(
         n, lib.tt_usfft_grid_tile(0), lib.tt_usfft_grid_tile(1), g_re.device
     )
-    fre = torch.empty((nz2, 2 * n, 2 * n), dtype=torch.float32, device=g_re.device)
-    fim = torch.empty_like(fre)
     with torch.cuda.device(g_re.device):
         err = lib.tt_usfft_grid(
             g_re.data_ptr(), g_im.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),

@@ -9,6 +9,7 @@ from tomobar_tpu_torch.parallel.sharding import (
     make_mesh,
     sharded_prox,
     sharded_regul_fn,
+    sharded_wavelet,
 )
 from tomobar_tpu_torch.parallel.direct import ShardedDirect
 
@@ -20,4 +21,5 @@ __all__ = [
     "make_mesh",
     "sharded_prox",
     "sharded_regul_fn",
+    "sharded_wavelet",
 ]

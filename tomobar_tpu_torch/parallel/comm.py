@@ -7,9 +7,10 @@ device the port writes them out:
 
 * :func:`all_reduce` (sum or max) and :func:`all_gather` (equal-sized
   tensors along a dimension) over a group;
-* :func:`z_halo`: a z-slab widened by its neighbours' slices.  It moves
-  only the slices inside the window, from as many slabs as the window
-  spans, by point-to-point sends and receives.
+* :func:`z_halo`: a z-slab widened by its neighbours' slices, and
+  :func:`z_window`: a z-slab widened to any window of slices around it.
+  They move only the slices inside the window, from as many slabs as the
+  window spans, by point-to-point sends and receives.
 
 Gloo reduces and gathers only host tensors (its CUDA support is broadcast,
 all_reduce and barrier), so where a group's backend is gloo and a tensor
@@ -26,12 +27,12 @@ one rank moves nothing.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_reduce", "all_gather", "z_halo", "stats", "reset_stats"]
+__all__ = ["all_reduce", "all_gather", "z_halo", "z_window", "stats", "reset_stats"]
 
 # op -> {"calls", "bytes", "staged", "seconds"} since the last reset
 stats: Dict[str, Dict[str, float]] = {}
@@ -126,22 +127,32 @@ def z_halo(x: torch.Tensor, mesh, before: int, after: int) -> Tuple[torch.Tensor
     slabs before it and ``after`` slices of the slabs after it, as far as
     the volume reaches (nothing is filled beyond its ends), and the number
     of slices it added before the slab.  Every rank of the z group calls it
-    with the same halo; each sends every other slab the part of its own
-    slab that lies in that slab's window."""
+    with the same halo."""
+    nz, n_all = x.shape[0], x.shape[0] * mesh.shape["z"]
+    if before <= 0 and after <= 0:
+        return x, 0
+    return z_window(x, mesh, lambda j: (max(j * nz - before, 0),
+                                        min((j + 1) * nz + after, n_all)))
+
+
+def z_window(x: torch.Tensor, mesh, window: Callable[[int], Tuple[int, int]]
+             ) -> Tuple[torch.Tensor, int]:
+    """This rank's z-slab ``x`` (dim 0) widened to the slices
+    ``window(z_index)`` of the whole volume, ``[w0, w1)``, which must hold
+    the slab, and the number of slices it added before the slab.  Every
+    rank of the z group calls it with the same ``window``; each sends every
+    other slab the part of its own slab that lies in that slab's window
+    (counted as ``z_halo``)."""
     n_z = mesh.shape["z"]
     nz = x.shape[0]
     z = mesh.z_index
-    if n_z == 1 or (before <= 0 and after <= 0):
+    if n_z == 1 or all(window(j) == (j * nz, (j + 1) * nz) for j in range(n_z)):
         return x, 0
+    w0, w1 = window(z)
     t0 = time.perf_counter()
     x = x.contiguous()
     group = mesh.z_group
     staged = _staged(group, x)
-
-    def window(j: int) -> Tuple[int, int]:
-        return max(j * nz - before, 0), min((j + 1) * nz + after, n_z * nz)
-
-    w0, w1 = window(z)
     ops: List = []
     recvs: List[Tuple[int, torch.Tensor]] = []
     moved = staged_bytes = 0

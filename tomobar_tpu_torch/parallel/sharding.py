@@ -26,7 +26,8 @@ What XLA inserts by itself in the JAX package is written out here
   (``global_sum``, ``global_norm``, ``global_max``): volumes, and
   sinograms after ``fp``, are replicated across the angle group;
 * a 3D prox runs on the slab widened by a ``z_halo`` of its reach
-  (:func:`sharded_prox`, :func:`sharded_regul_fn`).
+  (:func:`sharded_prox`, :func:`sharded_regul_fn`), the Haar shrinkage on
+  the slab widened to its blocks (:func:`sharded_wavelet`).
 
 Use :func:`distributed_init`, :func:`make_mesh` and
 :class:`ShardedProjector` in place of
@@ -56,6 +57,7 @@ __all__ = [
     "ShardedProjector",
     "sharded_prox",
     "sharded_regul_fn",
+    "sharded_wavelet",
 ]
 
 _STATE = {"device": None}
@@ -338,6 +340,11 @@ class ShardedProjector:
         ]
         self._subset_index = {}
 
+    @property
+    def device(self) -> torch.device:
+        """The mesh's device, where this rank's slabs lie."""
+        return self.mesh.device
+
     # -- core sharded ops -----------------------------------------------------
 
     def _fp_plan(self, vol: torch.Tensor, rp: _RankPlan) -> torch.Tensor:
@@ -464,21 +471,68 @@ class _Owner:
         self.nonneg_regul = 1 if nonneg else 0
 
 
+# prox_regul's methods in its order of matching, and how many slices one
+# iteration of each reads on either side along z (from the stencils of
+# regularisers.py and regularisers_legacy.py; None: one slice only)
+_Z_REACH = (
+    ("ROF_TV", 1), ("PD_TV", 1), ("FGP_TV", 1), ("SB_TV", 1), ("LLT_ROF", 2),
+    ("TGV", 1), ("NDF", 1), ("Diff4th", 2), ("NLTV", None),
+)
+
+
+def _haar_window(j: int, slab: int, nz: int, levels: int) -> Tuple[int, int]:
+    """The slices [w0, w1) around slab j on which ``levels`` Haar levels
+    along z give the whole volume's result for the slab: the blocks of
+    2^levels slices that hold it, from 0 (where each level pairs the same
+    slices as on the whole volume) to a multiple of 2^levels or to the
+    volume's end, and then at least 2^levels slices long (so that z stays
+    a transformed axis at every level, and the odd leftovers of the whole
+    volume's levels are the window's)."""
+    B = 2 ** levels
+    w0 = j * slab // B * B
+    w1 = min(-(-(j + 1) * slab // B) * B, nz)
+    if w1 == nz and 0 < w0 and nz - w0 < B:
+        w0 -= B
+    return w0, w1
+
+
+def sharded_wavelet(mesh: Mesh, threshold: float, levels: int = 3) -> Callable:
+    """``x`` (this rank's slab) -> its slab of ``WAVELET_SHRINK`` of the
+    whole volume: the shrinkage runs on the slab widened to its Haar blocks
+    (:func:`_haar_window`) and the widening is cropped."""
+    from tomobar_tpu_torch.regularisers_legacy import WAVELET_SHRINK
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        slab, nz = x.shape[0], x.shape[0] * mesh.shape["z"]
+        wide, before = comm.z_window(x, mesh, lambda j: _haar_window(j, slab, nz, levels))
+        return WAVELET_SHRINK(wide, threshold, levels)[before : before + slab]
+
+    return fn
+
+
 def sharded_regul_fn(mesh: Mesh, regularisation: dict, nonneg: bool = False) -> Callable:
     """The solvers' ``regul_fn`` for ``prox_regul``'s method in
     ``regularisation`` (its defaults filled as ``dicts_check`` fills them;
-    ``nonneg`` is the solver's nonnegativity, which PD-TV reads) on this
-    rank's slab.
+    ``nonneg`` is the solver's nonnegativity, which PD-TV and FGP-TV read)
+    on this rank's slab: equal, bit for bit, to that slab of the method on
+    the whole volume.
 
-    Under ``n_z > 1`` only PD_TV and ROF_TV run: each with a halo of its
-    iteration count.  One PD-TV iteration reads u one slice each way (the
-    forward difference z+1 in the duals, the backward divergence z-1 in
-    u), one ROF-TV iteration likewise (its normalised differences read
-    z-1..z+1 and its divergence the difference before), so a wrong value
-    at the window's edge travels one slice per iteration.  Every other
-    method raises ``NotImplementedError``.  Under ``n_z == 1`` every
-    method runs on the whole volume."""
-    from tomobar_tpu_torch.regularisers import prox_regul
+    Under ``n_z > 1`` each method runs through :func:`sharded_prox` with a
+    halo of its iteration count times its reach along z (``_Z_REACH``): one
+    iteration of PD-TV, ROF-TV, FGP-TV, SB-TV, TGV or NDF reads u one slice
+    each way (first differences and their divergence; SB-TV's u-step is one
+    Jacobi sweep, whose Laplacian reads z-1..z+1, and the TGV duals' and
+    v's differences likewise), one of LLT-ROF or Diff4th two (a second
+    difference of a function of second differences), so a wrong value at
+    the window's edge travels that far per iteration.  None of them reduces
+    over the volume (FGP-TV's momentum is a scalar recurrence), so none
+    needs ``global_*``.  NLTV takes one slice only, as on one device, and a
+    volume split along z has more than one: it raises ``ValueError`` here,
+    before any collective.  The Haar shrinkage of the ``*_WAVELETS`` methods
+    runs after the method on the slab widened to its blocks
+    (:func:`sharded_wavelet`).  Under ``n_z == 1`` every method runs on the
+    whole volume."""
+    from tomobar_tpu_torch.regularisers import prox_regul, wavelet_threshold
     from tomobar_tpu_torch.utils.dicts import dicts_check
 
     owner = _Owner(nonneg)
@@ -487,15 +541,29 @@ def sharded_regul_fn(mesh: Mesh, regularisation: dict, nonneg: bool = False) -> 
     method = r["method"]
     if method is None:
         return None
-
-    def prox(x):
-        return prox_regul(owner, x, r)
-
     if mesh.shape["z"] == 1:
-        return prox
-    if "WAVELET" in method or not ("ROF_TV" in method or "PD_TV" in method):
-        raise NotImplementedError(
-            f"regularisation {method!r} on z-slabs (a mesh with n_z > 1): only "
-            "PD_TV and ROF_TV have their z-halo (ROADMAP item 12); use a mesh with "
-            "n_z = 1")
-    return sharded_prox(mesh, prox, int(r["iterations"]))
+        return lambda x: prox_regul(owner, x, r)
+    primary = next(((name, reach) for name, reach in _Z_REACH if name in method), None)
+    if primary is None and not method.startswith("WAVELET"):
+        raise ValueError(f"Unknown regularisation method: {method}")
+    if primary is not None and primary[1] is None:
+        raise ValueError(f"{method} supports 2D images (reference parity): a volume split "
+                         f"over {mesh.shape['z']} z-shards has more than one slice")
+    steps = []
+    if primary is not None:
+        name, reach = primary
+        alone = dict(r, method=name)
+
+        def prox(x):
+            return prox_regul(owner, x, alone)
+
+        steps.append(sharded_prox(mesh, prox, reach * int(r["iterations"])))
+    if "WAVELET" in method:
+        steps.append(sharded_wavelet(mesh, wavelet_threshold(r), r.get("wavelet_levels", 3)))
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        for step in steps:
+            x = step(x)
+        return x
+
+    return fn

@@ -185,10 +185,15 @@ def prox_regul(self, X: torch.Tensor, _regularisation_: dict) -> torch.Tensor:
     else:
         raise ValueError(f"Unknown regularisation method: {method}")
     if "WAVELET" in method:
-        # wavelet_threshold, else regul_param for a pure WAVELETS and the
-        # legacy demos' regul_param2 for a combination
-        thr = r.get("wavelet_threshold")
-        if thr is None:
-            thr = r["regul_param"] if method.startswith("WAVELET") else r.get("regul_param2", 1e-05)
-        out = legacy.WAVELET_SHRINK(out, thr, r.get("wavelet_levels", 3))
+        out = legacy.WAVELET_SHRINK(out, wavelet_threshold(r), r.get("wavelet_levels", 3))
     return out
+
+
+def wavelet_threshold(r: dict) -> float:
+    """The Haar shrinkage threshold of a regularisation dict:
+    ``wavelet_threshold``, else ``regul_param`` for a pure ``WAVELETS`` and
+    the legacy demos' ``regul_param2`` for a combination."""
+    thr = r.get("wavelet_threshold")
+    if thr is None:
+        thr = r["regul_param"] if r["method"].startswith("WAVELET") else r.get("regul_param2", 1e-05)
+    return thr

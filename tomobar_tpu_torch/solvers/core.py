@@ -55,7 +55,11 @@ def power_method(
     PWLS weights are ones, so the value matches LS.
 
     The start vector is ``x0`` when given, else standard normal numbers
-    from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    from a ``torch.Generator`` seeded with ``seed`` on ``device``: by
+    default the projector's device where it has one (a
+    :class:`~tomobar_tpu_torch.parallel.sharding.ShardedProjector`'s
+    mesh), else the current CUDA device; without CUDA that raises, and
+    ``device="cpu"`` runs on the host."""
     del use_pwls  # weights are ones in the reference's power method
     use_os = len(projector.subset_indices) > 1
 
@@ -66,7 +70,14 @@ def power_method(
         return projector.bp_sub(r, 0) if use_os else projector.bp(r)
 
     if x0 is None:
-        device = torch.device("cpu" if device is None else device)
+        device = device if device is not None else getattr(projector, "device", None)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "power_method: CUDA is not available (pass device='cpu' to run "
+                    "on the CPU)")
+            device = torch.device("cuda", torch.cuda.current_device())
+        device = torch.device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         x0 = torch.randn(
             tuple(vol_shape), generator=gen, dtype=torch.float32, device=device

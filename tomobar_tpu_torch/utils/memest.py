@@ -11,14 +11,17 @@ compile-time memory analysis.  PyTorch has none, so here:
   reference's own ``*_estimator`` methods do (``methodsDIR_CuPy.py:547-989``).
   It runs nothing and allocates nothing on the device.
 * :func:`estimate_memory` runs the function once on zeros of the example
-  shapes and measures its peak.
+  shapes and measures its peak where the example fits its device, and
+  otherwise runs it on ``meta`` tensors, which hold no memory: the kernel
+  wrappers make their outputs and workspaces there and launch nothing.
 * :class:`LiveBytes` counts the bytes held by the tensors made while it is
-  active, on any device; :func:`estimate_memory` uses it on the CPU, where
-  PyTorch keeps no peak statistic.
+  active, on any device (``meta`` included); :func:`estimate_memory` uses it
+  on the CPU, where PyTorch keeps no peak statistic, and on ``meta``.
 """
 
 from __future__ import annotations
 
+import os
 import weakref
 from typing import Callable, Dict, Tuple
 
@@ -48,7 +51,8 @@ class LiveBytes(TorchDispatchMode):
     the mode is active.  A storage counts once, from the operator that
     made it until it is freed (a weakref finalizer); views and in-place
     results add nothing, nor does memory that a tensor made elsewhere
-    shares (``torch.from_numpy``)."""
+    shares (``torch.from_numpy``).  Storages are told apart by identity,
+    not by address: every ``meta`` storage has the address 0."""
 
     def __init__(self):
         super().__init__()
@@ -62,7 +66,7 @@ class LiveBytes(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         inputs = {
-            t.untyped_storage().data_ptr()
+            t.untyped_storage()._cdata
             for t in tree_flatten((args, kwargs))[0]
             if isinstance(t, torch.Tensor)
         }
@@ -71,9 +75,9 @@ class LiveBytes(TorchDispatchMode):
             if not isinstance(t, torch.Tensor):
                 continue
             st = t.untyped_storage()
-            key = (st.device, st.data_ptr())
+            key = st._cdata
             nbytes = st.nbytes()
-            if nbytes == 0 or st.data_ptr() in inputs or key in self._held:
+            if nbytes == 0 or key in inputs or key in self._held:
                 continue
             self._held.add(key)
             self.live += nbytes
@@ -91,25 +95,55 @@ def _result(argument: int, output: int, total: int) -> Dict[str, int]:
     }
 
 
+def _fits(nbytes: int, device: torch.device) -> bool:
+    """Whether an example of ``nbytes`` may be made on ``device`` to be
+    measured: at most half of what the device has free (the host's free
+    memory for the CPU)."""
+    if device.type == "cuda":
+        from tomobar_tpu_torch.utils.tools import free_device_bytes
+
+        free = free_device_bytes(device)
+    else:
+        free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    return nbytes <= free // 2
+
+
 def estimate_memory(fn: Callable, *example_args, **example_kwargs) -> Dict[str, int]:
     """Peak memory of ``fn`` for the given example shapes, in bytes.
 
-    Unlike the JAX package's (which compiles ``fn`` and reads XLA's memory
-    analysis without running it), this runs ``fn`` once, on zeros of the
-    example tensors' (or arrays') shapes and dtypes, on the example
-    tensors' device (numpy examples: the CPU); other arguments are passed
-    as they are.  On CUDA the peak is ``max_memory_allocated`` above what
-    was held before the zeros were made; on the CPU it is the peak of
-    :class:`LiveBytes`.
+    The examples are tensors (``meta`` ones included) or numpy arrays; only
+    their shapes and dtypes are read.  Unlike the JAX package's (which
+    compiles ``fn`` and reads XLA's memory analysis without running it),
+    this runs ``fn`` once, in one of two ways:
 
-    Returns keys: argument, output, temp, generated_code, alias, total
-    (generated_code and alias are 0: PyTorch has neither).
+    * measured, where no example is a meta tensor and the examples take at
+      most half of their device's free memory: on zeros of the examples'
+      shapes and dtypes, on the example tensors' device (numpy examples:
+      the CPU).  On CUDA the peak is ``max_memory_allocated`` above what
+      was held before the zeros were made (a peak that does not fit raises
+      the card's out-of-memory error: pass meta examples to plan it); on
+      the CPU it is the peak of :class:`LiveBytes`.
+    * planned on ``meta`` tensors otherwise: nothing is computed or
+      allocated, and the peak is :class:`LiveBytes`'s over the storages
+      that ``fn`` makes.  The kernel wrappers make their outputs and
+      workspaces there, as on the card, and launch nothing, so the
+      estimate is that of the card's path (z-chunks planned with the
+      budgets of ``CHUNK_BYTES``, not a card's free memory).  ``fn`` must
+      not read values (``float(t)``, ``t.item()``) on that path.
+
+    Other arguments are passed as they are.  Returns keys: argument,
+    output, temp, generated_code, alias, total (generated_code and alias
+    are 0: PyTorch has neither).
     """
     tensors = [
         a for a in tree_flatten((example_args, example_kwargs))[0]
-        if isinstance(a, torch.Tensor)
+        if isinstance(a, (torch.Tensor, np.ndarray))
     ]
-    dev = tensors[0].device if tensors else torch.device("cpu")
+    devs = [a.device for a in tensors if isinstance(a, torch.Tensor)]
+    dev = devs[0] if devs else torch.device("cpu")
+    example = sum(int(np.prod(a.shape)) * a.itemsize for a in tensors)
+    if any(d.type == "meta" for d in devs) or not _fits(example, dev):
+        dev = torch.device("meta")
 
     def zeros_like(a):
         if isinstance(a, torch.Tensor):
