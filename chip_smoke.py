@@ -162,6 +162,26 @@ Phases, in order; any failure raises and exits non-zero:
    reaching FBP's, ADMM's ending below FBP's (the TPU run's quality
    printed beside); and ``comm_model`` equal, call for call and byte for
    byte, to the collectives each rank of phase 14 counted.
+16. the examples of ``examples/torch/``: each at its own default size
+   through ``main(device="cuda")`` (N 256, the tour 160, the sharded one
+   128 on a world of one rank), its asserts holding, every rel-RMSE it
+   returns finite, the kernels of its path launched; then the three paths
+   that no earlier phase drives at the flagship width, 1801 angles x 8
+   slices x 2560, with the examples' own dictionaries: raw counts through
+   ``normaliser`` to the padded-detector FBP warm start (pad 24, a 2608^2
+   grid) and ADMM-OS24 with PD-TV 40 (BASELINE config 4), which must end
+   below its warm start; FISTA-OS10 with PWLS, PWLS + Huber and SWLS +
+   Huber on data with stripes and zingers (the example's artifacts and
+   Huber threshold times N / 256, the sinogram's growth from the example's
+   N), SWLS + Huber beating PWLS; OSEM (OS 8), MLEM over all 1801 angles
+   and FISTA with KL warm-started from OSEM on Poisson counts.  Each: the
+   outer iteration by CUDA events (FISTA the 3- less the 2-iteration call,
+   ADMM the 2- less the 1-iteration call), peak memory, launches.  Then
+   the sharded example on worlds of gloo ranks sharing the card, mesh
+   (2, 1) on 4 slices and (2, 2) on 8, against a world of one rank (this
+   process) at the same sizes: FBP and FISTA bit for bit on the z-only
+   mesh, within 1e-5 rel L2 where angles are dealt.  Ranks sharing one
+   card through the host measure the host, not scaling.
 
 ``python3 chip_smoke.py --sharded-rank <dir> <n_z> <n_angles> <backend>``
 is one rank of phase 14 (the rendezvous in the environment); the phase
@@ -302,6 +322,19 @@ NORTHSTAR_TPU = {"fbp": 0.5097, "fista": 0.3247, "admm": 0.2403}
 TOL_STAGE_SUM = 0.15  # FOURIER_INV's staged sum against phase 7's call
 MEMPLAN_DEPTH = 4096  # slices of a 2560^2 volume larger than the card (107 GB)
 TOL_PLAN = (0.98, 1.05)  # a meta plan against the card's measured peak
+# phase 16: the examples of examples/torch/, the kernels each must launch
+# at its default size, and the sharded example's worlds as (mesh, slices)
+EXAMPLES = {
+    "quickstart_2d": ("K1p", "K2", "K3", "K4p", "PD"),
+    "phantom3d_fista_os_tv": ("K1", "K2", "K3", "K4", "PD", "G"),
+    "artifacts3d_swls_huber": ("K1", "K2", "K3", "K4", "PD"),
+    "osem_kl_counts": ("K1", "K2", "K3", "K4", "PD"),
+    "realdata_warmstart_admm": ("K1", "K2", "K3", "K4", "PD"),
+    "legacy_regularisers_tour": ("K1p", "K2", "K3", "K4p", "PD"),
+    "multichip_sharded_recon": ("K1", "K2", "K3", "K4", "PD"),
+}
+EXAMPLE_WORLDS = (((2, 1), 4), ((2, 2), 8))
+TOL_EXAMPLE_SHARD = 1e-5  # rel L2 of FBP and FISTA where angles are dealt
 
 
 class SmokeFailure(RuntimeError):
@@ -505,6 +538,26 @@ def check_k3_index_guard() -> None:
         require("VALID" in out and "REFUSED" in out,
                 f"K3 did not refuse index {bad} of 6 angles:\n{out[-2000:]}")
         print(f"[3] K3 resample_bp, index {bad} of 6 angles: launch refused")
+
+
+def check_adjointness(torch, geoms: dict, dev, seed: int, phase: str) -> None:
+    """|<Ax,y> - <x,A^T y>| / |<Ax,y>| of the kernel pair on each of
+    ``geoms`` (512^2, 180 angles; one slice as 2D arrays), x and y drawn
+    from a generator seeded ``seed``: phase 4 at 8 slices (seed 4), phase 8
+    at one (seed 80)."""
+    from tomobar_tpu_torch.ops.projector import radon_bp, radon_fp
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for label, geom in geoms.items():
+        lead = (geom.detectors_y,) if geom.detectors_y > 1 else ()
+        x = torch.randn(lead + (512, 512), generator=gen, device=dev)
+        y = torch.randn(lead + (180, 512), generator=gen, device=dev)
+        lhs = float(torch.sum(radon_fp(x, geom).double() * y.double()))
+        rhs = float(torch.sum(x.double() * radon_bp(y, geom).double()))
+        rel = abs(lhs - rhs) / abs(lhs)
+        print(f"[{phase}] adjointness, {geom.detectors_y} slice(s), {label}: "
+              f"|<Ax,y>-<x,A^T y>|/|<Ax,y>| = {rel:.3e} (tol {TOL_ADJOINT:g})")
+        require(rel <= TOL_ADJOINT, f"adjointness, {label}: {rel:.3e} > {TOL_ADJOINT:g}")
 
 
 def check_pd_shapes(torch, PDT, errs, dev) -> None:
@@ -839,7 +892,7 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
     FORWPROJ, FBP and FISTA) and their launches per outer FISTA iteration."""
     from tomobar_tpu_torch import RecToolsDIRCuPy, RecToolsIRCuPy, _build
     from tomobar_tpu_torch.geometry import Geometry
-    from tomobar_tpu_torch.ops.projector import Projector, radon_bp, radon_fp
+    from tomobar_tpu_torch.ops.projector import Projector, radon_fp
 
     # ---- 8a. K1p/K4p against their plain versions, adjointness ------------
     angles180 = np.linspace(0.0, np.pi, 180, endpoint=False)
@@ -847,17 +900,10 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
         "cor 3.5": Geometry(512, 1, angles180, 3.5, 512),
         "per-angle cor": Geometry(512, 1, angles180, 3.5 + 2.0 * np.sin(3.0 * angles180), 512),
     }
-    gen = torch.Generator(device=dev).manual_seed(80)
     for i, (label, geom) in enumerate(geoms.items()):
         print(f"[8] packed kernels, 512^2 x 180 angles, {label}:")
         check_packed_kernels(torch, K, errs, geom, dev, seed=81 + i)
-        x = torch.randn((512, 512), generator=gen, device=dev)
-        y = torch.randn((180, 512), generator=gen, device=dev)
-        lhs = float(torch.sum(radon_fp(x, geom).double() * y.double()))
-        rhs = float(torch.sum(x.double() * radon_bp(y, geom).double()))
-        rel = abs(lhs - rhs) / abs(lhs)
-        print(f"[8] adjointness of the nz=1 pair, {label}: {rel:.3e} (tol {TOL_ADJOINT:g})")
-        require(rel <= TOL_ADJOINT, f"2D adjointness {rel:.3e} > {TOL_ADJOINT:g}")
+    check_adjointness(torch, geoms, dev, 80, "8")
     print("[8] K1p at other row lengths, ny != nx, run counts and sparse angles, cor 3.5:")
     check_k1p_shapes(torch, K, errs, dev)
     print("[8] K4p at other sizes, unaligned lines of q and sparse angles, cor 3.5:")
@@ -1259,19 +1305,27 @@ def regularisers_on_card(torch, dev) -> None:
     del tables, reg, img
 
 
+def timed_call(torch, fn):
+    """fn() between CUDA events; returns its result and ms."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def fista_calls(torch, rt, data: dict, iters, lc: float, reg: dict, after=None):
     """FISTA calls of ``iters`` outer iterations (nonneg), each between CUDA
     events, ``after()`` run after each; returns the results and their ms."""
     recs, ms = [], []
     for it in iters:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        recs.append(rt.FISTA(dict(data), {"iterations": it, "nonnegativity": True,
-                                          "lipschitz_const": lc}, dict(reg)))
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end))
+        rec, t = timed_call(torch, lambda: rt.FISTA(
+            dict(data), {"iterations": it, "nonnegativity": True, "lipschitz_const": lc},
+            dict(reg)))
+        recs.append(rec)
+        ms.append(t)
         if after is not None:
             after()
     return recs, ms
@@ -1867,25 +1921,33 @@ def _free_port() -> int:
 
 
 def run_world(torch, work: str, n_z: int, n_a: int) -> str:
-    """Start the ranks of one mesh, wait for all of them (``RANK_TIMEOUT``
-    seconds in all) and fail with each rank's tail if one fails or hangs;
-    returns the backend used."""
+    """Start the ranks of one mesh of phase 14 and wait for them
+    (``run_ranks``); returns the backend used."""
     world = n_z * n_a
     n_cards = torch.cuda.device_count()
     backend = "nccl" if n_cards >= world else "gloo"
     layout = ("one rank per card" if backend == "nccl"
               else f"all {world} ranks on cuda:0, CUDA tensors staged through pinned host memory")
     print(f"[14] mesh (z, angles) = ({n_z}, {n_a}): {world} ranks, {backend}, {layout}")
+    run_ranks([os.path.abspath(__file__), "--sharded-rank", work, str(n_z), str(n_a), backend],
+              world, work, f"{n_z}x{n_a}", "14")
+    return backend
+
+
+def run_ranks(argv, world: int, work: str, tag: str, phase: str) -> None:
+    """Start ``world`` ranks of ``python3 argv...`` (the rendezvous in the
+    environment, as ``torchrun`` sets it; each rank's output in
+    ``work/rank_<tag>_<rank>.log``), wait for all of them (``RANK_TIMEOUT``
+    seconds in all) and fail with each rank's tail if one fails or hangs."""
     port = _free_port()
     procs, logs = [], []
     for rank in range(world):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                    LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-        log = open(os.path.join(work, f"rank_{n_z}x{n_a}_{rank}.log"), "w")
+        log = open(os.path.join(work, f"rank_{tag}_{rank}.log"), "w")
         logs.append(log)
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--sharded-rank", work, str(n_z),
-             str(n_a), backend], env=env, stdout=log, stderr=subprocess.STDOUT))
+        procs.append(subprocess.Popen([sys.executable, *argv], env=env, stdout=log,
+                                      stderr=subprocess.STDOUT))
     deadline = time.monotonic() + RANK_TIMEOUT
     failed = []
     while not failed and any(p.poll() is None for p in procs):
@@ -1903,11 +1965,10 @@ def run_world(torch, work: str, n_z: int, n_a: int) -> str:
         log.close()
     if failed:
         for r in range(world):
-            with open(os.path.join(work, f"rank_{n_z}x{n_a}_{r}.log")) as f:
+            with open(os.path.join(work, f"rank_{tag}_{r}.log")) as f:
                 tail = f.read()[-3000:]
-            print(f"[14] rank {r} of mesh ({n_z}, {n_a}) output (tail):\n{tail}")
-        require(False, f"phase 14: mesh ({n_z}, {n_a}): rank(s) failed: {failed}")
-    return backend
+            print(f"[{phase}] rank {r} of {tag} output (tail):\n{tail}")
+        require(False, f"phase {phase}: {tag}: rank(s) failed: {failed}")
 
 
 def sharded_path(torch, work: str, refs: dict) -> dict:
@@ -2193,6 +2254,197 @@ def bench_phase(torch, errs, dev, ms_outer: float, bd: dict, ms_fi: float, fb: d
     return launches
 
 
+def load_example(name: str):
+    """The example ``name`` of ``examples/torch/``, loaded from its file (its
+    JAX counterpart in ``examples/`` has the same module name)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", os.path.join(REPO, "examples", "torch", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_on_path(torch, dev, launches: dict, label: str, kernels, fn) -> dict:
+    """16: ``fn()`` with the launch counters and the peak-memory statistic
+    reset before it and read after it; fails unless it launched each of
+    ``kernels``; adds its launches to ``launches`` and returns what ``fn``
+    returns with its peak (MiB), wall seconds and launches."""
+    from tomobar_tpu_torch import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.launch_counts.items() if v}
+    for k in kernels:
+        require(counts.get(k, 0) > 0, f"phase 16: {label} did not launch {k}")
+    for k, v in counts.items():
+        launches[k] += v
+    return dict(out, peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20,
+                wall_s=time.perf_counter() - t0, launches=counts)
+
+
+def require_quality(label: str, quality: dict) -> None:
+    bad = {k: v for k, v in quality.items() if not np.isfinite(v)}
+    require(not bad, f"phase 16: {label}: non-finite rel-RMSE {bad}")
+
+
+def examples_on_card(torch, dev, modules: dict, launches: dict) -> None:
+    """16a: every example at its own default size through ``main(device=
+    "cuda")``; the sharded one runs a world of one rank in this process."""
+    for name, kernels in EXAMPLES.items():
+        print(f"[16] examples/torch/{name}.py, main(device='cuda'):")
+        out = run_on_path(torch, dev, launches, name, kernels,
+                          lambda: modules[name].main(device="cuda"))
+        quality = {k: v for k, v in out.items() if k not in ("peak_mib", "wall_s", "launches")}
+        require_quality(name, quality)
+        print(f"[16] {name}: rel-RMSE " + ", ".join(f"{k} {v:.4f}" for k, v in quality.items())
+              + f"; {out['wall_s']:.1f} s wall, peak {out['peak_mib']:.1f} MiB, launches "
+              + json.dumps(out["launches"]))
+
+
+def flagship_examples(torch, dev, modules: dict, launches: dict, smi: str,
+                      ms_pwls: float) -> None:
+    """16b: the examples' new paths at the flagship width, with their own
+    dictionaries; ``ms_pwls`` is phase 6's outer iteration (PWLS)."""
+    from tomobar_tpu_torch import RecToolsIRCuPy
+    from tomobar_tpu_torch.bench.harness import rel_rmse
+
+    N, NZ, NA, _ = FLAGSHIP
+    angles = np.linspace(0.0, np.pi, NA, endpoint=False).astype(np.float32)
+    # the artifacts and counts examples' phantom, over NZ slices
+    stack = (modules["quickstart_2d"].shepp_logan(N)[None]
+             * np.linspace(0.95, 1.05, NZ, dtype=np.float32)[:, None, None])
+    rows = {}
+
+    def admm_warm():
+        """Raw counts -> normaliser -> padded FBP -> ADMM-OS24 (config 4)."""
+        ex = modules["realdata_warmstart_admm"]
+        t0 = time.perf_counter()
+        truth = ex.ellipsoid_phantom(N, NZ)
+        proj, flats, darks = ex.synth_raw_counts(truth, angles, dev)
+        data = ex.normalise(proj, flats, darks, N)
+        del proj
+        t_raw = time.perf_counter() - t0
+        fbp, ms_fbp = timed_call(torch, lambda: ex.warm_start(data, angles, N, dev))
+        require(fbp.shape == (NZ, N + 2 * ex.PAD, N + 2 * ex.PAD), f"warm start {fbp.shape}")
+        rt = RecToolsIRCuPy(N, ex.PAD, NZ, 0.0, angles, N, OS_number=24, device=dev)
+        ex.admm(data, fbp, angles, N, dev, iterations=1, rec_it=rt)  # L, the plans
+        _, ms1 = timed_call(torch, lambda: ex.admm(data, fbp, angles, N, dev, iterations=1,
+                                                   rec_it=rt))
+        rec, ms2 = timed_call(torch, lambda: ex.admm(data, fbp, angles, N, dev, rec_it=rt))
+        require(rec.shape == (NZ, N, N), f"ADMM shape {rec.shape}")
+        p = ex.PAD
+        quality = {"fbp": rel_rmse(fbp[:, p:-p, p:-p], truth), "admm": rel_rmse(rec, truth)}
+        require_quality("config 4", quality)
+        require(quality["admm"] < quality["fbp"],
+                f"phase 16: ADMM did not end below its warm start: {quality}")
+        print(f"[16] config 4: raw counts made and normalised on the host in {t_raw:.1f} s; "
+              f"padded FBP on a {N + 2 * p}^2 grid {ms_fbp:.1f} ms; ADMM calls of 1 / 2 "
+              f"iterations {ms1:.1f} / {ms2:.1f} ms")
+        return {"ms_outer": ms2 - ms1, "quality": quality}
+
+    def swls_huber():
+        """FISTA-OS10, PWLS / PWLS + Huber / SWLS + Huber on corrupted data."""
+        ex = modules["artifacts3d_swls_huber"]
+        scale = N / 256
+        rt = RecToolsIRCuPy(N, 0, NZ, 0.0, angles, N, OS_number=10, device=dev)
+        sino = ex.corrupted_data(rt, stack, scale=scale)
+        quality = ex.reconstruct(rt, sino, stack, scale=scale)  # asserts SWLS < PWLS
+        require_quality("SWLS + Huber", quality)
+        data = dict(ex.fidelities(scale)[2][1], projection_data=sino)
+        ms = [timed_call(torch, lambda: rt.FISTA(dict(data), dict(ex.ALGORITHM, iterations=k),
+                                                 dict(ex.REGULARISATION)))[1] for k in (2, 3)]
+        print(f"[16] SWLS + Huber: FISTA calls of 2 / 3 iterations {ms[0]:.1f} / {ms[1]:.1f} ms")
+        return {"ms_outer": ms[1] - ms[0], "quality": quality}
+
+    def kl_osem():
+        """OSEM (OS 8), MLEM (one subset of 1801 angles), FISTA-KL from OSEM,
+        FISTA-LS on Poisson counts."""
+        ex = modules["osem_kl_counts"]
+        rt = RecToolsIRCuPy(N, 0, NZ, 0.0, angles, N, OS_number=8, device=dev)
+        rt1 = RecToolsIRCuPy(N, 0, NZ, 0.0, angles, N, OS_number=1, device=dev)
+        counts, scale = ex.count_data(rt, stack, 50.0)
+        b = counts / scale
+        quality = ex.reconstruct(rt, rt1, b, stack, volumes=True)
+        osem = quality.pop("volumes")["osem"]
+        require_quality("KL / OSEM", quality)
+        data = {"projection_data": b, "data_fidelity": "KL"}
+        ms = [timed_call(torch, lambda: rt.FISTA(
+            dict(data), dict(ex.FISTA, iterations=k, initialise=osem),
+            dict(ex.REGULARISATION)))[1] for k in (2, 3)]
+        print(f"[16] KL / OSEM: FISTA-KL calls of 2 / 3 iterations {ms[0]:.1f} / {ms[1]:.1f} ms")
+        return {"ms_outer": ms[1] - ms[0], "quality": quality}
+
+    for label, fn in (("config 4: ADMM-OS24 warm-started from raw counts", admm_warm),
+                      ("FISTA-OS10 SWLS + Huber", swls_huber),
+                      ("FISTA-OS8 KL from OSEM", kl_osem)):
+        print(f"[16] {label}, {NA} x {NZ} x {N}:")
+        rows[label] = run_on_path(torch, dev, launches, label, ITERATIVE, fn)
+    print(f"[16] outer iterations at {NA} x {NZ} x {N} on {smi} (CUDA events; phase 6's "
+          f"FISTA-OS10 PWLS beside: {ms_pwls:.1f} ms):")
+    for label, row in rows.items():
+        print(f"[16]   {label}: {row['ms_outer']:.1f} ms an outer iteration, peak "
+              f"{row['peak_mib']:.1f} MiB, {row['wall_s']:.1f} s wall; rel-RMSE "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row["quality"].items())
+              + "; launches " + json.dumps(row["launches"]))
+
+
+def sharded_example(torch, dev, ex7, launches: dict) -> None:
+    """16c: the sharded example on worlds of gloo ranks sharing the card
+    against a world of one rank (this process) at the same sizes."""
+    import torch.distributed as dist
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    atexit.register(shutil.rmtree, work, True)
+    for (n_z, n_a), nz in EXAMPLE_WORLDS:
+        tag = f"example_{n_z}x{n_a}"
+        ref = run_on_path(torch, dev, launches, f"the sharded example on one rank, {nz} slices",
+                          ITERATIVE, lambda: ex7.main(nz=nz, device="cuda", volumes=True))
+        save = os.path.join(work, f"{tag}.npz")
+        t0 = time.perf_counter()
+        run_ranks([ex7.__file__, "--backend", "gloo", "--mesh", f"{n_z},{n_a}", "--nz", str(nz),
+                   "--save", save], n_z * n_a, work, tag, "16")
+        wall = time.perf_counter() - t0
+        with np.load(save) as f:
+            got = {k: f[k] for k in ("fbp", "fista")}
+        for k, want in ref["volumes"].items():
+            require(got[k].shape == want.shape and bool(np.isfinite(got[k]).all()),
+                    f"phase 16 {tag} {k}: shape {got[k].shape} or non-finite values")
+            if n_a == 1:
+                require(np.array_equal(got[k], want),
+                        f"phase 16 {tag} {k}: not bit-equal to one rank")
+                held = "bit-equal"
+            else:
+                rel = float(np.linalg.norm(got[k] - want) / np.linalg.norm(want))
+                require(rel <= TOL_EXAMPLE_SHARD,
+                        f"phase 16 {tag} {k}: rel L2 {rel:.3e} > {TOL_EXAMPLE_SHARD:g}")
+                held = f"rel L2 {rel:.3e} (tol {TOL_EXAMPLE_SHARD:g})"
+            print(f"[16] sharded example, mesh ({n_z}, {n_a}), {nz} slices, {n_z * n_a} gloo ranks "
+                  f"on one card, {k}: {held} against one rank (rel-RMSE {ref[k]:.4f})")
+        print(f"[16] mesh ({n_z}, {n_a}): the world took {wall:.1f} s wall (ranks share the card "
+              "through the host: not scaling)")
+    dist.destroy_process_group()
+
+
+def examples_phase(torch, dev, smi: str, ms_pwls: float) -> dict:
+    """16: the examples of ``examples/torch/``; returns their launches."""
+    launches = {k: 0 for k in KERNELS}
+    t_phase = time.perf_counter()
+    modules = {name: load_example(name) for name in EXAMPLES}
+    examples_on_card(torch, dev, modules, launches)
+    flagship_examples(torch, dev, modules, launches, smi, ms_pwls)
+    sharded_example(torch, dev, modules["multichip_sharded_recon"], launches)
+    print(f"[16] the phase took {time.perf_counter() - t_phase:.1f} s; launches "
+          + json.dumps({k: v for k, v in launches.items() if v}))
+    return launches
+
+
 def main() -> int:
     pkg = os.path.join(REPO, "tomobar_tpu_torch")
     import torch
@@ -2214,7 +2466,7 @@ def main() -> int:
     from tomobar_tpu_torch.geometry import Geometry
     from tomobar_tpu_torch.ops import pd_tv as PDT
     from tomobar_tpu_torch.ops import projector_kernels as K
-    from tomobar_tpu_torch.ops.projector import Projector, radon_bp, radon_fp
+    from tomobar_tpu_torch.ops.projector import Projector, radon_fp
 
     require(
         os.path.dirname(os.path.abspath(tomobar_tpu_torch.__file__)) == pkg,
@@ -2271,15 +2523,7 @@ def main() -> int:
     check_pd_shapes(torch, PDT, errs, dev)
 
     # ---- 4. adjointness on the card ----------------------------------------
-    gen = torch.Generator(device=dev).manual_seed(4)
-    for label, geom in geoms.items():
-        x = torch.randn((8, 512, 512), generator=gen, device=dev)
-        y = torch.randn((8, 180, 512), generator=gen, device=dev)
-        lhs = float(torch.sum(radon_fp(x, geom).double() * y.double()))
-        rhs = float(torch.sum(x.double() * radon_bp(y, geom).double()))
-        rel = abs(lhs - rhs) / abs(lhs)
-        print(f"[4] adjointness, {label}: |<Ax,y>-<x,A^T y>|/|<Ax,y>| = {rel:.3e} (tol {TOL_ADJOINT:g})")
-        require(rel <= TOL_ADJOINT, f"adjointness {rel:.3e} > {TOL_ADJOINT:g}")
+    check_adjointness(torch, geoms, dev, 4, "4")
 
     # ---- 5. the slice on the CPU and on the card ---------------------------
     angles90 = np.linspace(0.0, np.pi, 90, endpoint=False)
@@ -2479,6 +2723,10 @@ def main() -> int:
 
     # ---- 15. the bench modules ---------------------------------------------
     for k, v in bench_phase(torch, errs, dev, per_iter[2], bd, ms_fi, fb, counted).items():
+        launches[k] += v
+
+    # ---- 16. the examples ---------------------------------------------------
+    for k, v in examples_phase(torch, dev, smi, per_iter[2]).items():
         launches[k] += v
 
     summary = {
