@@ -7,7 +7,8 @@ subsets, PD-TV), the direct path (``RecToolsDIRCuPy.FOURIER_INV`` and 3D
 ``FBP``), the 2D path (2D ``FORWPROJ``/``FBP`` and every solver on one
 slice) and raw projections through normalisation, centre finding and the
 memory plan to a reconstruction, then the sharded layer and the bench
-modules.
+modules, the examples, and the direct entry points against the
+closed-form Radon transform of ellipses.
 
 Run from the repository root with no arguments::
 
@@ -182,6 +183,20 @@ Phases, in order; any failure raises and exits non-zero:
    process) at the same sizes: FBP and FISTA bit for bit on the z-only
    mesh, within 1e-5 rel L2 where angles are dealt.  Ranks sharing one
    card through the host measure the host, not scaling.
+17. the closed-form Radon cross-check at the flagship's 1801 angles x 8
+   slices x 2560 (``bench.analytic``: its ellipses scaled x 10, slice k's
+   values x (1 + k/8); phantom and transforms in float64 on the host):
+   3D ``FORWPROJ`` (K1, K2) within 2e-3 rel L2 of the continuous transform
+   on every slice and more than 5% from it at negated angles and with a
+   mirrored detector; at centre offset 4.25 px within 2e-3 of the
+   transform at 4.25 and more than 1% from it at -4.25 (at 2560 px the two
+   transforms differ by only 2.0%); one-slice ``FORWPROJ`` (K1p, K2)
+   within 2e-3; 3D FBP (ram-lak: F, K3, K4) and 2D FBP of slice 0 (K4p)
+   of the exact transform with the flat interior of the big ellipse within
+   3% of its value and a rel RMSE under 0.10 inside 0.45 N; FOURIER_INV (G,
+   F) over its 8/pi convention within 6% of the value, and on slice 0
+   beating each of its four 1-pixel shifts.  Each of K1-K4, K1p, K4p, F
+   and G must launch in the phase.
 
 ``python3 chip_smoke.py --sharded-rank <dir> <n_z> <n_angles> <backend>``
 is one rank of phase 14 (the rendezvous in the environment); the phase
@@ -335,6 +350,18 @@ EXAMPLES = {
 }
 EXAMPLE_WORLDS = (((2, 1), 4), ((2, 2), 8))
 TOL_EXAMPLE_SHARD = 1e-5  # rel L2 of FBP and FISTA where angles are dealt
+# phase 17: the closed-form Radon transform of bench.analytic's ellipses
+# (scaled to the width, slice k's values times 1 + k/8), what its path must
+# launch, and what each measure must meet
+ANALYTIC_PATH = ("K1", "K2", "K3", "K4", "K1p", "K4p", "F", "G")
+TOL_ANALYTIC_FP = 2e-3  # rel L2 of a projection against the transform, per slice
+MIN_FLIP = 0.05  # rel L2 against negated angles or a mirrored detector
+# rel L2 against the centre offset's wrong sign: at 2560 px the two
+# transforms of +-4.25 px differ by only 2.0%, so 5% cannot be asked there
+MIN_ANALYTIC_COR = 1e-2
+TOL_FLAT_FBP = 0.03  # |flat interior / value - 1| of FBP (ram-lak)
+MAX_RMSE_FBP = 0.10  # FBP's rel RMSE inside 0.45 N
+TOL_FLAT_FI = 0.06  # |flat interior / (8/pi) / value - 1| of FOURIER_INV
 
 
 class SmokeFailure(RuntimeError):
@@ -2445,6 +2472,111 @@ def examples_phase(torch, dev, smi: str, ms_pwls: float) -> dict:
     return launches
 
 
+def slice_rel_l2(torch, got, ref) -> list:
+    """rel L2 of each slice (leading axis) of ``got`` against ``ref``, float64."""
+    got, ref = got.double().flatten(1), ref.double().flatten(1)
+    return ((got - ref).norm(dim=1) / ref.norm(dim=1)).tolist()
+
+
+def analytic_crosscheck(torch, dev, n: int, nz: int, angles, cor: float, tol_fp: float,
+                        min_cor: float, path, tag: str = "[17]") -> dict:
+    """17: the direct entry points against the closed-form Radon transform
+    of ``bench.analytic``'s ellipses scaled to ``n``, on ``nz`` slices whose
+    values are scaled by 1 + k/8: 3D and one-slice ``FORWPROJ`` within
+    ``tol_fp`` rel L2 of the transform per slice and more than ``MIN_FLIP``
+    from its negated angles and mirrored detector; at centre offset ``cor``
+    within ``tol_fp`` of the transform at ``cor`` and more than ``min_cor``
+    from it at ``-cor``; 3D and 2D FBP (ram-lak) and FOURIER_INV of the
+    exact sinogram on the absolute scale of each slice's value, FOURIER_INV
+    beating its four 1-pixel shifts on slice 0.  Fails unless each kernel
+    of ``path`` was launched; returns the launches."""
+    from tomobar_tpu_torch import RecToolsDIRCuPy, _build
+    from tomobar_tpu_torch.bench import analytic as AN
+
+    t_phase = time.perf_counter()
+    ell = AN.scaled(AN.ELLIPSES, n)
+    values = 1.0 + np.arange(nz) / 8.0
+    vals = torch.as_tensor(values, dtype=torch.float32, device=dev)[:, None, None]
+    truth = torch.as_tensor(AN.ellipse_phantom(n, ell), device=dev) * vals
+    sino = {c: torch.as_tensor(AN.ellipse_sinogram(angles, n, ell, c), device=dev) * vals
+            for c in (0.0, cor, -cor)}
+    negated = torch.as_tensor(AN.ellipse_sinogram(-angles, n, ell), device=dev) * vals
+    flat = torch.as_tensor(AN.flat_interior_mask(n), device=dev)
+    circle = torch.as_tensor(AN.incircle_mask(n), device=dev)
+    print(f"{tag} {len(angles)} angles x {nz} slices x {n}: phantom and analytic sinograms "
+          f"(float64, then float32) in {time.perf_counter() - t_phase:.2f} s")
+
+    def check(label, got, bound, above=False):
+        got = [float(g) for g in np.atleast_1d(got)]
+        ok = all(g > bound if above else g <= bound for g in got)
+        print(f"{tag} {label}: " + ", ".join(f"{g:.4e}" for g in got)
+              + f" ({'>' if above else '<='} {bound:g})")
+        require(ok, f"{tag} {label}: {got} not {'>' if above else '<='} {bound:g}")
+
+    def timed(label, fn, shape):
+        out, ms = timed_call(torch, fn)
+        print(f"{tag} {label}: {ms:.1f} ms (CUDA events, one call)")
+        require(tuple(out.shape) == shape, f"{tag} {label}: shape {tuple(out.shape)}")
+        require(bool(torch.isfinite(out).all()), f"{tag} {label}: non-finite values")
+        return out
+
+    def flat_error(rec, scale=1.0):
+        """|the flat interior's mean / (``scale`` x each slice's value) - 1|."""
+        return np.abs(rec[:, flat].double().mean(1).cpu().numpy() / scale / values[:len(rec)] - 1)
+
+    def incircle_rmse(rec):
+        ref = truth[:len(rec), circle].double()
+        d = rec[:, circle].double() - ref
+        return (d.square().mean(1).sqrt() / ref.square().mean(1).sqrt()).tolist()
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    na = len(angles)
+    rd = RecToolsDIRCuPy(n, 0, nz, 0.0, angles, n)
+    rd2 = RecToolsDIRCuPy(n, 0, None, 0.0, angles, n)
+    fp = timed("3D FORWPROJ", lambda: rd.FORWPROJ(truth), (nz, na, n))
+    check("3D FORWPROJ against the transform, rel L2 per slice",
+          slice_rel_l2(torch, fp, sino[0.0]), tol_fp)
+    check("3D FORWPROJ against negated angles", slice_rel_l2(torch, fp, negated), MIN_FLIP, True)
+    check("3D FORWPROJ against a mirrored detector",
+          slice_rel_l2(torch, fp, sino[0.0].flip(2)), MIN_FLIP, True)
+    fp = timed(f"3D FORWPROJ at centre offset {cor}",
+               lambda: RecToolsDIRCuPy(n, 0, nz, cor, angles, n).FORWPROJ(truth), (nz, na, n))
+    check(f"centre offset {cor} against the transform at {cor}",
+          slice_rel_l2(torch, fp, sino[cor]), tol_fp)
+    check(f"centre offset {cor} against the transform at {-cor}",
+          slice_rel_l2(torch, fp, sino[-cor]), min_cor, True)
+    del fp, negated
+    one = timed("one-slice FORWPROJ", lambda: rd2.FORWPROJ(truth[0]), (na, n))
+    check("one-slice FORWPROJ against the transform", slice_rel_l2(torch, one[None], sino[0.0][:1]),
+          tol_fp)
+    rec = timed("3D FBP (ram-lak)",
+                lambda: rd.FBP(sino[0.0].transpose(0, 1), filter_type="ram-lak"), (nz, n, n))
+    check("3D FBP |flat interior / value - 1|", flat_error(rec), TOL_FLAT_FBP)
+    check("3D FBP rel RMSE inside 0.45 N", incircle_rmse(rec), MAX_RMSE_FBP)
+    rec = timed("2D FBP (ram-lak), slice 0",
+                lambda: rd2.FBP(sino[0.0][0], filter_type="ram-lak"), (n, n))[None]
+    check("2D FBP |flat interior / value - 1|", flat_error(rec), TOL_FLAT_FBP)
+    check("2D FBP rel RMSE inside 0.45 N", incircle_rmse(rec), MAX_RMSE_FBP)
+    rec = timed("FOURIER_INV (ramp)", lambda: rd.FOURIER_INV(sino[0.0], filter_type="ramp"),
+                (nz, n, n))
+    check("FOURIER_INV |flat interior / (8/pi) / value - 1|",
+          flat_error(rec, AN.FOURIER_INV_SCALE), TOL_FLAT_FI)
+    base, shifted = AN.shift_rmse(rec[0].cpu().numpy() / AN.FOURIER_INV_SCALE,
+                                  truth[0].cpu().numpy(), AN.incircle_mask(n))
+    print(f"{tag} FOURIER_INV slice 0: RMSE inside 0.45 N {base:.5f}; 1-pixel shifts "
+          + ", ".join(f"{d}: {v:.5f}" for d, v in shifted.items()) + " (each must be larger)")
+    require(all(v > base for v in shifted.values()),
+            f"{tag} FOURIER_INV: a 1-pixel shift fits better than the reconstruction")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.launch_counts.items() if v}
+    for k in path:
+        require(counts.get(k, 0) > 0, f"{tag} {k} was not launched")
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.1f} s; launches "
+          + json.dumps(counts))
+    return counts
+
+
 def main() -> int:
     pkg = os.path.join(REPO, "tomobar_tpu_torch")
     import torch
@@ -2727,6 +2859,11 @@ def main() -> int:
 
     # ---- 16. the examples ---------------------------------------------------
     for k, v in examples_phase(torch, dev, smi, per_iter[2]).items():
+        launches[k] += v
+
+    # ---- 17. the closed-form Radon transform at the flagship's width --------
+    for k, v in analytic_crosscheck(torch, dev, N, NZ, angles, C_TRUE, TOL_ANALYTIC_FP,
+                                    MIN_ANALYTIC_COR, ANALYTIC_PATH).items():
         launches[k] += v
 
     summary = {

@@ -15,7 +15,10 @@ with bf16 duals within 1e-3).  Beside them: the pair's adjointness at
 nz = 8 and nz = 1 (phases 4 and 8's own check), the GPU against the CPU at 256^2 x 4 x 90 (3D FISTA,
 FBP, FOURIER_INV) and on the examples' paths at 64^2 (SWLS/Huber,
 OSEM/MLEM/KL, the padded warm start and ADMM, and plain PWLS and LS on data
-where they are stable to rounding), all within 1e-4 rel L2.
+where they are stable to rounding), all within 1e-4 rel L2; and the direct
+entry points against the closed-form Radon transform of ellipses at the
+sizes and thresholds of ``tests/test_torch_crosscheck_analytic.py``, on
+both projector pairs (``chip_smoke.py``'s phase-17 check).
 """
 
 import os
@@ -252,3 +255,22 @@ def example_runs(dev):
 def test_example_path_gpu_matches_cpu(example_runs, dev, name, volume):
     runs = example_runs(name)
     assert rel_l2(runs[dev][volume], runs["cpu"][volume]) <= TOL_GPU_CPU
+
+
+# the closed-form Radon transform (bench.analytic) at the CPU cross-check's
+# size and thresholds, and the kernels each projector pair must launch
+ANALYTIC_N, ANALYTIC_NZ, ANALYTIC_COR = 256, 4, 3.5
+ANALYTIC_TOL_FP, ANALYTIC_MIN_COR = 0.01, CS.MIN_FLIP
+ANALYTIC_PATHS = {"pallas": CS.ANALYTIC_PATH, "xla": ("F", "G")}
+
+
+@pytest.mark.parametrize("backend", list(ANALYTIC_PATHS))
+def test_analytic_crosscheck(dev, monkeypatch, backend):
+    from tomobar_tpu_torch.ops import projector as TP
+
+    monkeypatch.setattr(TP, "_BACKEND", TP._BACKEND)
+    TP.set_projector_backend(backend)
+    CS.analytic_crosscheck(torch, dev, ANALYTIC_N, ANALYTIC_NZ,
+                           np.linspace(0.0, np.pi, 360, endpoint=False), ANALYTIC_COR,
+                           ANALYTIC_TOL_FP, ANALYTIC_MIN_COR, ANALYTIC_PATHS[backend],
+                           tag=f"[lane, {backend}]")

@@ -105,6 +105,7 @@ class Marks:
         self._points: List = []
 
     def mark(self) -> None:
+        """Record a point: a CUDA event on the card, the host clock on the CPU."""
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
@@ -113,6 +114,7 @@ class Marks:
             self._points.append(time.perf_counter())
 
     def elapsed_ms(self) -> List[float]:
+        """Milliseconds between consecutive points (synchronises the card)."""
         pts = self._points
         if self.cuda:
             torch.cuda.synchronize()
@@ -121,12 +123,14 @@ class Marks:
 
 
 def rmse(a, b) -> float:
+    """Root-mean-square difference of ``a`` and ``b``, in float64."""
     a = np.asarray(a, dtype=np.float64)
     b = np.asarray(b, dtype=np.float64)
     return float(np.sqrt(np.mean((a - b) ** 2)))
 
 
 def rel_rmse(rec, ref) -> float:
+    """:func:`rmse` of ``rec`` against ``ref`` over the RMS of ``ref``."""
     ref_n = np.sqrt(np.mean(np.asarray(ref, dtype=np.float64) ** 2))
     return rmse(rec, ref) / max(ref_n, 1e-30)
 

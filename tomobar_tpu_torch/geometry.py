@@ -131,6 +131,7 @@ class Geometry:
         return None
 
     def os_indices(self) -> List[np.ndarray]:
+        """The angle indices of each ordered subset (:func:`os_subset_indices`)."""
         return os_subset_indices(self.n_angles, self.os_number)
 
     def subset(self, indices: np.ndarray) -> "Geometry":
@@ -149,6 +150,7 @@ class Geometry:
         )
 
     def with_recon_size(self, recon_size: int) -> "Geometry":
+        """The same geometry with another reconstruction size."""
         return Geometry(
             detectors_x=self.detectors_x,
             detectors_y=self.detectors_y,

@@ -193,6 +193,9 @@ class RecToolsIRTPU:
         return val
 
     def Landweber(self, _data_: dict, _algorithm_: Union[dict, None] = None) -> torch.Tensor:
+        """Landweber iterations (``iterations``, step ``tau_step_lanweber``,
+        ``nonnegativity``) on ``projection_data``; keys as in
+        ``docs/parameters.md``.  Returns the reconstruction on the device."""
         d, a, _ = self._prep_data(_data_, _algorithm_, None, "Landweber")
         x = solvers.landweber(
             self.Atools,
@@ -204,6 +207,9 @@ class RecToolsIRTPU:
         return self._finalise(x, a)
 
     def SIRT(self, _data_: dict, _algorithm_: Union[dict, None] = None) -> torch.Tensor:
+        """SIRT (``iterations``, ``nonnegativity``) on ``projection_data``;
+        keys as in ``docs/parameters.md``.  Returns the reconstruction on the
+        device."""
         d, a, _ = self._prep_data(_data_, _algorithm_, None, "SIRT")
         x = solvers.sirt(
             self.Atools,
@@ -214,6 +220,9 @@ class RecToolsIRTPU:
         return self._finalise(x, a)
 
     def CGLS(self, _data_: dict, _algorithm_: Union[dict, None] = None) -> torch.Tensor:
+        """Conjugate gradients on the least-squares problem (``iterations``,
+        ``nonnegativity``) on ``projection_data``; keys as in
+        ``docs/parameters.md``.  Returns the reconstruction on the device."""
         d, a, _ = self._prep_data(_data_, _algorithm_, None, "CGLS")
         x = solvers.cgls(
             self.Atools,
@@ -229,6 +238,13 @@ class RecToolsIRTPU:
         _algorithm_: Union[dict, None] = None,
         _regularisation_: Union[dict, None] = None,
     ) -> torch.Tensor:
+        """FISTA, with ordered subsets when the instance has ``OS_number``:
+        the data fidelity of ``_data_`` (LS, PWLS, SWLS, KL; Huber and
+        Student's t thresholds), ``_algorithm_``'s iterations, Lipschitz
+        constant (the power method's when absent), nonnegativity, warm start
+        (``initialise``) and tolerance, and the prox of ``_regularisation_``
+        (:func:`tomobar_tpu_torch.regularisers.prox_regul`).  Keys as in
+        ``docs/parameters.md``.  Returns the reconstruction on the device."""
         d, a, r, x0 = self._common_init(_data_, _algorithm_, _regularisation_, "FISTA")
         x = solvers.fista(
             self.Atools,
@@ -251,6 +267,10 @@ class RecToolsIRTPU:
         _algorithm_: Union[dict, None] = None,
         _regularisation_: Union[dict, None] = None,
     ) -> torch.Tensor:
+        """ADMM (``ADMM_rho_const``, ``ADMM_relax_par``), with ordered subsets
+        when the instance has ``OS_number``; the dictionaries as
+        :meth:`FISTA`'s, the regularisation parameter divided by rho as the
+        reference does.  Returns the reconstruction on the device."""
         d, a, r, x0 = self._common_init(_data_, _algorithm_, _regularisation_, "ADMM")
         # regul_param scaled by 1/rho (methodsIR_CuPy.py:526-528)
         r = dict(r)
@@ -279,6 +299,11 @@ class RecToolsIRTPU:
         _algorithm_: Union[dict, None] = None,
         _regularisation_: Union[dict, None] = None,
     ) -> torch.Tensor:
+        """OSEM (MLEM without subsets) on count-like ``projection_data``,
+        started from ones or ``initialise``, with an optional prox of
+        ``_regularisation_`` after each subset and ``osem_normalisation``
+        ("reference" or "divide").  Returns the reconstruction on the
+        device."""
         d, a, r, x0 = self._common_init(_data_, _algorithm_, _regularisation_, "OSEM")
         x = solvers.osem(
             self.Atools,

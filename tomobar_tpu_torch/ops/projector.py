@@ -513,25 +513,32 @@ class Projector:
         self._subset_index = {}
 
     def fp(self, vol: torch.Tensor) -> torch.Tensor:
+        """Forward projection of ``[nz, ny, nx]`` (or ``[ny, nx]``) to
+        ``[nz, angles, detX]`` (or ``[angles, detX]``), differentiable."""
         return _ForwardProject.apply(vol, self._plan)
 
     def bp(self, sino: torch.Tensor) -> torch.Tensor:
+        """Back-projection, the exact transpose of :meth:`fp`."""
         return _BackProject.apply(sino, self._plan)
 
     def fp_sub(self, vol: torch.Tensor, sub: int) -> torch.Tensor:
+        """Forward projection onto the angles of ordered subset ``sub``."""
         return _ForwardProject.apply(vol, self._sub_plans[sub])
 
     def bp_sub(self, sino: torch.Tensor, sub: int) -> torch.Tensor:
+        """Back-projection of ordered subset ``sub``'s sinogram."""
         return _BackProject.apply(sino, self._sub_plans[sub])
 
     # reductions over the whole volume or sinogram: the identity on one
     # device; the sharded projector reduces them over its z-slabs
     @staticmethod
     def global_sum(t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the devices holding the volume: ``t`` itself here."""
         return t
 
     @staticmethod
     def global_max(t: torch.Tensor) -> torch.Tensor:
+        """The largest ``t`` over the devices holding the volume: ``t`` itself here."""
         return t
 
     @staticmethod
@@ -540,6 +547,7 @@ class Projector:
         return torch.linalg.vector_norm(t)
 
     def sino_subset(self, sino: torch.Tensor, sub: int) -> torch.Tensor:
+        """The angles of ordered subset ``sub`` of ``[nz, angles, detX]``."""
         key = (sub, sino.device)
         if key not in self._subset_index:  # uploaded once, not at every call
             self._subset_index[key] = torch.as_tensor(

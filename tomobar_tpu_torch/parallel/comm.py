@@ -39,6 +39,7 @@ stats: Dict[str, Dict[str, float]] = {}
 
 
 def reset_stats() -> None:
+    """Empty :data:`stats`, the per-collective counts since the last reset."""
     stats.clear()
 
 

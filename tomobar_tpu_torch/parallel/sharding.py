@@ -383,20 +383,27 @@ class ShardedProjector:
     # -- Projector interface --------------------------------------------------
 
     def fp(self, vol: torch.Tensor) -> torch.Tensor:
+        """Forward projection of this rank's z-slab onto its angle group's
+        angles, gathered to the whole sinogram slab (one ``all_gather``)."""
         return self._post_fp(self._fp_plan(vol, self._plan), self._plan.plan)
 
     def bp(self, sino: torch.Tensor) -> torch.Tensor:
+        """Back-projection of this rank's sinogram slab over its dealt angles,
+        summed over the angle group (one ``all_reduce``)."""
         return self._bp_plan(self._pre_bp(sino, self._plan.plan), self._plan)
 
     def fp_sub(self, vol: torch.Tensor, sub: int) -> torch.Tensor:
+        """:meth:`fp` onto the angles of ordered subset ``sub``."""
         rp = self._sub_plans[sub]
         return self._post_fp(self._fp_plan(vol, rp), rp.plan)
 
     def bp_sub(self, sino: torch.Tensor, sub: int) -> torch.Tensor:
+        """:meth:`bp` of ordered subset ``sub``'s sinogram."""
         rp = self._sub_plans[sub]
         return self._bp_plan(self._pre_bp(sino, rp.plan), rp)
 
     def sino_subset(self, sino: torch.Tensor, sub: int) -> torch.Tensor:
+        """The angles of ordered subset ``sub`` of this rank's sinogram slab."""
         key = (sub, sino.device)
         if key not in self._subset_index:
             self._subset_index[key] = torch.as_tensor(
@@ -406,12 +413,16 @@ class ShardedProjector:
     # reductions of a whole volume or sinogram from this rank's slab: slabs
     # are replicated across the angle group, so they reduce over z
     def global_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the z-slabs (an ``all_reduce`` over z)."""
         return comm.all_reduce(t.clone(), self.mesh.z_group, "sum")
 
     def global_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The largest ``t`` over the z-slabs (an ``all_reduce`` over z)."""
         return comm.all_reduce(t.clone(), self.mesh.z_group, "max")
 
     def global_norm(self, t: torch.Tensor) -> torch.Tensor:
+        """The L2 norm of the whole volume or sinogram of which ``t`` is this
+        rank's slab (squares summed in float64 over z)."""
         sq = torch.linalg.vector_norm(t).double() ** 2
         return torch.sqrt(comm.all_reduce(sq, self.mesh.z_group, "sum")).to(t.dtype)
 

@@ -552,11 +552,14 @@ class DeviceMemStack:
         return (size + unit - 1) // unit * unit
 
     def malloc(self, byte_count: int) -> None:
+        """Record an allocation of ``byte_count`` bytes (rounded up to the
+        allocator's unit) and raise the high-water mark."""
         self.allocations.append(byte_count)
         self.current += self._round_up(byte_count)
         self.highwater = max(self.current, self.highwater)
 
     def free(self, byte_count: int) -> None:
+        """Release an allocation recorded by :meth:`malloc`."""
         assert byte_count in self.allocations
         self.allocations.remove(byte_count)
         self.current -= self._round_up(byte_count)
