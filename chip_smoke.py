@@ -28,11 +28,14 @@ Phases, in order; any failure raises and exits non-zero:
    slices, shuffled angles, an LU that is no multiple of 4; an index
    outside the sinogram must fail the launch, in a process of its own),
    and PD-TV
-   (iso/aniso x nonneg, nz 1 and 8, plus bf16 duals; iteration counts 1,
-   K - 1, K + 1 and 20 for K iterations per launch; 3 x 500 x 510, which
-   its tiles do not divide, and 20 slices, which it cuts into z-chunks),
-   each against its plain version on the same inputs; K1, K3 and K4 must
-   equal their plain versions bit for bit.
+   (iso/aniso x nonneg, nz 1, 3 and 8, plus bf16 duals; iteration counts
+   1, K - 1, K + 1 and 20 for K iterations per launch; 3 x 500 x 510, which
+   its tiles do not divide; 9 slices refused) and PDw, its y-wavefront for
+   more than 8 slices (12, 17 and 20 slices, one slab; 300 rows, three
+   y-segments; 33 and 70 slices, slabs of 32 with a halo in z), each
+   against its plain
+   version on the same inputs; K1, K3 and K4 must equal their plain
+   versions bit for bit.
 4. adjointness of the kernel pair.
 5. the slice on the CPU (plain versions) and on the GPU (kernels),
    256^2 x 4 slices x 90 angles, OS5, PWLS, nonneg, PD-TV 20.
@@ -76,8 +79,10 @@ Phases, in order; any failure raises and exits non-zero:
    on the device (9.4 GB): 3D FBP (every block of 8 slices must equal phase
    7's 8-slice result bit for bit) and FOURIER_INV with default kwargs
    (first 8 slices against phase 7's within 1e-6 rel L2), then one PD-TV
-   prox of 20 iterations on a 512 x 2560^2 volume that is constant along z
-   (13.4 GB) against the one-slice prox of the same slice (1e-5 of max); the
+   prox of 20 iterations (PDw) on a 512 x 2560^2 volume that is constant
+   along z (13.4 GB) against the one-slice prox of the same slice (1e-5 of
+   max), and one on that volume times 1 + sin(0.7 z) / 2 against the plain
+   version on three windows of 40 slices (with their halo of 20); the
    times, chunk counts and peak memory of each; right before FOURIER_INV,
    its shape-tuple estimate (held in phase 13).
 10. the regularisers: every method that ``prox_regul`` dispatches (ROF_TV,
@@ -139,7 +144,8 @@ Phases, in order; any failure raises and exits non-zero:
    1e-5 rel L2; the RMSE against the phantom falls from iteration 1 to 3
    on every mesh; the 64-slice prox equal to the single card's bit for
    bit on each slab, its z_halo moving fewer slices than a slab holds;
-   every rank launched K1-K4 and PD (and G and F on the direct path).  Each rank prints its launches, outer-iteration ms,
+   every rank launched K1-K4 and PD (and G and F on the direct path, PDw
+   in the 64-slice prox).  Each rank prints its launches, outer-iteration ms,
    peak memory and the bytes each collective moved and staged, and counts
    the collectives of one more outer iteration
    (``bench.scaling.count_collectives_in_step``).  A rank that fails or
@@ -156,10 +162,13 @@ Phases, in order; any failure raises and exits non-zero:
    1801 angles (OS10, TV20, 20 FISTA-PWLS and 3 warm-started ADMM-OS24
    iterations): first its kernels against their plain versions on its own
    inputs (K1-K4 on both driven groups of OS subset 0 at 20 slices, one
-   PD-TV prox of 20 iterations on its FBP at 20 x 2560^2, F on the FBP
-   filter's packed rows, both signs), then the run, with the counters reset
-   before it and read after it (K1-K4,
-   PD and F must be launched), FISTA's rel-RMSE falling at every step and
+   PD-TV prox of 20 iterations on its FBP at 20 x 2560^2, which is PDw's
+   time in the kernels line, and on 64 slices of it, F on the FBP filter's
+   packed rows, both signs), then the run, with the counters reset before
+   it and read after it (K1-K4, PDw and F must be launched) and PDw's
+   counter read after each FISTA step (the same count in every outer
+   iteration: PDw's launches per call in the kernels line), FISTA's
+   rel-RMSE falling at every step and
    reaching FBP's, ADMM's ending below FBP's (the TPU run's quality
    printed beside); and ``comm_model`` equal, call for call and byte for
    byte, to the collectives each rank of phase 14 counted.
@@ -206,8 +215,9 @@ The last three lines are the nvidia-smi line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.  A kernel's entry
 holds its launches on the main paths (``launches``) and per call of its
 path (``launches_per_call`` of ``per_call_of``), its worst error, and, summed
-over the calls timed at the flagship shapes (PD: one prox of 20 iterations,
-which is several launches), its time, its plain version's,
+over the calls timed at the flagship shapes (PD: one prox of 20 iterations
+on 8 x 2560^2, PDw: one on the north star's 20 x 2560^2, each several
+launches), its time, its plain version's,
 the time of one PyTorch call for the same function where there is one
 (``library_ms``: ``torch.fft`` on an already complex tensor for F) and its
 bound: the larger of its operations over 67 TFLOP/s (float32 outside the
@@ -285,6 +295,8 @@ KERNELS = {
             "tomobar_tpu/ops/projector_pallas.py:588"),
     "PD": ("pd_tv", "tomobar_tpu_torch/csrc/pd_tv.cu",
            "tomobar_tpu/ops/pd_tv_pallas.py:144"),
+    "PDw": ("pd_tv_wave", "tomobar_tpu_torch/csrc/pd_tv.cu",
+            "tomobar_tpu/ops/pd_tv_pallas.py:144 (_pd_tv_stream_kernel, its y-wavefront)"),
     "G": ("usfft_grid", "tomobar_tpu_torch/csrc/usfft_grid.cu",
           "tomobar_tpu/ops/usfft_pallas.py:236 (G1 _grid_kernel_astack) "
           "and tomobar_tpu/ops/usfft_pallas.py:91 (G0 _grid_kernel)"),
@@ -332,7 +344,7 @@ RANK_TIMEOUT = 420  # seconds for one world of ranks
 # launches, and the TPU run's quality (NORTHSTAR_r04.json; rel-RMSE only)
 NORTHSTAR = dict(N=2560, nz=20, nproj=1801, os_number=10, tv_iters=20, fista_outer=20,
                  admm_outer=3, regul_param=2e-4, i0=8000.0)
-NORTHSTAR_PATH = ("K1", "K2", "K3", "K4", "PD", "F")
+NORTHSTAR_PATH = ("K1", "K2", "K3", "K4", "PDw", "F")  # 20 slices: PD's wavefront
 NORTHSTAR_TPU = {"fbp": 0.5097, "fista": 0.3247, "admm": 0.2403}
 TOL_STAGE_SUM = 0.15  # FOURIER_INV's staged sum against phase 7's call
 MEMPLAN_DEPTH = 4096  # slices of a 2560^2 volume larger than the card (107 GB)
@@ -590,13 +602,23 @@ def check_adjointness(torch, geoms: dict, dev, seed: int, phase: str) -> None:
 def check_pd_shapes(torch, PDT, errs, dev) -> None:
     """PD against its plain version at iteration counts around the K that
     one launch fuses (a single launch, a shorter last launch), on a volume
-    its tiles do not divide, on one slice, and on 20 slices (z-chunks with a
-    halo in z, fewer iterations per launch)."""
+    its tiles do not divide, on one slice and on its 8 slices at most
+    (``tt_pd_tv`` refuses 9); and PDw, the wavefront of more than 8 slices,
+    on one slab (12, 17 and 20 slices) and on slabs with a halo in z (33 and
+    70 slices, fewer iterations a sweep), on more than one y-segment (300
+    rows)."""
     from tomobar_tpu_torch import _build
 
+    deep = PDT.FUSE_Z_MAX + 1
+    err = _build.library().tt_pd_tv(*[None] * 9, deep, 64, 64, 1.0, 0.1, 0.1, 1.0, 1, 1, 0, 1,
+                                     1, 1, None)
+    print(f"[3] tt_pd_tv on {deep} slices: error {err} (refused, no launch)")
+    require(err != 0, f"tt_pd_tv took {deep} slices")
     rng = np.random.default_rng(32)
-    for shape in ((3, 500, 510), (1, 500, 510), (20, 100, 120)):
-        k = _build.library().tt_pd_tv_fuse(shape[0])
+    for shape in ((3, 500, 510), (1, 500, 510), (8, 100, 120), (12, 100, 120),
+                  (20, 100, 120), (17, 300, 130), (33, 100, 120), (70, 60, 200)):
+        k = PDT.fuse(shape[0])
+        key = "PDw" if shape[0] > PDT.FUSE_Z_MAX else "PD"
         clean = phantom(512, shape[0])[:, : shape[1], : shape[2]]
         data = torch.as_tensor(
             clean + 0.1 * rng.standard_normal(shape).astype(np.float32), device=dev)
@@ -604,11 +626,11 @@ def check_pd_shapes(torch, PDT, errs, dev) -> None:
             for mtv, nn in ((0, 1), (1, 0)):
                 args = (data, 0.05, iters, mtv, nn, 12.0)
                 errs.compare(
-                    "PD", f"{'x'.join(map(str, shape))}, {iters} iterations ({k} per launch), "
-                          f"methodTV={mtv} nonneg={nn}",
+                    key, f"{'x'.join(map(str, shape))}, {iters} iterations ({k} per launch), "
+                         f"methodTV={mtv} nonneg={nn}",
                     PDT.pd_tv(*args), PDT.pd_tv_plain(*args))
         args = (data, 0.05, k + 1, 0, 1, 12.0, True)
-        errs.compare("PD", f"{'x'.join(map(str, shape))}, {k + 1} iterations, bf16 duals",
+        errs.compare(key, f"{'x'.join(map(str, shape))}, {k + 1} iterations, bf16 duals",
                      PDT.pd_tv(*args), PDT.pd_tv_plain(*args), tol=TOL_PD_BF16)
 
 
@@ -1118,7 +1140,7 @@ def two_d_path(torch, K, errs, measure, dev) -> dict:
             for k in TWO_D}, per_call
 
 
-def big_stack(torch, dev, clean, angles, small):
+def big_stack(torch, errs, dev, clean, angles, small):
     """9: a stack deeper than one launch can take (512 slices: the 2560^2
     volume has 3.4e9 voxels, the sinogram 2.4e9 samples), through the public
     entry points.  ``clean`` is phase 6's (8, angles, detX) sinogram, ``small``
@@ -1215,9 +1237,22 @@ def big_stack(torch, dev, clean, angles, small):
     print(f"[9] PD-TV: max|slice - one-slice prox| {err:.3e}, relative {err / scale:.3e} (tol {TOL_KERNEL:g})")
     require(bool(torch.isfinite(out).all()), "PD-TV on the big stack: non-finite result")
     require(err <= TOL_KERNEL * scale, f"PD-TV on {NZ} slices differs from the one-slice prox")
+    # PDw against its plain version where the slices differ: the volume
+    # times 1 + sin(0.7 z) / 2, the plain version on windows of 40 slices
+    # with the wrapper's halo of 20 (its z-chunks equal the whole volume's
+    # result bit for bit), across the kernel's slabs of 32
+    del out
+    vol.mul_((1.0 + 0.5 * torch.sin(0.7 * torch.arange(NZ, device=dev)))[:, None, None])
+    out = run(f"PD-TV prox, 20 iterations, {NZ}x{N}x{N} varying along z", lambda: PD_TV(vol, *args))
+    for z0 in (0, NZ // 2 - 21, NZ - 40):
+        h0, h1 = max(0, z0 - 20), min(NZ, z0 + 60)
+        errs.compare("PDw", f"{NZ}x{N}^2 slices {z0}-{z0 + 39}, the plain version on "
+                     f"{h0}-{h1 - 1}", out[z0 : z0 + 40],
+                     PDT.pd_tv_plain(vol[h0:h1], *args)[z0 - h0 : z0 - h0 + 40])
+    del out, vol
     launches = {k: v for k, v in _build.launch_counts.items() if v}
     print(f"[9] launch counts of the phase: {json.dumps(launches)}")
-    for k in ("K3", "K4", "F", "G", "PD"):
+    for k in ("K3", "K4", "F", "G", "PDw"):
         require(launches.get(k, 0) > 0, f"kernel {k} was not launched by the big stack")
     return launches, plan
 
@@ -2044,8 +2079,8 @@ def sharded_path(torch, work: str, refs: dict) -> dict:
                       f"{halo['slab']}; {'bit-equal' if halo['equal'] else 'not bit-equal'} "
                       f"to the whole volume's prox, rel L2 {halo['rel']:.3e}; launches "
                       f"{json.dumps({k: v for k, v in halo['launches'].items() if v})}")
-                require(halo["launches"].get("PD", 0) > 0,
-                        f"phase 14 ({n_z}, {n_a}) rank {rank}: the halo prox did not launch PD")
+                require(halo["launches"].get("PDw", 0) > 0,
+                        f"phase 14 ({n_z}, {n_a}) rank {rank}: the halo prox did not launch PDw")
                 require(0 < halo["moved_slices"] < halo["slab"],
                         f"phase 14 ({n_z}, {n_a}) rank {rank}: the halo moved "
                         f"{halo['moved_slices']} slices, not fewer than a slab's {halo['slab']}")
@@ -2139,14 +2174,16 @@ def memory_plans(torch, dev) -> None:
         del x
 
 
-def check_northstar_kernels(torch, errs, dev) -> None:
+def check_northstar_kernels(torch, errs, measure, dev) -> tuple:
     """15: the kernels of the north-star path against their plain versions
     on its own inputs and shapes: K1-K4 on both driven groups of OS subset
     0 at its slice count (fp_sub's chain on the phantom, bp_sub's on the
     noisy sinogram's subset), F on the FBP filter's packed rows (the
     forward transform, then the inverse of the filtered spectrum) and one
-    PD-TV prox of its iterations on its FBP, clamped at 0 (2 iterations a
-    launch, as for every volume of more than 16 slices)."""
+    PD-TV prox of its iterations on its FBP, clamped at 0: PDw, the
+    y-wavefront of every volume of more than 8 slices, timed there beside
+    its plain version and bound, and held on 64 slices (that FBP repeated,
+    times 1 + sin(0.7 z) / 2)."""
     from tomobar_tpu_torch import RecToolsDIRCuPy
     from tomobar_tpu_torch.bench.northstar import northstar_inputs
     from tomobar_tpu_torch.ops import fft_kernels as FK
@@ -2194,19 +2231,33 @@ def check_northstar_kernels(torch, errs, dev) -> None:
     x = torch.clamp(RecToolsDIRCuPy(N, 0, NZ, 0.0, angles, N, device=dev).FBP(
         sino.transpose(0, 1), cutoff_freq=1.1), min=0.0).contiguous()
     del sino
-    args = (x, ns["regul_param"], ns["tv_iters"], 0, 1, 12.0)
-    errs.compare("PD", f"north star, one prox of {ns['tv_iters']} iterations on its FBP, "
-                 f"{NZ} x {N}^2", PDT.pd_tv(*args), PDT.pd_tv_plain(*args))
+    iters = ns["tv_iters"]
+    args = (x, ns["regul_param"], iters, 0, 1, 12.0)
+    label = f"one prox of {iters} iterations on the north star's FBP, {NZ} x {N}^2"
+    errs.compare("PDw", label, PDT.pd_tv(*args), PDT.pd_tv_plain(*args))
+    measure("PDw", label, lambda: PDT.pd_tv(*args), lambda: PDT.pd_tv_plain(*args),
+            work_pd(NZ, N, iters), reps=5, plain_reps=1, check=False, phase="15")
+    deep = x.repeat(4, 1, 1)[:64] * (1.0 + 0.5 * torch.sin(0.7 * torch.arange(64, device=dev)))[
+        :, None, None]
+    del x
+    args = (deep, ns["regul_param"], iters, 0, 1, 12.0)
+    errs.compare("PDw", f"one prox of {iters} iterations on 64 x {N}^2 (the FBP repeated)",
+                 PDT.pd_tv(*args), PDT.pd_tv_plain(*args))
+    print(f"[15] PDw pd_tv, one prox of {iters} iterations on 64 x {N}^2: kernel "
+          f"{time_cuda(lambda: PDT.pd_tv(*args), 3):.3f} ms, plain "
+          f"{time_cuda(lambda: PDT.pd_tv_plain(*args), 1):.3f} ms, bound "
+          f"{work_pd(64, N, iters)[0] / PEAK_FLOPS * 1e3:.3f} ms (operations)")
 
 
-def bench_phase(torch, errs, dev, ms_outer: float, bd: dict, ms_fi: float, fb: dict,
-                counted: dict) -> dict:
+def bench_phase(torch, errs, measure, dev, ms_outer: float, bd: dict, ms_fi: float, fb: dict,
+                counted: dict) -> tuple:
     """15: the bench modules (``tomobar_tpu_torch/bench``) at BASELINE's
     shapes.  ``ms_outer`` is phase 6's outer iteration and ``bd`` its
     ``flagship_breakdown``, ``ms_fi`` phase 7's FOURIER_INV call and ``fb``
     its ``fourier_breakdown``, ``counted`` phase 14's collectives of one
     outer iteration per mesh and rank.  Returns the north-star run's
-    launches."""
+    launches and PDw's launches per FISTA outer iteration of that run (the
+    counters read after each of its steps) with what that iteration is."""
     from tomobar_tpu_torch import _build
     from tomobar_tpu_torch.bench.northstar import run_northstar
     from tomobar_tpu_torch.bench.scaling import comm_model
@@ -2239,16 +2290,27 @@ def bench_phase(torch, errs, dev, ms_outer: float, bd: dict, ms_fi: float, fb: d
 
     shape = f"{NORTHSTAR['N']}^2 x {NORTHSTAR['nz']} x {NORTHSTAR['nproj']}"
     print(f"[15] the north star's kernels against their plain versions on its inputs, {shape}:")
-    check_northstar_kernels(torch, errs, dev)
+    check_northstar_kernels(torch, errs, measure, dev)
     print(f"[15] run_northstar {shape}, OS{NORTHSTAR['os_number']}, TV{NORTHSTAR['tv_iters']}, "
           f"{NORTHSTAR['fista_outer']} FISTA and {NORTHSTAR['admm_outer']} ADMM iterations:")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    ns = run_northstar(**NORTHSTAR, device=dev)
+    after_step = {"fista": [], "admm": []}
+    ns = run_northstar(**NORTHSTAR, device=dev, on_step=lambda solver, i: after_step[solver].append(
+        _build.launch_counts["PDw"]))
     torch.cuda.synchronize()
     launches = {k: v for k, v in _build.launch_counts.items() if v}
+    steps = after_step["fista"]
+    per_step = sorted({b - a for a, b in zip(steps, steps[1:])})
+    print(f"[15] PDw launches in each FISTA outer iteration of the north-star run after the "
+          f"first: {per_step}")
+    require(len(steps) == NORTHSTAR["fista_outer"] and len(per_step) == 1 and per_step[0] > 0,
+            f"PDw launches per FISTA outer iteration of the north-star run: {per_step}")
+    pdw_per_call = (per_step[0], f"north-star FISTA outer iteration ({NORTHSTAR['os_number']} "
+                    f"PD-TV proxes of {NORTHSTAR['tv_iters']} iterations on {NORTHSTAR['nz']} x "
+                    f"{NORTHSTAR['N']}^2)")
     print(f"[15] north-star run {time.perf_counter() - t0:.1f} s wall, peak "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {json.dumps(launches)}")
     print(f"[15] run_northstar: {json.dumps(ns)}")
@@ -2278,7 +2340,7 @@ def bench_phase(torch, errs, dev, ms_outer: float, bd: dict, ms_fi: float, fb: d
                   f"phase 14: {json.dumps(got)}")
             require(got == model, f"comm_model mesh ({n_z}, {n_a}) z {z} differs from the counts")
     print(f"[15] the phase took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, pdw_per_call
 
 
 def load_example(name: str):
@@ -2739,13 +2801,13 @@ def main() -> int:
                  "bound_ms": 0.0, "library_ms": None, "device_ms": None} for k in KERNELS}
 
     def measure(key, label, kern, plain, work, reps=10, plain_reps=2, check=True,
-                tol=TOL_KERNEL, library=None, small=False):
+                tol=TOL_KERNEL, library=None, small=False, phase=None):
         """Time kern() beside plain() (and library(), one PyTorch call for the
         same function) and add them, and the bound of `work` = (operations,
         bytes), to the kernel's sums.  ``small``: a kernel that takes less
         than the host needs to enqueue it is also timed on the device alone,
         from a CUDA graph (``device_ms``)."""
-        phase = "6" if key in ITERATIVE else "8" if key in TWO_D else "7"
+        phase = phase or ("6" if key in ITERATIVE else "8" if key in TWO_D else "7")
         if check:
             errs.compare(key, f"flagship, {label}", kern(), plain(), tol=tol)
         t = times[key]
@@ -2825,7 +2887,7 @@ def main() -> int:
         whole.update(part)
 
     # ---- 9. the big stack -------------------------------------------------
-    stack_launches, plan_512 = big_stack(torch, dev, clean, angles, small)
+    stack_launches, plan_512 = big_stack(torch, errs, dev, clean, angles, small)
     for k, v in stack_launches.items():
         launches[k] += v
     del small
@@ -2854,7 +2916,9 @@ def main() -> int:
     del refs
 
     # ---- 15. the bench modules ---------------------------------------------
-    for k, v in bench_phase(torch, errs, dev, per_iter[2], bd, ms_fi, fb, counted).items():
+    ns_launches, per_call["PDw"] = bench_phase(torch, errs, measure, dev, per_iter[2], bd, ms_fi,
+                                               fb, counted)
+    for k, v in ns_launches.items():
         launches[k] += v
 
     # ---- 16. the examples ---------------------------------------------------

@@ -147,10 +147,14 @@ JAX_FISTA_KEYS = {
 JAX_ADMM_KEYS = {"warm_start", "os", "rel_rmse_final", "outer_iters", "total_s", "trajectory"}
 
 
+STEPS = []  # small_run's on_step calls
+
+
 @pytest.fixture(scope="module")
 def small_run():
     return NS.run_northstar(N=32, nz=4, nproj=24, os_number=4, tv_iters=5, fista_outer=6,
-                            admm_outer=3, device="cpu", verbose=False)
+                            admm_outer=3, device="cpu", verbose=False,
+                            on_step=lambda solver, i: STEPS.append((solver, i)))
 
 
 def test_run_northstar_keys(small_run):
@@ -173,6 +177,13 @@ def test_run_northstar_trajectories(small_run):
         assert all(a > b for a, b in zip(rmse, rmse[1:])), (name, rmse)
     assert 0 < small_run["rel_rmse_fbp"] < 1 and small_run["lipschitz_const"] > 0
     assert small_run["fista"]["iter_s"] > 0
+
+
+def test_run_northstar_on_step(small_run):
+    """``on_step`` is called after each outer step of the FISTA and then of
+    the ADMM trajectory, and only there (not in the steps that time
+    ``iter_s``)."""
+    assert STEPS == [("fista", i) for i in range(6)] + [("admm", i) for i in range(3)]
 
 
 def test_trajectory_keeps_a_slow_step():

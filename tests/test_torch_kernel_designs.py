@@ -1093,32 +1093,35 @@ def test_k3_wrapper_on_cpu_is_the_plain_version():
 
 from tomobar_tpu_torch.ops import pd_tv as PDT  # noqa: E402
 
-PD_K, PD_KZ, PD_V, PD_TY, PD_ZMAX, PD_PAD = (
-    cu_const("pd_tv.cu", n) for n in ("kPDK", "kPDKz", "kPDV", "kPDThreadsY", "kPDZMax", "kPDPad"))
+PD_K, PD_V, PD_TY, PD_ZMAX, PD_PAD = (
+    cu_const("pd_tv.cu", n) for n in ("kPDK", "kPDV", "kPDThreadsY", "kPDZMax", "kPDPad"))
 
 
 def pd_fuse(nz):
-    """fuse() of pd_tv.cu: iterations per launch."""
-    return PD_K if nz <= PD_ZMAX else PD_KZ
+    """fuse() of pd_tv.cu on the tile kernel's volumes: iterations per
+    launch."""
+    assert nz <= PD_ZMAX
+    return PD_K
 
 
 def pd_tile(nz):
-    """launch() of pd_tv.cu: (ZC, CY, TYT, slices a z-chunk stores)."""
-    for zc in (1, 2, 4, 8):
+    """launch() of pd_tv.cu: (ZC, CY, TYT).  tt_pd_tv refuses more than
+    kPDZMax slices: those go to the wavefront."""
+    for zc in (1, 2, 4, 8, PD_ZMAX):
         if nz <= zc:
-            return zc, PD_V // zc, PD_TY, nz
-    return PD_ZMAX, PD_V // PD_ZMAX, PD_TY, nz if nz <= PD_ZMAX else PD_ZMAX - 2 * pd_fuse(nz)
+            return zc, PD_V // zc, PD_TY
+    raise ValueError(f"the tile kernel takes at most {PD_ZMAX} slices, not {nz}")
 
 
 def bf16_round(x):
     return torch.from_numpy(x).to(torch.bfloat16).to(torch.float32).numpy()
 
 
-def pd_block(data, u_in, p_in, u_out, p_out, stored, bx, by, bz, K, first, last, consts,
+def pd_block(data, u_in, p_in, u_out, p_out, stored, bx, by, K, first, last, consts,
              iso, nonneg, bf16):
     sigma, tau, lt, theta = (f32(c) for c in consts)
     nz, ny, nx = data.shape
-    ZC, CY, TYT, zi = pd_tile(nz)
+    ZC, CY, TYT = pd_tile(nz)
     HY = TYT * CY
     plane = (HY + 1) * 32
     array = ZC * plane + PD_PAD
@@ -1132,14 +1135,9 @@ def pd_block(data, u_in, p_in, u_out, p_out, stored, bx, by, bz, K, first, last,
     s = z * plane + ly * 32 + lx
     gx = bx * (32 - 2 * K) - K + lx
     gy = by * (HY - 2 * K) - K + ly
-    zi0 = bz * zi
-    zs = max(0, zi0 - K) if zi < nz else 0
-    zc = min(nz, zi0 + zi + K) - zs if zi < nz else nz
-    z_lo, z_hi = zi0 - zs, min(nz, zi0 + zi) - zs
-    assert zc <= ZC
-    inside = (gx >= 0) & (gx < nx) & (gy >= 0) & (gy < ny) & (z < zc)
+    inside = (gx >= 0) & (gx < nx) & (gy >= 0) & (gy < ny) & (z < nz)
     gz, gy_c, gx_c = (np.broadcast_to(np.clip(v, 0, n - 1), inside.shape)
-                      for v, n in ((zs + z, nz), (gy, ny), (gx, nx)))
+                      for v, n in ((z, nz), (gy, ny), (gx, nx)))
 
     def fetch(arr):
         return np.where(inside, arr[gz, gy_c, gx_c], f32(0)).astype(f32)
@@ -1155,7 +1153,7 @@ def pd_block(data, u_in, p_in, u_out, p_out, stored, bx, by, bz, K, first, last,
     for off, i in ((sp1, 0), (sp2, 1)):
         smem[off + s] = f32(0) if first else fetch(p_in[i].astype(f32))
     x_last, y_last, x_first, y_first = gx == nx - 1, gy == ny - 1, gx == 0, gy == 0
-    z_first, z_last = zs + z == 0, zs + z == nz - 1
+    z_first, z_last = z == 0, z == nz - 1
     den = f32(1.0) + lt
     with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
         for _ in range(K):
@@ -1191,8 +1189,7 @@ def pd_block(data, u_in, p_in, u_out, p_out, stored, bx, by, bz, K, first, last,
             un = ((uc + tau * div) + lt * dat) / den
             smem[su + s] = (un + theta * (un - uc)).astype(f32)
             p3 = duals_as_stored(p3)
-    keep = (inside & (lx >= K) & (lx < 32 - K) & (ly >= K) & (ly < HY - K)
-            & (z >= z_lo) & (z < z_hi))
+    keep = inside & (lx >= K) & (lx < 32 - K) & (ly >= K) & (ly < HY - K)
     where = (gz[keep], gy_c[keep], gx_c[keep])
     u_out[where] = smem[su + s][keep]
     stored[where] += 1
@@ -1205,20 +1202,19 @@ def pd_emulated(data, lam, iterations, mtv, nonneg, lc, bf16=False):
     """pd_tv() on a CUDA tensor: the wrapper's launches, each block by block."""
     nz, ny, nx = data.shape
     consts = PDT.pd_tv_constants(lam, lc)
-    ZC, CY, TYT, zi = pd_tile(nz)
+    ZC, CY, TYT = pd_tile(nz)
     HY = TYT * CY
     u_prev, p_prev = None, None
     n_launches = 0
     for K, first, last in PDT.launch_plan(iterations, pd_fuse(nz)):
-        assert 2 * K < 32 and 2 * K < HY and (zi == nz or zi + 2 * K <= ZC)
+        assert 2 * K < 32 and 2 * K < HY and nz <= ZC
         u_out = np.full(data.shape, np.nan, dtype=f32)
         p_out = [np.full(data.shape, np.nan, dtype=f32) for _ in range(3)]
         stored = np.zeros(data.shape, dtype=np.int64)
-        for bz in range((nz + zi - 1) // zi):
-            for by in range((ny + HY - 2 * K - 1) // (HY - 2 * K)):
-                for bx in range((nx + 32 - 2 * K - 1) // (32 - 2 * K)):
-                    pd_block(data, u_prev, p_prev, u_out, p_out, stored, bx, by, bz, K,
-                             first, last, consts, mtv == 0, nonneg, bf16)
+        for by in range((ny + HY - 2 * K - 1) // (HY - 2 * K)):
+            for bx in range((nx + 32 - 2 * K - 1) // (32 - 2 * K)):
+                pd_block(data, u_prev, p_prev, u_out, p_out, stored, bx, by, K,
+                         first, last, consts, mtv == 0, nonneg, bf16)
         assert np.all(stored == 1)  # every voxel belongs to one inner tile
         u_prev, p_prev = u_out, p_out
         n_launches += 1
@@ -1263,11 +1259,16 @@ def test_pd_emulation_any_iteration_count(nz, iterations):
 
 @pytest.mark.parametrize("nz", [9, 16, 20, 41])
 def test_pd_emulation_many_slices(nz):
-    """Up to 16 slices are one chunk, a column of 16 per thread; more are
-    cut into chunks with a halo in z, fewer iterations per launch."""
-    pd_check(pd_case(nz, 20, 30, seed=nz), 5, 0, 1)
-    if nz > PD_ZMAX:
-        assert pd_fuse(nz) == PD_KZ and pd_tile(nz)[3] == PD_ZMAX - 2 * PD_KZ
+    """The tile kernel holds at most 8 slices a thread and refuses more; the
+    wrapper's route for them, the wavefront (one slab up to 32 slices,
+    slabs with a halo in z at 41), takes them."""
+    data = pd_case(nz, 20, 30, seed=nz)
+    if nz <= PD_ZMAX:
+        pd_check(data, 5, 0, 1)
+    else:
+        with pytest.raises(ValueError):
+            pd_tile(nz)
+        pdw_check(data, 5, 0, 1)
 
 
 @pytest.mark.parametrize("nz", [1, 3, 8])
@@ -1294,10 +1295,268 @@ def test_pd_launch_plan(iterations, fuse, counts):
 @pytest.mark.parametrize("nz", [1, 8, 16, 17, 512])
 def test_pd_fuse_mirrors_the_kernel(nz):
     """``pd_tv.fuse``, which a memory plan on meta tensors reads instead of
-    ``tt_pd_tv_fuse``, takes the kernel's constants."""
-    want = cu_const("pd_tv.cu", "kPDK") if nz <= cu_const("pd_tv.cu", "kPDZMax") \
-        else cu_const("pd_tv.cu", "kPDKz")
+    ``tt_pd_tv_fuse``, takes the kernels' constants: the tile kernel's up to
+    kPDZMax slices, the wavefront's above."""
+    want = PD_K if nz <= PD_ZMAX else PDW_K
     assert PDT.fuse(nz) == want
+
+
+def test_pd_route_mirrors_the_kernel():
+    """The wrapper sends a volume to the tile kernel up to kPDZMax slices,
+    the most a tile thread holds and the most tt_pd_tv takes, and to the
+    wavefront above; one FUSE stands for both kernels' iterations a
+    launch."""
+    assert PDT.FUSE_Z_MAX == PD_ZMAX
+    assert PDT.FUSE == PD_K == PDW_K
+    assert pd_tile(PD_ZMAX)[0] == PD_ZMAX
+
+
+# ---------------------------------------------------------------------------
+# PDw: csrc/pd_tv.cu, pd_tv_wave_kernel (the y-streaming wavefront)
+# ---------------------------------------------------------------------------
+
+PDW_K, PDW_WARPS1, PDW_WARPS, PDW_X, PDW_ROWS = (
+    cu_const("pd_tv.cu", n) for n in ("kPDWK", "kPDWWarps1", "kPDWWarps", "kPDWX", "kPDWRows"))
+SMEM_PER_BLOCK = 232448  # bytes of shared memory a block can use on an H100
+
+
+def pdw_fuse(nz):
+    """fuse() of pd_tv.cu above kPDZMax slices: iterations per sweep."""
+    return PDW_K
+
+
+def pdw_slabs(nz, K, zmax=PDW_WARPS):
+    """launch_wave(): (slices of a slab with its halo, one a warp row;
+    slices a slab keeps; slabs)."""
+    if nz <= zmax:
+        return nz, nz, 1
+    return zmax, zmax - 2 * K, -(-nz // (zmax - 2 * K))
+
+
+def pdw_smem_bytes(K, zs, W=32 * PDW_X):
+    """launch_wave_blocks()'s dynamic shared memory: 3K + 12 planes with
+    pads."""
+    return 4 * (3 * K + 12) * (zs * W + 2 * (W + 1))
+
+
+def pdw_block(data, u_in, p_in, u_out, p_out, stored, bx, by, bz, K, first, last, consts,
+              iso, nonneg, bf16, W, zs, zk, slabs, rows):
+    """One block of pd_tv_wave_kernel, every thread's voxels of a plane at
+    once: the sweep's steps, the levels of a step (dual step, barrier,
+    primal step), the u planes by row parity, the staged level 0, the
+    exchange planes by the parity of the level steps, the ring of data
+    rows, the duals of each level and the ones pending for the next."""
+    sigma, tau, lt, theta = (f32(c) for c in consts)
+    nz, ny, nx = data.shape
+    PL = zs * W + 2 * (W + 1)
+    smem = np.full((3 * K + 12) * PL, np.nan, dtype=f32)  # the kernel zero-fills
+    base = W + 1
+
+    def U(j, par):
+        return base + (2 * (j - 1) + par) * PL
+
+    def SU(par):
+        return base + (2 * (K - 1) + par) * PL
+
+    def SP(par, c):
+        return base + (2 * K + 3 * par + c) * PL
+
+    def X(par, c):
+        return base + (2 * K + 6 + 2 * par + c) * PL
+
+    def DR(row):
+        return base + (2 * K + 10 + row % (K + 2)) * PL
+
+    lz, lx = np.arange(zs)[:, None], np.arange(W)[None, :]
+    off = lz * W + lx
+    x0, y0 = bx * (W - 2 * K) - K, by * rows
+    y1 = min(ny, y0 + rows)
+    zk0 = bz * zk
+    zk1 = min(nz, zk0 + zk)
+    z0 = 0 if slabs == 1 else zk0 - K
+    gx, gz = x0 + lx, z0 + lz
+    inside = (gx >= 0) & (gx < nx) & (gz >= 0) & (gz < nz)
+    keep = inside & (lx >= K) & (lx < W - K) & (gz >= zk0) & (gz < zk1)
+    gzc, gxc = (np.broadcast_to(np.clip(v, 0, n - 1), inside.shape)
+                for v, n in ((gz, nz), (gx, nx)))
+    x_first, x_last, z_first, z_last = (np.broadcast_to(c, inside.shape) for c in (
+        gx == 0, gx == nx - 1, gz == 0, gz == nz - 1))
+
+    def fetch(arr, row):
+        return np.where(inside, arr[gzc, row, gxc], f32(0)).astype(f32)
+
+    def as_stored(c):
+        return bf16_round(c) if bf16 else c
+
+    def stage(row):
+        par = row & 1
+        smem[DR(row) + off] = fetch(data, row)
+        if not first:
+            smem[SU(par) + off] = fetch(u_in, row)
+            for c in range(3):
+                smem[SP(par, c) + off] = fetch(p_in[c].astype(f32), row)
+
+    s0, s1 = max(0, y0 - K), y1 - 1 + K
+    last_row = min(ny - 1, s1)
+    stage(s0)
+    P = [np.full((3, zs, W), np.nan, dtype=f32) for _ in range(K)]  # the kernel: zeros
+    pend, pend_ok, xpar = None, False, 0
+    rden = f32(1.0) / (f32(1.0) + lt)  # the primal step multiplies by it
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        for s in range(s0, s1 + 1):
+            for j in range(1, K + 1):
+                r = s - j
+                act = s0 <= r < ny
+                if act:
+                    rn = r + 1 if r + 1 < ny else r - 1
+                    if j > 1:
+                        uc, un = U(j - 1, r & 1), U(j - 1, rn & 1)
+                    else:
+                        uc, un = (DR(r), DR(rn)) if first else (SU(r & 1), SU(rn & 1))
+                    c = smem[uc + off]
+                    dx = np.where(x_last, smem[uc + off - 1], smem[uc + off + 1]) - c
+                    dy = smem[un + off] - c
+                    dz = np.where(z_last, smem[uc + off - W], smem[uc + off + W]) - c
+                    if j == 1:
+                        p = ([np.zeros_like(c)] * 3 if first
+                             else [smem[SP(r & 1, k) + off] for k in range(3)])
+                    else:
+                        p = [as_stored(P[j - 2][k]) for k in range(3)]
+                    q = [p[0] + sigma * dx, p[1] + sigma * dy, p[2] + sigma * dz]
+                    if iso:
+                        denom = (q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]
+                        rs = torch.rsqrt(torch.from_numpy(np.maximum(denom, f32(1e-30)))).numpy()
+                        scale = np.where(denom > 1, rs, f32(1))
+                        q = [v * scale for v in q]
+                    else:
+                        q = [v / np.maximum(np.abs(v), f32(1)) for v in q]
+                    T = np.stack(q).astype(f32)
+                    smem[X(xpar, 0) + off] = T[0]
+                    smem[X(xpar, 1) + off] = T[2]
+                if j >= 2 and pend_ok:
+                    P[j - 2] = pend
+                if act:
+                    div = np.where(x_first, T[0], T[0] - smem[X(xpar, 0) + off - 1])
+                    div = div + (T[1] if r == 0 else T[1] - P[j - 1][1])
+                    div = div + np.where(z_first, T[2], T[2] - smem[X(xpar, 1) + off - W])
+                    ucl = np.maximum(c, f32(0)) if nonneg else c
+                    unew = ((ucl + tau * div) + lt * smem[DR(r) + off]) * rden
+                    u_next = (unew + theta * (unew - ucl)).astype(f32)
+                    if j < K:
+                        smem[U(j, r & 1) + off] = u_next
+                    elif y0 <= r < y1:
+                        where = (gzc[keep], r, gxc[keep])
+                        u_out[where] = u_next[keep]
+                        stored[where] += 1
+                        if not last:
+                            for k in range(3):
+                                p_out[k][where] = as_stored(T[k])[keep]
+                    xpar ^= 1
+                if j == K:
+                    if act:
+                        P[j - 1] = T
+                else:
+                    if act:
+                        pend = T
+                    pend_ok = act
+                if j == 1 and s + 1 <= last_row:
+                    stage(s + 1)
+
+
+def pdw_emulated(data, lam, iterations, mtv, nonneg, lc, bf16=False, K=None,
+                 W=32 * PDW_X, zmax=PDW_WARPS, rows=PDW_ROWS):
+    """pd_tv() on a deep CUDA volume: the wrapper's launches of the
+    wavefront, each block by block, at the kernel's constants or at the
+    given sweep depth K, strip width W, slab depth zmax and segment rows."""
+    nz, ny, nx = data.shape
+    consts = PDT.pd_tv_constants(lam, lc)
+    u_prev, p_prev, n_launches = None, None, 0
+    for k, first, last in PDT.launch_plan(iterations, K or pdw_fuse(nz)):
+        zs, zk, slabs = pdw_slabs(nz, k, zmax)
+        assert 2 * k < W and (slabs == 1 or 2 * k < zs)
+        u_out = np.full(data.shape, np.nan, dtype=f32)
+        p_out = [np.full(data.shape, np.nan, dtype=f32) for _ in range(3)]
+        stored = np.zeros(data.shape, dtype=np.int64)
+        for bz in range(slabs):
+            for by in range(-(-ny // rows)):
+                for bx in range(-(-nx // (W - 2 * k))):
+                    pdw_block(data, u_prev, p_prev, u_out, p_out, stored, bx, by, bz, k,
+                              first, last, consts, mtv == 0, nonneg, bf16, W, zs, zk, slabs,
+                              rows)
+        assert np.all(stored == 1)  # every voxel belongs to one kept block
+        u_prev, p_prev = u_out, p_out
+        n_launches += 1
+    return (data.copy() if u_prev is None else u_prev), n_launches
+
+
+def pdw_check(data, iterations, mtv, nonneg, bf16=False, tol=1e-6, **geometry):
+    got, n_launches = pdw_emulated(data, 0.05, iterations, mtv, nonneg, 12.0, bf16, **geometry)
+    ref = PDT.pd_tv_plain(torch.as_tensor(data), 0.05, iterations, mtv, nonneg, 12.0, bf16).numpy()
+    assert np.isfinite(got).all()  # nothing unwritten reached a kept voxel
+    assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
+    K = geometry.get("K") or pdw_fuse(data.shape[0])
+    assert n_launches == -(-iterations // K)
+    return got
+
+
+@pytest.mark.parametrize("K", [3, 4])
+@pytest.mark.parametrize("zmax", [32, 16], ids=["one-slab", "slabs"])
+@pytest.mark.parametrize("mtv,nonneg", [(0, 1), (1, 0)], ids=["iso-nonneg", "aniso"])
+def test_pdw_emulation_against_plain(K, zmax, mtv, nonneg):
+    """The wavefront's levels, row planes by parity, staged level 0, strips
+    with an x halo, y-segments that start K rows early and, with slabs of
+    16, z-slabs with a halo of K, at 24 x 40 x 64 with segments of 16 rows:
+    9 iterations (sweeps of K and a shorter last one) within 1e-6 of the
+    maximum of the plain version, NaN in every shared-memory word and
+    dual register the block did not write."""
+    pdw_check(pd_case(24, 40, 64, seed=K + zmax), 9, mtv, nonneg, K=K, zmax=zmax, rows=16)
+
+
+@pytest.mark.parametrize("nz", [17, 20, 40])
+def test_pdw_emulation_kernel_constants(nz):
+    """At the kernel's own sweep depth, strip, slabs and segment: one slab
+    up to 32 slices, slabs of 32 with a halo of K beyond."""
+    pdw_check(pd_case(nz, 30, 70, seed=nz), 8, 0, 1)
+
+
+def test_pdw_emulation_bf16_duals():
+    """bfloat16 duals are rounded after every iteration, inside a sweep too
+    (the next level reads them rounded, the divergence unrounded)."""
+    data = pd_case(24, 40, 64, seed=5)
+    half = pdw_check(data, 9, 0, 1, bf16=True, tol=1e-3, K=4, zmax=16, rows=16)
+    full = PDT.pd_tv_plain(torch.as_tensor(data), 0.05, 9, 0, 1, 12.0).numpy()
+    assert np.abs(half - full).max() > 1e-5 * np.abs(full).max()  # the rounding is there
+
+
+def test_pdw_emulation_against_jax():
+    """The emulation against the JAX package's PD_TV on the CPU: its XLA
+    path at 24 x 40 x 64 and its interpret-mode Pallas wavefront at 24 x 40
+    x 128 (nx a multiple of 128), at the tolerance that
+    tests/test_torch_pd_tv.py holds the port to (rtol 2e-5, atol 2e-6)."""
+    import jax.numpy as jnp
+
+    from tomobar_tpu.ops.pd_tv_pallas import pd_tv_pallas
+    from tomobar_tpu.regularisers import PD_TV as jax_PD_TV
+
+    for nx, jax_fn in ((64, jax_PD_TV), (128, lambda *a: pd_tv_pallas(*a, interpret=True))):
+        data = pd_case(24, 40, nx, seed=nx)
+        got, _ = pdw_emulated(data, 0.05, 9, 0, 1, 12.0, K=4, zmax=16, rows=16)
+        ref = np.asarray(jax_fn(jnp.asarray(data), 0.05, 9, 0, 1, 12.0))
+        np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-6)
+
+
+def test_pdw_launch_fits_the_card():
+    """Every launch the wrapper makes fits one block's shared memory and
+    threads (a warp row a slice, at most kPDWWarps), with a halo narrower
+    than the strip and the slab; up to kPDWWarps1 slices in the blocks of
+    fewer warps."""
+    W = 32 * PDW_X
+    assert PDW_WARPS1 <= PDW_WARPS <= 32
+    for nz in (PD_ZMAX + 1, 17, PDW_WARPS1, PDW_WARPS1 + 1, PDW_WARPS, PDW_WARPS + 1, 64, 512):
+        K = pdw_fuse(nz)
+        zs, zk, slabs = pdw_slabs(nz, K)
+        assert pdw_smem_bytes(K, zs) <= SMEM_PER_BLOCK and zs <= PDW_WARPS
+        assert 2 * K < W and zk >= 1 and (slabs == 1 or zk == zs - 2 * K)
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,21 @@ def test_pd_tv_matches_xla_and_pallas(nz, mtv, nn):
     np.testing.assert_allclose(port, pallas, rtol=2e-5, atol=2e-6)
 
 
+@pytest.mark.parametrize("mtv,nn", [(0, 1), (1, 0)])
+def test_pd_tv_deep_stack_matches_xla_and_pallas(mtv, nn):
+    """24 slices, the depth the port sends to its y-wavefront kernel (PDw)
+    on a card: the CPU path against the XLA path and the interpret-mode
+    Pallas wavefront, at the tolerance above."""
+    v = _vol(24, seed=12)
+    port = PD_TV(torch.from_numpy(v), LAM, ITERS, mtv, nn, LC).numpy()
+    xla = np.asarray(jax_PD_TV(jnp.asarray(v), LAM, ITERS, mtv, nn, LC))
+    pallas = np.asarray(
+        pd_tv_pallas(jnp.asarray(v), LAM, ITERS, mtv, nn, LC, interpret=True)
+    )
+    np.testing.assert_allclose(port, xla, rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(port, pallas, rtol=2e-5, atol=2e-6)
+
+
 def test_pd_tv_2d_input_returns_1hw():
     v = _vol(1, seed=8)[0]
     port = PD_TV(torch.from_numpy(v), LAM, ITERS, 0, 1, LC).numpy()
@@ -102,7 +117,8 @@ def test_prox_regul_dispatch():
 def test_cpu_pd_tv_launches_no_kernel():
     _build.reset_launch_counts()
     PD_TV(torch.from_numpy(_vol(2, seed=11)), LAM, 2)
-    assert _build.launch_counts["PD"] == 0
+    PD_TV(torch.from_numpy(_vol(20, seed=11)), LAM, 2)
+    assert _build.launch_counts["PD"] == _build.launch_counts["PDw"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "tt_unshear_bp_packed": [_P] * 3 + [_I] * 6 + [_P],
     "tt_pd_tv": [_P] * 9 + [_I] * 3 + [_F] * 4 + [_I] * 6 + [_P],
     "tt_pd_tv_fuse": [_I],
+    "tt_pd_tv_wave": [_P] * 9 + [_I] * 3 + [_F] * 4 + [_I] * 6 + [_P],
     "tt_usfft_grid": [_P] * 7 + [_I] * 5 + [_F] * 3 + [_P],
     "tt_usfft_grid_tile": [_I],
     "tt_fft_axis2": [_P] * 5 + [_I] * 4 + [_P, _I, _P],
@@ -63,7 +64,8 @@ _SIGNATURES = {
 # launches per kernel since the last reset; each wrapper adds one where it
 # launches its kernel and nowhere else
 launch_counts = {
-    "K1": 0, "K1p": 0, "K2": 0, "K3": 0, "K4": 0, "K4p": 0, "PD": 0, "G": 0, "F": 0,
+    "K1": 0, "K1p": 0, "K2": 0, "K3": 0, "K4": 0, "K4p": 0, "PD": 0, "PDw": 0, "G": 0,
+    "F": 0,
 }
 
 

@@ -43,7 +43,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -148,15 +148,17 @@ def _rel_rmse(rec: torch.Tensor, ref: torch.Tensor) -> float:
     return float(num / torch.clamp(torch.sqrt(torch.mean(ref.double() ** 2)), min=1e-30))
 
 
-def _trajectory(step: Callable, carry, phantom: torch.Tensor, outer: int):
+def _trajectory(step: Callable, carry, phantom: torch.Tensor, outer: int,
+                on_step: Optional[Callable] = None):
     """``outer`` steps from ``carry``, each timed alone (CUDA events on a
     card, ``time.perf_counter`` on the CPU) with the rel-RMSE of its x after
     it; returns the last carry and [(cumulative s, rel-RMSE, the step's
-    s)], the steps' times as measured."""
+    s)], the steps' times as measured.  ``on_step(i)``, where given, is
+    called after step i and its timing."""
     from tomobar_tpu_torch.bench.harness import Marks
 
     traj, total = [], 0.0
-    for _ in range(outer):
+    for i in range(outer):
         marks = Marks(phantom.device)
         marks.mark()
         carry = step(carry)
@@ -164,6 +166,8 @@ def _trajectory(step: Callable, carry, phantom: torch.Tensor, outer: int):
         dt = marks.elapsed_ms()[0] / 1e3
         total += dt
         traj.append((total, _rel_rmse(carry[0], phantom), dt))
+        if on_step is not None:
+            on_step(i)
     return carry, traj
 
 
@@ -222,11 +226,14 @@ def run_northstar(
     verbose: bool = True,
     device=None,
     seed: int = 0,
+    on_step: Optional[Callable] = None,
 ) -> dict:
     """The north-star run on ``device`` (the card by default; ``"cpu"`` on
     the host): phantom, noisy sinogram, Lipschitz constant, FBP, then the
     FISTA and the ADMM trajectories; returns the JAX package's keys (but
-    ``stall_excluded_s``: no step is left out)."""
+    ``stall_excluded_s``: no step is left out).  ``on_step(solver, i)``,
+    where given, is called after outer step i of each trajectory
+    (``solver`` ``"fista"`` or ``"admm"``), outside its timing."""
     from tomobar_tpu_torch import RecToolsDIRCuPy
     from tomobar_tpu_torch.bench.breakdown import _device
     from tomobar_tpu_torch.bench.harness import device_sync
@@ -273,7 +280,8 @@ def run_northstar(
 
     # FISTA-OS-PWLS-PD-TV from zero
     step, carry = make_fista_step(P, sino, L, regul_param, tv_iters)
-    carry, traj = _trajectory(step, carry, phantom, fista_outer)
+    carry, traj = _trajectory(step, carry, phantom, fista_outer,
+                              on_step and (lambda i: on_step("fista", i)))
     rmses = [r for _, r, _ in traj]
     best = min(rmses)
     tgt = 1.02 * best
@@ -300,7 +308,8 @@ def run_northstar(
     # warm-start ADMM-OS24
     P24 = Projector(Geometry(N, nz, angles, 0.0, N, os_number=24))
     step, carry = make_admm_step(P24, sino, L, regul_param, tv_iters, fbp.contiguous())
-    carry, traj = _trajectory(step, carry, phantom, admm_outer)
+    carry, traj = _trajectory(step, carry, phantom, admm_outer,
+                              on_step and (lambda i: on_step("admm", i)))
     out["admm"] = {
         "warm_start": "FBP",
         "os": 24,

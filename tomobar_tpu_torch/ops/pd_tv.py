@@ -9,9 +9,12 @@ theta = 1, lt = tau / lambda, all in float32.  Volumes are ``(nz, ny, nx)``;
 ``nz == 1`` is the 2D case with no z-term.  ``half_precision`` stores the
 duals as bfloat16 between iterations.
 
-The kernel runs several iterations per launch on tiles that it keeps in
-registers and shared memory (see ``csrc/pd_tv.cu``): a prox of n iterations
-is ``ceil(n / K)`` launches, the last one shorter where K does not divide n.
+Up to 8 slices, the tile kernel runs several iterations per launch on
+tiles that it keeps in registers and shared memory; deeper volumes go to
+the y-streaming wavefront kernel (``PDw``), whose sweep carries several
+iterations through the volume as levels (see ``csrc/pd_tv.cu``).  Either
+way a prox of n iterations is ``ceil(n / K)`` launches, the last one
+shorter where K does not divide n.
 """
 
 from __future__ import annotations
@@ -36,15 +39,16 @@ __all__ = ["pd_tv", "pd_tv_plain", "pd_tv_constants", "launch_plan", "z_chunks",
 # under MAX_ELEMENTS.
 CHUNK_BYTES = 8 * 2**30
 MAX_ELEMENTS = 2**31 - 1
-# iterations per launch (csrc/pd_tv.cu kPDK, kPDKz above kPDZMax slices):
-# tt_pd_tv_fuse's values, for a memory plan on meta tensors, which reaches
-# no library
-FUSE, FUSE_Z, FUSE_Z_MAX = 4, 2, 16
+# csrc/pd_tv.cu's kPDZMax, the most slices the tile kernel takes (the
+# wavefront takes the deeper volumes), and its kPDK and kPDWK, the
+# iterations a launch of either fuses: tt_pd_tv_fuse's values, for a memory
+# plan on meta tensors, which reaches no library
+FUSE, FUSE_Z_MAX = 4, 8
 
 
 def fuse(nz: int) -> int:
     """Iterations one launch takes on nz slices (``tt_pd_tv_fuse``)."""
-    return FUSE if nz <= FUSE_Z_MAX else FUSE_Z
+    return FUSE
 
 
 def pd_tv_constants(regularisation_parameter: float, lipschitz_const: float):
@@ -179,8 +183,9 @@ def pd_tv(
     half_precision: bool = False,
 ) -> torch.Tensor:
     """PD-TV on a (nz, ny, nx) float32 volume: the plain version for a CPU
-    tensor, the CUDA kernel for a CUDA tensor, several iterations per launch
-    (:func:`launch_plan`)."""
+    tensor, the CUDA kernels for a CUDA tensor (the tile kernel up to
+    ``FUSE_Z_MAX`` slices, the wavefront above), several iterations per
+    launch (:func:`launch_plan`)."""
     if data.device.type == "cpu":
         return pd_tv_plain(
             data, regularisation_parameter, iterations, methodTV, nonneg,
@@ -201,13 +206,16 @@ def pd_tv(
 def _pd_tv_cuda(data, regularisation_parameter, iterations, methodTV, nonneg,
                 lipschitz_const, half_precision):
     """One prox on a contiguous float32 CUDA volume, :func:`launch_plan`'s
-    launches of the kernel; on a meta volume its buffers and no launch."""
+    launches of the tile kernel (``PD``) or, above ``FUSE_Z_MAX`` slices, of
+    the wavefront kernel (``PDw``); on a meta volume their buffers and no
+    launch."""
     assert data.numel() <= MAX_ELEMENTS  # z_chunks keeps a chunk below the cap
     sigma, tau, lt, theta = pd_tv_constants(regularisation_parameter, lipschitz_const)
     nz, ny, nx = data.shape
     dual_dtype = torch.bfloat16 if half_precision else torch.float32
     lib = None if data.is_meta else _build.library()
-    plan = launch_plan(iterations, fuse(nz) if lib is None else lib.tt_pd_tv_fuse(nz))
+    k = fuse(nz) if lib is None else lib.tt_pd_tv_fuse(nz)
+    plan = launch_plan(iterations, k)
     if not plan:
         return data.clone()
     # launch i reads u[(i - 1) % 2] and the duals ps[(i - 1) % 2] and writes
@@ -222,6 +230,7 @@ def _pd_tv_cuda(data, regularisation_parameter, iterations, methodTV, nonneg,
     ]
     if lib is None:
         return u[(len(plan) - 1) % 2]
+    kernel, name = (lib.tt_pd_tv_wave, "PDw") if nz > FUSE_Z_MAX else (lib.tt_pd_tv, "PD")
     stream = torch.cuda.current_stream(data.device).cuda_stream
     unused = data.data_ptr()  # stands in for a buffer the launch does not touch
     with torch.cuda.device(data.device):
@@ -229,13 +238,13 @@ def _pd_tv_cuda(data, regularisation_parameter, iterations, methodTV, nonneg,
             src = [unused] * 3 if first else [p.data_ptr() for p in ps[(i - 1) % 2]]
             dst = [unused] * 3 if last else [p.data_ptr() for p in ps[i % 2]]
             # 2D: the third dual is never touched; the second stands in for it
-            err = lib.tt_pd_tv(
+            err = kernel(
                 data.data_ptr(), unused if first else u[(i - 1) % 2].data_ptr(),
                 src[0], src[1], src[-1], u[i % 2].data_ptr(), dst[0], dst[1], dst[-1],
                 nz, ny, nx, sigma, tau, lt, theta, int(methodTV == 0),
                 int(bool(nonneg)), int(half_precision), k, int(first), int(last),
                 stream,
             )
-            _build.check("PD", err)
-            _build.launch_counts["PD"] += 1
+            _build.check(name, err)
+            _build.launch_counts[name] += 1
     return u[(len(plan) - 1) % 2]

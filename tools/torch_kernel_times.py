@@ -15,6 +15,9 @@ so this script takes any number of trees and runs them alternately::
     # only some kernels
     python3 tools/torch_kernel_times.py --repo . --repo _archive/parent --kernels PD,K4
 
+    # with each tree's register and spill report (nvcc -Xptxas -v) first
+    python3 tools/torch_kernel_times.py --repo . --repo _archive/parent --ptxas pd_tv.cu
+
 A tree is timed through the package's public wrappers (``shear_fp``,
 ``shear_fp_packed``, ``unshear_bp``, ``unshear_bp_packed``, ``pd_tv``,
 ``fft_axis2``, ``grid``), whose signatures do not change with the kernels behind
@@ -36,8 +39,12 @@ beside K1 at nz = 1, and (where the tree's wrapper takes ``splits``) with
 (one FOURIER_INV call of the flagship) and on 28 z-pairs (``Gx``: the
 kernel alone with other tile orders, without compensation and with fewer
 angles); PD as
-one prox of 20 iterations (lambda 5e-4, L 12, iso, nonneg) on 8 x 2560^2
-and on 1 x 2560^2; F at 4 x 5120 x 5120
+one prox of 20 iterations (lambda 5e-4, L 12, iso, nonneg) on 8, 1, 2, 4, 12
+and 16 x 2560^2 (this tree sends more than 8 slices to the y-wavefront
+kernel, trees before it up to 16 to the tile kernel); ``PDw``: on 20, 64 and
+512 x 2560^2 (trees before the wavefront: the tile kernel's z-chunks) and,
+where the tree has the wavefront, that kernel alone on 8 x 2560^2 through
+its C entry, a route the wrapper does not take there; F at 4 x 5120 x 5120
 (sign +1), 8192 x 7208 and 2560 x 7208 (sign -1), beside its plain version
 (``torch.fft`` with the complex pack and split) and ``torch.fft`` alone on
 an already complex tensor.  Times are means of CUDA-event timings in ms;
@@ -53,6 +60,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -221,6 +229,25 @@ def worker(repo: str, kernels) -> dict:
         out["PD 20 iterations 8 slices"] = ms(lambda: PDT.pd_tv(vol, 5e-4, 20, 0, 1, 12.0), 5)
         out["PD 20 iterations 1 slice"] = ms(lambda: PDT.pd_tv(one, 5e-4, 20, 0, 1, 12.0), 20)
         out["PD 1 iteration 8 slices"] = ms(lambda: PDT.pd_tv(vol, 5e-4, 1, 0, 1, 12.0), 10)
+        for nz_ in (2, 4, 12, 16):
+            few = torch.rand((nz_, N, N), generator=gen, device=dev)
+            out[f"PD 20 iterations {nz_} slices"] = ms(
+                lambda: PDT.pd_tv(few, 5e-4, 20, 0, 1, 12.0), 5)
+            del few
+    if "PDw" in kernels:
+        for nz_, reps in ((20, 5), (64, 3), (512, 1)):
+            deep = torch.rand((nz_, N, N), generator=gen, device=dev)
+            out[f"PD 20 iterations {nz_} slices"] = ms(
+                lambda: PDT.pd_tv(deep, 5e-4, 20, 0, 1, 12.0), reps)
+            del deep
+            torch.cuda.empty_cache()
+        from tomobar_tpu_torch import _build
+
+        lib = _build.library()
+        if hasattr(lib, "tt_pd_tv_wave"):
+            torch.abs_(vol)
+            out["PDw alone 20 iterations 8 slices"] = ms(
+                lambda: wave_prox(PDT, lib, vol, 5e-4, 20, 12.0), 5)
     del vol, one
     rows = NZ * 1802 // 2
     for shape, sign in (((4, 2 * N, 2 * N), 1), ((8192, rows), -1), ((N, rows), -1)):
@@ -237,6 +264,51 @@ def worker(repo: str, kernels) -> dict:
             else (lambda: torch.fft.ifft(xc, dim=-2, norm="forward")), 10)
         del re_, im_, xc
     return out
+
+
+def wave_prox(PDT, lib, data, lam: float, iterations: int, lc: float):
+    """One iso, nonneg prox of the y-wavefront kernel through its C entry,
+    on any slice count of at least 2 (the wrapper sends only more than
+    ``FUSE_Z_MAX`` slices there): the wrapper's launches and buffers."""
+    import torch
+
+    sigma, tau, lt, theta = PDT.pd_tv_constants(lam, lc)
+    nz, ny, nx = data.shape
+    u = [torch.empty_like(data) for _ in range(2)]
+    ps = [[torch.empty_like(data) for _ in range(3)] for _ in range(2)]
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    unused = data.data_ptr()
+    plan = PDT.launch_plan(iterations, PDT.FUSE)
+    for i, (k, first, last) in enumerate(plan):
+        src = [unused] * 3 if first else [p.data_ptr() for p in ps[(i - 1) % 2]]
+        dst = [unused] * 3 if last else [p.data_ptr() for p in ps[i % 2]]
+        err = lib.tt_pd_tv_wave(
+            data.data_ptr(), unused if first else u[(i - 1) % 2].data_ptr(), *src,
+            u[i % 2].data_ptr(), *dst, nz, ny, nx, sigma, tau, lt, theta, 1, 1, 0, k,
+            int(first), int(last), stream)
+        if err:
+            raise RuntimeError(f"tt_pd_tv_wave: CUDA error {err}")
+    return u[(len(plan) - 1) % 2]
+
+
+def ptxas_report(path: str, source: str) -> None:
+    """Registers and spills of each kernel of ``csrc/<source>`` in the tree at
+    ``path``, as ``nvcc -Xptxas -v`` reports them with the build's flags."""
+    from tomobar_tpu_torch import _build
+
+    src = os.path.join(path, "tomobar_tpu_torch", "csrc", source)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = subprocess.run([_build._nvcc(), *_build._NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                              os.path.join(tmp, "k.o"), src], capture_output=True, text=True)
+    if run.returncode != 0:
+        raise SystemExit(f"{path}: nvcc failed\n{run.stderr[-4000:]}")
+    name = None
+    for line in run.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and ("spill" in line or "registers" in line):
+            print(f"{path} {name}: {line.split(':', 1)[-1].strip()}")
 
 
 def make_variant(spec: str) -> str:
@@ -268,8 +340,11 @@ def main() -> int:
                     help="a variant of this checkout with constexpr ints replaced")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", default="K1,K4,PD,F",
-                    help="comma-separated: K1, K1p, K2, K3, K4 (with K4p), PD, F, G, Gx (G's C entry with "
-                         "other tile orders, no compensation, fewer angles)")
+                    help="comma-separated: K1, K1p, K2, K3, K4 (with K4p), PD, PDw (PD on 20, 64 and "
+                         "512 slices), F, G, Gx (G's C entry with other tile orders, no compensation, "
+                         "fewer angles)")
+    ap.add_argument("--ptxas", metavar="SOURCE.cu",
+                    help="first print each tree's register and spill report of csrc/SOURCE.cu")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -278,6 +353,10 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     trees = [(r, r) for r in (args.repo or ["."])] + [(s, make_variant(s)) for s in args.sets]
+    if args.ptxas:
+        sys.path.insert(0, HERE)
+        for _, path in trees:
+            ptxas_report(path, args.ptxas)
     results = {name: [] for name, _ in trees}
     for rnd in range(args.rounds):
         for name, path in (trees if rnd % 2 == 0 else trees[::-1]):
