@@ -15,7 +15,8 @@ module is imported: CPU-only installs import every module of the package.
 
 Every C entry point returns the ``cudaError_t`` of its launch
 (``cudaGetLastError()``); :func:`check` turns a non-zero code into an
-exception.  Each kernel wrapper counts its launches in :data:`launch_counts`.
+exception.  Each kernel wrapper counts its launches in :data:`launch_counts`
+(:data:`tomobar_tpu_torch.trace.launches`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from tomobar_tpu_torch import trace
 
 __all__ = [
     "library",
@@ -61,12 +64,10 @@ _SIGNATURES = {
     "tt_fft_axis2": [_P] * 5 + [_I] * 4 + [_P, _I, _P],
 }
 
-# launches per kernel since the last reset; each wrapper adds one where it
+# launches per kernel since the last reset, the counters of
+# ``trace.launches``; each wrapper counts one (``trace.count``) where it
 # launches its kernel and nowhere else
-launch_counts = {
-    "K1": 0, "K1p": 0, "K2": 0, "K3": 0, "K4": 0, "K4p": 0, "PD": 0, "PDw": 0, "G": 0,
-    "F": 0,
-}
+launch_counts = trace.launches
 
 
 def reset_launch_counts() -> None:

@@ -13,6 +13,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from tomobar_tpu_torch.trace import span
+
 __all__ = ["grad_data_term", "swls_weights"]
 
 
@@ -83,13 +85,14 @@ def grad_data_term(
     def Atb(r):
         return projector.bp_sub(r, sub_ind) if use_os else projector.bp(r)
 
-    if fidelity in ("LS", "PWLS", "SWLS"):
-        res = Ax(x) - b
-        if w is not None:
-            res = res * w
-        res = _apply_robust(res, huber_threshold, studentst_threshold)
-    elif fidelity == "KL":
-        res = 1.0 - b / torch.clamp(Ax(x), min=1e-8)
-    else:
-        raise ValueError(f"Unsupported data fidelity: {fidelity}")
-    return Atb(res)
+    with span("tomobar::fidelity.grad"):
+        if fidelity in ("LS", "PWLS", "SWLS"):
+            res = Ax(x) - b
+            if w is not None:
+                res = res * w
+            res = _apply_robust(res, huber_threshold, studentst_threshold)
+        elif fidelity == "KL":
+            res = 1.0 - b / torch.clamp(Ax(x), min=1e-8)
+        else:
+            raise ValueError(f"Unsupported data fidelity: {fidelity}")
+        return Atb(res)

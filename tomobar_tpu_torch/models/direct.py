@@ -24,6 +24,7 @@ from tomobar_tpu_torch.models.iterative import _to_device
 from tomobar_tpu_torch.ops.filters import filter_sino_classic, filter_sino_sinc
 from tomobar_tpu_torch.ops.projector import Projector
 from tomobar_tpu_torch.ops.usfft import fourier_inv
+from tomobar_tpu_torch.trace import spanned
 from tomobar_tpu_torch.utils.tools import (
     apply_horiz_detector_padding,
     check_kwargs,
@@ -78,6 +79,7 @@ class RecToolsDIR:
     #: whether public methods return numpy arrays (host) or tensors (device)
     _return_numpy = True
 
+    @spanned("tomobar::api.init")
     def __init__(
         self,
         DetectorsDimH,
@@ -125,6 +127,7 @@ class RecToolsDIR:
 
     # -- public API ----------------------------------------------------------
 
+    @spanned("tomobar::api.FORWPROJ")
     def FORWPROJ(self, data, **kwargs):
         """Forward projection of a 2D ``[ny, nx]`` or 3D ``[nz, ny, nx]``
         object.  Output canonical order ``["angles", "detX"]`` (2D) or
@@ -136,6 +139,7 @@ class RecToolsDIR:
             projected = data_dims_swapper(projected, order, _labels(projected.dim()))
         return self._out(projected)
 
+    @spanned("tomobar::api.BACKPROJ")
     def BACKPROJ(self, data, **kwargs):
         """Back-projection of 2D ``[angles, detX]`` or 3D
         ``[detY, angles, detX]`` projection data."""
@@ -146,6 +150,7 @@ class RecToolsDIR:
         data = apply_horiz_detector_padding(data, self.detectors_x_pad)
         return self._out(self.Atools.bp(data))
 
+    @spanned("tomobar::api.FBP")
     def FBP(self, data, **kwargs):
         """Filtered back-projection of 2D data ``["angles", "detX"]`` or of
         3D data, canonical order ``["angles", "detY", "detX"]``
@@ -177,6 +182,7 @@ class RecToolsDIR:
                           default_cutoff if cutoff is None else cutoff, **kwargs)
         return self._out(rec)
 
+    @spanned("tomobar::api.FOURIER")
     def FOURIER(self, data, **kwargs):
         """2D Fourier-slice-theorem reconstruction: the USFFT pipeline of
         :meth:`FOURIER_INV` run without a filter (the unfiltered,
@@ -231,6 +237,7 @@ class RecToolsDIRTPU(RecToolsDIR):
             device,
         )
 
+    @spanned("tomobar::api.FOURIER_INV")
     def FOURIER_INV(self, data, **kwargs):
         """Fourier direct inversion on unequally-spaced grids (USFFT); see
         :mod:`tomobar_tpu_torch.ops.usfft`.  ``data`` is

@@ -20,6 +20,7 @@ from tomobar_tpu_torch.geometry import Geometry
 from tomobar_tpu_torch.ops.projector import Projector
 from tomobar_tpu_torch.regularisers import prox_regul
 from tomobar_tpu_torch.solvers import core as solvers
+from tomobar_tpu_torch.trace import spanned
 from tomobar_tpu_torch.utils.dicts import dicts_check
 from tomobar_tpu_torch.utils.tools import (
     apply_horiz_detector_padding,
@@ -57,6 +58,7 @@ class RecToolsIRTPU:
             machine without it raises.
     """
 
+    @spanned("tomobar::api.init")
     def __init__(
         self,
         DetectorsDimH: int,
@@ -176,6 +178,7 @@ class RecToolsIRTPU:
 
     # -------------------------------------------------------------- solvers
 
+    @spanned("tomobar::api.powermethod")
     def powermethod(self, _data_: dict) -> float:
         """Lipschitz constant via power iterations
         (``methodsIR_CuPy.py:311-354``).  A direct call always recomputes and
@@ -192,6 +195,7 @@ class RecToolsIRTPU:
         self._lipschitz_cache = val
         return val
 
+    @spanned("tomobar::api.Landweber")
     def Landweber(self, _data_: dict, _algorithm_: Union[dict, None] = None) -> torch.Tensor:
         """Landweber iterations (``iterations``, step ``tau_step_lanweber``,
         ``nonnegativity``) on ``projection_data``; keys as in
@@ -206,6 +210,7 @@ class RecToolsIRTPU:
         )
         return self._finalise(x, a)
 
+    @spanned("tomobar::api.SIRT")
     def SIRT(self, _data_: dict, _algorithm_: Union[dict, None] = None) -> torch.Tensor:
         """SIRT (``iterations``, ``nonnegativity``) on ``projection_data``;
         keys as in ``docs/parameters.md``.  Returns the reconstruction on the
@@ -219,6 +224,7 @@ class RecToolsIRTPU:
         )
         return self._finalise(x, a)
 
+    @spanned("tomobar::api.CGLS")
     def CGLS(self, _data_: dict, _algorithm_: Union[dict, None] = None) -> torch.Tensor:
         """Conjugate gradients on the least-squares problem (``iterations``,
         ``nonnegativity``) on ``projection_data``; keys as in
@@ -232,6 +238,7 @@ class RecToolsIRTPU:
         )
         return self._finalise(x, a)
 
+    @spanned("tomobar::api.FISTA")
     def FISTA(
         self,
         _data_: dict,
@@ -261,6 +268,7 @@ class RecToolsIRTPU:
         )
         return self._finalise(x, a)
 
+    @spanned("tomobar::api.ADMM")
     def ADMM(
         self,
         _data_: dict,
@@ -293,6 +301,7 @@ class RecToolsIRTPU:
         )
         return self._finalise(x, a)
 
+    @spanned("tomobar::api.OSEM")
     def OSEM(
         self,
         _data_: dict,

@@ -29,7 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tomobar_tpu_torch import _build
+from tomobar_tpu_torch import _build, trace
 
 __all__ = [
     "MAX_C",
@@ -166,5 +166,5 @@ def fft_axis2(re: torch.Tensor, im: torch.Tensor, sign: int):
             radices, len(plan), torch.cuda.current_stream(re.device).cuda_stream,
         )
     _build.check("F", err)
-    _build.launch_counts["F"] += 1
+    trace.count("F")
     return ore, oim

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tomobar_tpu_torch import _build
+from tomobar_tpu_torch import _build, trace
 from tomobar_tpu_torch.utils.tools import free_device_bytes
 
 __all__ = ["pd_tv", "pd_tv_plain", "pd_tv_constants", "launch_plan", "z_chunks", "fuse",
@@ -246,5 +246,5 @@ def _pd_tv_cuda(data, regularisation_parameter, iterations, methodTV, nonneg,
                 stream,
             )
             _build.check(name, err)
-            _build.launch_counts[name] += 1
+            trace.count(name)
     return u[(len(plan) - 1) % 2]

@@ -51,6 +51,7 @@ from tomobar_tpu_torch.ops.projector_kernels import (
     unshear_bp,
     unshear_bp_packed,
 )
+from tomobar_tpu_torch.trace import count, span
 
 __all__ = [
     "CHUNK_BYTES",
@@ -231,6 +232,11 @@ def _bp_driven(sino: torch.Tensor, cos_v, sin_v, cor_v, ny: int, nx: int) -> tor
     return acc
 
 
+def _depth(x: torch.Tensor) -> int:
+    """Slices of a volume or sinogram: 1 for a 2D one."""
+    return x.shape[0] if x.dim() == 3 else 1
+
+
 class _Group(NamedTuple):
     """One driven-angle group with its parameters on the device."""
 
@@ -284,8 +290,12 @@ class _DrivenPlan:
         1) packed where the driven rows number a multiple of 8
         (``radon_fp_pallas``/``radon_bp_pallas``' conditions)."""
         key = (ny, nx, device, single_slice)
-        if key not in self._groups:
-            shape = (nx, ny) if self.swap else (ny, nx)
+        if key in self._groups:
+            count("projector.plan_hits")
+            return self._groups[key]
+        count("projector.plan_builds")
+        shape = (nx, ny) if self.swap else (ny, nx)
+        with span("tomobar::projector.plan", A=int(self.idx.size), rows=shape[0]):
             packed = single_slice and shape[0] % 8 == 0
             prm = driven_params(self.c, self.s, self.cor, self.det_x, *shape, packed=packed)
 
@@ -362,14 +372,18 @@ class _Plan:
         return [dp.group(ny, nx, device, single_slice) for dp in self.driven]
 
     def fp(self, vol: torch.Tensor) -> torch.Tensor:
-        if self.cor_vertical is not None and vol.dim() == 3:
-            return _vshift_sino(self._fp_core(vol), self.cor_vertical)
-        return self._fp_core(vol)
+        with span("tomobar::projector.fp", nz=_depth(vol), n=self.recon_size, A=self.n_out,
+                  det_x=self.det_x):
+            if self.cor_vertical is not None and vol.dim() == 3:
+                return _vshift_sino(self._fp_core(vol), self.cor_vertical)
+            return self._fp_core(vol)
 
     def bp(self, sino: torch.Tensor) -> torch.Tensor:
-        if self.cor_vertical is not None and sino.dim() == 3:
-            sino = _vshift_sino(sino, -np.asarray(self.cor_vertical))
-        return self._bp_core(sino)
+        with span("tomobar::projector.bp", nz=_depth(sino), n=self.recon_size, A=self.n_out,
+                  det_x=self.det_x):
+            if self.cor_vertical is not None and sino.dim() == 3:
+                sino = _vshift_sino(sino, -np.asarray(self.cor_vertical))
+            return self._bp_core(sino)
 
     def _z_chunks(self, nz: int, groups: List[_Group], *per_slice: int):
         """(z0, z1) runs of slices: each keeps the largest group's u-lines

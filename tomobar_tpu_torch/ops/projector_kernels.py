@@ -39,7 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from tomobar_tpu_torch import _build
+from tomobar_tpu_torch import _build, trace
 
 __all__ = [
     "DrivenParams",
@@ -351,7 +351,7 @@ def shear_fp(vol, beta, U0: int, LU: int, swap: bool = False):
             row_len, U0, LU, _stream(vol),
         )
     _build.check("K1", err)
-    _build.launch_counts["K1"] += 1
+    trace.count("K1")
     return s
 
 
@@ -375,7 +375,7 @@ def resample_fp(s, alpha, gamma, U0: int, det_x: int):
             A, nz, LU, det_x, U0, _stream(s),
         )
     _build.check("K2", err)
-    _build.launch_counts["K2"] += 1
+    trace.count("K2")
     return p
 
 
@@ -412,7 +412,7 @@ def resample_bp(p, alpha, gamma, U0: int, LU: int,
             A, nz, n_rows, LU, det_x, U0, _stream(p),
         )
     _build.check("K3", err)
-    _build.launch_counts["K3"] += 1
+    trace.count("K3")
     return q
 
 
@@ -444,7 +444,7 @@ def unshear_bp(q, beta, U0: int, ny: int, nx: int, swap: bool = False,
             U0, int(swap), int(out is not None and accumulate), _stream(q),
         )
     _build.check("K4", err)
-    _build.launch_counts["K4"] += 1
+    trace.count("K4")
     return vol
 
 
@@ -484,7 +484,7 @@ def shear_fp_packed(rows, beta, U0: int, LU: int, splits: Optional[int] = None):
             n_rows, row_len, U0, LU, splits, _stream(rows),
         )
     _build.check("K1p", err)
-    _build.launch_counts["K1p"] += 1
+    trace.count("K1p")
     return s
 
 
@@ -517,5 +517,5 @@ def unshear_bp_packed(q, beta, U0: int, n: int, swap: bool = False,
             int(swap), int(out is not None and accumulate), _stream(q),
         )
     _build.check("K4p", err)
-    _build.launch_counts["K4p"] += 1
+    trace.count("K4p")
     return vol

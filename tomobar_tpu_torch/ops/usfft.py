@@ -37,6 +37,7 @@ import torch
 from tomobar_tpu_torch.ops.fft_real import _fft_axis2, apply_freq_filter_real, fft_pairs
 from tomobar_tpu_torch.ops.filters import calc_filter_np
 from tomobar_tpu_torch.ops.usfft_kernels import grid
+from tomobar_tpu_torch.trace import span
 from tomobar_tpu_torch.utils.tools import (
     check_kwargs,
     data_dims_swapper,
@@ -134,6 +135,17 @@ def _pack_pairs(filtered: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return filtered[0::2] * sign, filtered[1::2] * sign
 
 
+def _spectra(data_re: torch.Tensor, data_im: torch.Tensor, n: int):
+    """STEP1: centred 1-D FFT along detX (``torch.fft``) and the
+    ``c1dfftshift`` sign x (4/n) scale.  Returns the gridding's input and
+    what stays alive beside it until the gridding returns (the unscaled
+    spectra and the scale, as the memory model of ``utils/memest.py`` has
+    it)."""
+    sre, sim = fft_pairs(data_re, data_im)
+    scale = _sign_vector(n, data_re.device) * (4.0 / n)
+    return (sre * scale, sim * scale), (sre, sim, scale)
+
+
 def usfft_grid(
     data_re: torch.Tensor,
     data_im: torch.Tensor,
@@ -144,9 +156,8 @@ def usfft_grid(
     """STEP1/2: centred 1-D FFT along detX (``torch.fft``), the
     ``c1dfftshift`` sign x (4/n) scale, then the Gaussian gridding onto
     (2n, 2n) (the G kernel).  data (nz2, nproj, n) -> grids (nz2, 2n, 2n)."""
-    sre, sim = fft_pairs(data_re, data_im)
-    scale = _sign_vector(n, data_re.device) * (4.0 / n)
-    return grid(sre * scale, sim * scale, n, theta, eps)
+    (gre, gim), held = _spectra(data_re, data_im, n)  # held until G returns
+    return grid(gre, gim, n, theta, eps)
 
 
 def _ifft2_centered(
@@ -363,23 +374,31 @@ def fourier_inv(model, data: torch.Tensor, **kwargs) -> torch.Tensor:
     rotation_axis = float(np.mean(model.geom.cor_horizontal)) + 0.5
 
     def run_block(block, block_nz, trailing_odd):
-        filtered = _fbp_filter_stage(
-            block,
-            data_n,
-            n,
-            p.filter_type,
-            p.cutoff_freq,
-            rotation_axis,
-            p.power_of_2_oversampling,
-            p.oversampling_level,
-        )
-        dre, dim = _pack_pairs(filtered)
-        fre, fim = usfft_grid(dre, dim, n, theta, eps)
-        fre, fim = _ifft2_centered(fre, fim, n)
-        return _unpad_mul_phi(
-            fre, fim, n, nproj, block_nz, odd_horiz, trailing_odd,
-            recon_size, mu,
-        )
+        at = {"nz": block_nz, "nproj": nproj, "n": n, "ow": p.ow}
+        with span("tomobar::usfft.filter", **at):
+            filtered = _fbp_filter_stage(
+                block,
+                data_n,
+                n,
+                p.filter_type,
+                p.cutoff_freq,
+                rotation_axis,
+                p.power_of_2_oversampling,
+                p.oversampling_level,
+            )
+        with span("tomobar::usfft.fft1d", **at):
+            dre, dim = _pack_pairs(filtered)
+            (gre, gim), held = _spectra(dre, dim, n)
+        with span("tomobar::usfft.grid", **at):
+            fre, fim = grid(gre, gim, n, theta, eps)
+        del gre, gim, held
+        with span("tomobar::usfft.ifft2", **at):
+            fre, fim = _ifft2_centered(fre, fim, n)
+        with span("tomobar::usfft.unpad", **at):
+            return _unpad_mul_phi(
+                fre, fim, n, nproj, block_nz, odd_horiz, trailing_odd,
+                recon_size, mu,
+            )
 
     n_chunks = _fourier_inv_memory_chunks(nz, n, kwargs, data.device)
     if n_chunks <= 1:

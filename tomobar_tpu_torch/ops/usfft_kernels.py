@@ -25,7 +25,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from tomobar_tpu_torch import _build
+from tomobar_tpu_torch import _build, trace
 
 __all__ = ["GridParams", "grid_params", "grid", "grid_plain", "tile_order"]
 
@@ -177,5 +177,5 @@ def grid(
             torch.cuda.current_stream(g_re.device).cuda_stream,
         )
     _build.check("G", err)
-    _build.launch_counts["G"] += 1
+    trace.count("G")
     return fre, fim

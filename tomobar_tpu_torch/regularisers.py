@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from tomobar_tpu_torch.ops.pd_tv import pd_tv
+from tomobar_tpu_torch.trace import span
 
 __all__ = ["ROF_TV", "PD_TV", "prox_regul"]
 
@@ -142,9 +143,15 @@ def prox_regul(self, X: torch.Tensor, _regularisation_: dict) -> torch.Tensor:
     :func:`~tomobar_tpu_torch.regularisers_legacy.WAVELET_SHRINK` with
     ``wavelet_threshold``, else ``regul_param`` for a pure ``WAVELETS`` and
     ``regul_param2`` for a combination, over ``wavelet_levels`` (3)."""
+    r = _regularisation_
+    with span("tomobar::regul.prox", method=r.get("method"), nz=X.shape[0] if X.dim() == 3 else 1,
+              n=X.shape[-1], iterations=r.get("iterations")):
+        return _prox_regul(self, X, r)
+
+
+def _prox_regul(self, X: torch.Tensor, r: dict) -> torch.Tensor:
     from tomobar_tpu_torch import regularisers_legacy as legacy
 
-    r = _regularisation_
     method = r["method"]
     if method is None:
         raise ValueError(f"Unknown regularisation method: {method}")

@@ -25,6 +25,7 @@ import torch
 
 from tomobar_tpu_torch.fidelity import grad_data_term, swls_weights
 from tomobar_tpu_torch.ops.projector import Projector
+from tomobar_tpu_torch.trace import span
 
 __all__ = ["power_method", "landweber", "sirt", "cgls", "fista", "admm", "osem"]
 
@@ -238,27 +239,29 @@ def fista(
     x = x_t = x0
     t = np.float32(1.0)
     one, four, half = np.float32(1.0), np.float32(4.0), np.float32(0.5)
+    nz, n = x0.shape[0], x0.shape[-1]
     for it in range(iterations):
         x_prev = x
         for s in range(n_sub):
-            x_old, t_old = x, t
-            grad = grad_data_term(
-                projector,
-                x_t,
-                subs[s],
-                sub_ind=s if use_os else None,
-                w=w_subs[s],
-                fidelity=fidelity,
-                huber_threshold=fid_kwargs.get("huber_threshold"),
-                studentst_threshold=fid_kwargs.get("studentst_threshold"),
-            )
-            x = x_t - L_inv * grad
-            if nonnegativity:
-                x = torch.clamp(x, min=0.0)
-            if regul_fn is not None:
-                x = regul_fn(x)
-            t = np.float32((one + np.sqrt(one + four * t * t)) * half)
-            x_t = x + float(np.float32((t_old - one) / t)) * (x - x_old)
+            with span("tomobar::solver.subset", nz=nz, n=n):
+                x_old, t_old = x, t
+                grad = grad_data_term(
+                    projector,
+                    x_t,
+                    subs[s],
+                    sub_ind=s if use_os else None,
+                    w=w_subs[s],
+                    fidelity=fidelity,
+                    huber_threshold=fid_kwargs.get("huber_threshold"),
+                    studentst_threshold=fid_kwargs.get("studentst_threshold"),
+                )
+                x = x_t - L_inv * grad
+                if nonnegativity:
+                    x = torch.clamp(x, min=0.0)
+                if regul_fn is not None:
+                    x = regul_fn(x)
+                t = np.float32((one + np.sqrt(one + four * t * t)) * half)
+                x_t = x + float(np.float32((t_old - one) / t)) * (x - x_old)
         if _stop(projector, "FISTA", it, x, x_prev, tolerance, verbose):
             break
     return x
