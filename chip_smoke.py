@@ -54,14 +54,19 @@ Phases, in order; any failure raises and exits non-zero:
    above one block's four), for one angle and for angles beyond 360
    degrees, two calls on the same input bit for bit equal; F
    (axis-(-2) FFT) at n = 2560, 5120, 8192 (its compile-time stage plans)
-   and n = 3000 (the run-time plan) and both signs; FOURIER_INV and
+   and n = 3000 (the run-time plan) and both signs; Fc (F's centred
+   variant, FOURIER_INV's whole ifft2 stage in two launches) against the
+   chain of passes it replaces at 2n = 1280, 2048 and 5120 on 1 and 3
+   z-pairs (rel L2 <= 1e-6), with and without the half-pixel shift, and
+   its launches in a chunked FOURIER_INV call (two a z-block, F only in
+   the filter stage); FOURIER_INV and
    3D FBP at 256^2 x 4 x 90 on the CPU and on the GPU; then on phase 6's
    clean 1801 x 8 x 2560 sinogram: FOURIER_INV and FBP times after a
-   warm-up call, G/F launch counts per path, both paths' time by stage
+   warm-up call, G/F/Fc launch counts per path, both paths' time by stage
    (FOURIER_INV's through ``bench.fourier_breakdown``),
    its correlation with a Ram-Lak FBP inside the inscribed circle, peak
-   memory, and G and F beside their plain versions at the flagship shapes
-   (G against a float64 plain sum, and twice for bit-equal grids).
+   memory, and G, F and Fc beside their plain versions at the flagship
+   shapes (G against a float64 plain sum, and twice for bit-equal grids).
 8. the 2D path: K1p/K4p (the packed nz = 1 pair) against their plain
    versions at N=512, 2D, 180 angles (scalar CoR 3.5 and a per-angle CoR
    vector, both driven groups; K1p bit for bit against the plain sum in the
@@ -266,6 +271,7 @@ from tomobar_tpu_torch.bench.fourier_breakdown import (  # noqa: E402
 from tomobar_tpu_torch.bench.harness import time_cuda, time_device  # noqa: E402
 
 TOL_KERNEL = 1e-5  # max|kernel - plain| / max|plain|, fp32 sums in another order
+TOL_FC = 1e-6  # rel L2 of Fc against the chain of passes: the same F, other factor roundings
 TOL_PD_BF16 = 1e-3  # bf16 duals: a one-ulp fp32 difference can flip a rounding
 TOL_ADJOINT = 1e-5  # |<Ax,y> - <x,A^T y>| / |<Ax,y>|
 TOL_SLICE = 1e-4  # rel L2 between the CPU and the GPU reconstruction
@@ -302,6 +308,8 @@ KERNELS = {
           "and tomobar_tpu/ops/usfft_pallas.py:91 (G0 _grid_kernel)"),
     "F": ("fft_axis2", "tomobar_tpu_torch/csrc/fft_axis2.cu",
           "tomobar_tpu/ops/fft_real.py:208"),
+    "Fc": ("fft_axis2_centred", "tomobar_tpu_torch/csrc/fft_axis2.cu",
+           "none: the XLA passes around F's two in tomobar_tpu/ops/usfft.py _ifft2_centered"),
 }
 ITERATIVE = ("K1", "K2", "K3", "K4", "PD")  # the kernels of phase 6's path
 PROJECTOR_3D = ("K1", "K2", "K3", "K4")  # phase 11's path, 3D
@@ -723,6 +731,45 @@ def check_direct_kernels(torch, errs, dev) -> None:
             )
 
 
+def check_centred_ifft2(torch, errs, dev) -> None:
+    """7a: Fc against the chain of passes it replaces (``usfft._ifft2_chain``:
+    the checkerboard and ramp, F, a transposed copy, F, the signed scale) at
+    the splits FOURIER_INV meets, on 1 and 3 z-pairs; then its launches in a
+    chunked FOURIER_INV call: two a z-block, and F only in the filter stage."""
+    from tomobar_tpu_torch import RecToolsDIRCuPy, _build
+    from tomobar_tpu_torch.ops import fft_kernels as FK
+    from tomobar_tpu_torch.ops import usfft as US
+
+    gen = torch.Generator(device=dev).manual_seed(72)
+    for two_n in (1280, 2048, 5120):
+        for pairs in (1, 3):
+            re = torch.randn((pairs, two_n, two_n), generator=gen, device=dev)
+            im = torch.randn((pairs, two_n, two_n), generator=gen, device=dev)
+            for shift in (True, False) if pairs == 1 else (True,):
+                label = f"2n={two_n}, {pairs} z-pair(s), half-pixel shift {shift}"
+                _build.reset_launch_counts()
+                got = FK.ifft2_centred(re, im, shift)
+                require(_build.launch_counts["Fc"] == 2 and _build.launch_counts["F"] == 0,
+                        f"Fc {label}: launches {dict(_build.launch_counts)}")
+                ref = US._ifft2_chain(re, im, two_n // 2, shift)
+                errs.compare("Fc", label, got, ref)
+                rel = rel_l2(torch, torch.stack(got), torch.stack(ref))
+                print(f"  Fc {label}: rel L2 against the chain {rel:.3e} (tol {TOL_FC:g})")
+                require(rel <= TOL_FC, f"Fc {label}: rel L2 {rel:.3e} > {TOL_FC:g}")
+                del got, ref
+            del re, im
+    angles = np.linspace(0.0, np.pi, 180, endpoint=False)
+    sino = torch.rand((8, 180, 640), generator=gen, device=dev)
+    rt = RecToolsDIRCuPy(640, 0, 8, 0.0, angles, 640, device=dev)
+    _build.reset_launch_counts()
+    rt.FOURIER_INV(sino, chunk_count=2)
+    counts = dict(_build.launch_counts)
+    print(f"  FOURIER_INV 8 x 180 x 640 in 2 z-blocks: launches {json.dumps(counts)}")
+    require(counts["Fc"] == 4 and counts["F"] == 4,
+            f"FOURIER_INV in 2 z-blocks: Fc {counts['Fc']} (want 2 a block), "
+            f"F {counts['F']} (want the filter stage's 2 a block)")
+
+
 def fbp_by_stage(torch, rt, by_angle):
     """3D FBP with the default sinc filter, with CUDA events around the
     filter and the back-projection; returns (ms per stage, recon)."""
@@ -747,11 +794,14 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     from tomobar_tpu_torch import RecToolsDIRCuPy
     from tomobar_tpu_torch.geometry import Geometry
     from tomobar_tpu_torch.ops import fft_kernels as FK
+    from tomobar_tpu_torch.ops import usfft as US
     from tomobar_tpu_torch.ops import usfft_kernels as UK
     from tomobar_tpu_torch.ops.projector import radon_fp
 
     print("[7] G and F kernels against their plain versions:")
     check_direct_kernels(torch, errs, dev)
+    print("[7] Fc, the centred F, against the chain of passes it replaces:")
+    check_centred_ifft2(torch, errs, dev)
 
     # ---- 7b. FOURIER_INV and 3D FBP on the CPU and on the card -------------
     angles90 = np.linspace(0.0, np.pi, 90, endpoint=False)
@@ -784,6 +834,7 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     fi, ms_fi = timed("FOURIER_INV", lambda: rt.FOURIER_INV(clean))
     require(launches["FOURIER_INV"].get("G", 0) > 0, "FOURIER_INV did not launch G")
     require(launches["FOURIER_INV"].get("F", 0) > 0, "FOURIER_INV did not launch F")
+    require(launches["FOURIER_INV"].get("Fc", 0) > 0, "FOURIER_INV did not launch Fc")
     fbp, ms_fbp = timed("FBP (sinc)", lambda: rt.FBP(by_angle))
     require(launches["FBP (sinc)"].get("F", 0) > 0, "FBP did not launch F")
     print(f"[7] FBP / FOURIER_INV time ratio: {ms_fbp / ms_fi:.3f}")
@@ -848,10 +899,20 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
                 library=(lambda: torch.fft.fft(xc, dim=-2)) if sign < 0
                 else (lambda: torch.fft.ifft(xc, dim=-2, norm="forward")))
         del re, im, xc
-    per_call = {k: (launches["FOURIER_INV"].get(k, 0), "FOURIER_INV call") for k in ("G", "F")}
+    # Fc: one ifft2 stage of 4 z-pairs at 2n = 5120 (two launches), beside
+    # the chain of passes it replaces
+    re = torch.randn((4, 2 * N, 2 * N), generator=gen, device=dev)
+    im = torch.randn((4, 2 * N, 2 * N), generator=gen, device=dev)
+    ops, nbytes = work_fft((4, 2 * N, 2 * N))
+    measure("Fc", f"4 x {2 * N} x {2 * N}, both passes", lambda: FK.ifft2_centred(re, im),
+            lambda: US._ifft2_chain(re, im, N), (2 * ops, 2 * nbytes), reps=5, plain_reps=5)
+    del re, im
+    per_call = {k: (launches["FOURIER_INV"].get(k, 0), "FOURIER_INV call")
+                for k in ("G", "F", "Fc")}
     return {
         "G": launches["FOURIER_INV"].get("G", 0),
         "F": launches["FOURIER_INV"].get("F", 0) + launches["FBP (sinc)"].get("F", 0),
+        "Fc": launches["FOURIER_INV"].get("Fc", 0),
     }, per_call, {"FOURIER_INV": fi, "FBP": fbp}, ms_fi, fb
 
 

@@ -10,8 +10,8 @@ machine need not have; nothing here needs it.)  A CUDA kernel has no
 interpret mode, so the tier-1 run on the CPU skips this file.  The kernel
 checks are ``chip_smoke.py``'s own functions, imported, not copied: each
 kernel against its plain PyTorch version on the same inputs (K1, K1p, K3,
-K4, K4p bit for bit; K2, PD, G, F within 1e-5 of the largest value; PD
-with bf16 duals within 1e-3).  Beside them: the pair's adjointness at
+K4, K4p bit for bit; K2, PD, G, F, Fc within 1e-5 of the largest value, Fc
+also within 1e-6 rel L2; PD with bf16 duals within 1e-3).  Beside them: the pair's adjointness at
 nz = 8 and nz = 1 (phases 4 and 8's own check), the GPU against the CPU at 256^2 x 4 x 90 (3D FISTA,
 FBP, FOURIER_INV) and on the examples' paths at 64^2 (SWLS/Huber,
 OSEM/MLEM/KL, the padded warm start and ADMM, and plain PWLS and LS on data
@@ -94,6 +94,13 @@ def test_pd_shapes(errs, dev):
 
 def test_direct_kernels(errs, dev):
     CS.check_direct_kernels(torch, errs, dev)
+
+
+def test_centred_ifft2(errs, dev):
+    """Fc against the chain of passes it replaces, rel L2 <= 1e-6 at 2n =
+    1280, 2048, 5120 on 1 and 3 z-pairs; two launches a FOURIER_INV z-block
+    and F only in the filter stage."""
+    CS.check_centred_ifft2(torch, errs, dev)
 
 
 @pytest.mark.parametrize("seed,cor", enumerate(COR), ids=list(COR))

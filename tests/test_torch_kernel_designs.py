@@ -17,7 +17,10 @@ walk the same blocks, bands, batches, stages and thread items as
 * PD must agree with ``pd_tv_plain`` within 1e-6 of the maximum (1e-3 with
   bfloat16 duals), for every launch plan;
 * F must agree with ``numpy.fft`` within 1e-5 of the maximum (float32
-  tables and arithmetic in another order).
+  tables and arithmetic in another order), and its centred variant Fc
+  (``fft_axis2_centred_kernel``: the factors on its loads and stores, the
+  transposed load of its second pass) with the chain of passes it
+  replaces, ``usfft._ifft2_chain``.
 
 Unstaged or unwritten shared memory is NaN in the emulation, so a tap read
 outside the staged window, or a halo value that reaches an inner tile,
@@ -532,18 +535,50 @@ def k2_of_position_compile_time(pos, plan, Cn):
     return p1 + R1 * (p2 + R2 * (p3 + R3 * p4))
 
 
-def f_emulated(re, im, sign, B, Cn, plan):
-    """fft_axis2() on CUDA tensors: one cluster of B blocks per 8 columns."""
+def load_transposed(re, im, base, first, n, Cn, l0, L, vector):
+    """load_transposed of fft_axis2.cu: the slab (Cn, 8) of rows first + n2
+    of the columns l0 + col, read from flat (Z, L, n) arrays; ``vector``:
+    four floats a thread item (the compile-time plans), else one."""
+    slab = np.full(((Cn + 1) & ~1, F_COLS), np.nan, dtype=np.complex64)
+    if vector:
+        assert Cn % 4 == 0 and n % 4 == 0
+        it = np.arange(Cn // 4 * F_COLS)
+        col, n2 = it % F_COLS, it // F_COLS * 4
+        live = l0 + col < L
+        off = base + (l0 + col) * n + first + n2
+        assert np.all(off[live] % 4 == 0)  # 16-byte loads from an aligned base
+        for e in range(4):
+            v = np.where(live, C(re[np.where(live, off + e, 0)], im[np.where(live, off + e, 0)]), 0)
+            slab[slot(n2 + e), col] = v
+    else:
+        it = np.arange((Cn + 3) // 4 * 4 * F_COLS)
+        n2 = it // (4 * F_COLS) * 4 + it % 4
+        col = it // 4 % F_COLS
+        keep = n2 < Cn
+        n2, col = n2[keep], col[keep]
+        live = l0 + col < L
+        off = np.where(live, base + (l0 + col) * n + first + n2, 0)
+        slab[slot(n2), col] = np.where(live, C(re[off], im[off]), 0)
+    return slab
+
+
+def f_emulated(re, im, sign, B, Cn, plan, mode=0, centre=None, scale=None):
+    """fft_axis2() on CUDA tensors: one cluster of B blocks per 8 columns.
+    ``mode`` 1 and 2 are the two passes of Fc: ``centre`` holds c(k) as
+    the kernel reads it (complex64), ``scale`` the store's factor."""
     if sign > 0:  # the wrapper's pointer swap, in and out
-        oim, ore = f_emulated(im, re, -1, B, Cn, plan)
+        oim, ore = f_emulated(im, re, -1, B, Cn, plan, mode, centre, scale)
         return ore, oim
-    Z, n, L = re.shape
+    if mode == 2:  # the input is (Z, L, n), the output (Z, n, L)
+        Z, L, n = re.shape
+    else:
+        Z, n, L = re.shape
     assert n == B * Cn
     tables = FK._device_tables(n, B, Cn, torch.device("cpu")).numpy().reshape(-1, 2)
     tables = C(tables[:, 0], tables[:, 1])
     wb, tt, w = tables[: B * B], tables[B * B : B * B + B * Cn], tables[B * B + B * Cn :]
     assert w.shape == (Cn,)
-    ore, oim = np.full_like(re, np.nan), np.full_like(im, np.nan)
+    ore, oim = np.full((Z, n, L), np.nan, dtype=f32), np.full((Z, n, L), np.nan, dtype=f32)
     n_tiles = (L + F_COLS - 1) // F_COLS
     c_pad = (Cn + 1) & ~1
     for z in range(Z):
@@ -555,9 +590,19 @@ def f_emulated(re, im, sign, B, Cn, plan):
             slabs = np.full((B, c_pad, F_COLS), np.nan, dtype=np.complex64)
             n2 = np.arange(Cn)
             for k1 in range(B):
+                if mode == 2:
+                    args = (re.ravel(), im.ravel(), z * n * L, k1 * Cn, n, Cn, l0, L)
+                    slabs[k1] = load_transposed(*args, vector=False)
+                    if Cn % 4 == 0:  # the 16-byte mapping reads the same slab
+                        vec = load_transposed(*args, vector=True)
+                        assert np.array_equal(vec[:Cn], slabs[k1][:Cn])
+                    continue
                 v = np.zeros((Cn, F_COLS), dtype=np.complex64)
                 v[:, live] = C(re[z, k1 * Cn : (k1 + 1) * Cn, l0 : l0 + F_COLS],
                                im[z, k1 * Cn : (k1 + 1) * Cn, l0 : l0 + F_COLS])
+                if mode == 1:  # cmul_conj(v, cmul(c(i), c(l)))
+                    v[:, live] = v[:, live] * np.conj(
+                        centre[k1 * Cn + n2][:, None] * centre[l0 + cols[live]][None, :])
                 slabs[k1][slot(n2)] = v
             # 2. the B step: block `rank` owns the n2 of its chunk, all k1
             chunk = (Cn + B - 1) // B
@@ -586,9 +631,24 @@ def f_emulated(re, im, sign, B, Cn, plan):
                     assert np.array_equal(k2, k2_of_position_compile_time(pos, plan, Cn))
                 assert np.array_equal(np.sort(k2), pos)
                 out = s[slot(pos)][:, live]
+                if mode == 2:  # (-1)^(row + l) * scale
+                    odd = (k1 + B * k2[:, None] + l0 + cols[live][None, :]) & 1
+                    f = np.where(odd == 1, -scale, scale).astype(f32)
+                    out = C(out.real * f, out.imag * f)
                 ore[z, k1 + B * k2, l0 : l0 + F_COLS] = out.real
                 oim[z, k1 + B * k2, l0 : l0 + F_COLS] = out.imag
     return ore, oim
+
+
+def fc_emulated(fre, fim, half_pixel_shift):
+    """ifft2_centred() on CUDA tensors: its two launches."""
+    two_n = fre.shape[-1]
+    B, Cn = FK.best_split(two_n)
+    plan = FK.stage_plan(Cn)
+    cre, cim = FK.centred_factors(two_n // 2, half_pixel_shift)
+    centre, scale = C(cre, cim), f32(1.0 / (two_n * two_n))
+    mid = f_emulated(fre, fim, 1, B, Cn, plan, mode=1, centre=centre)
+    return f_emulated(*mid, 1, B, Cn, plan, mode=2, scale=scale)
 
 
 @pytest.mark.parametrize("sign", [-1, 1])
@@ -619,6 +679,54 @@ def test_f_emulation_against_numpy_fft(n, sign):
     ref = np.fft.fft(x, axis=-2) if sign < 0 else np.fft.ifft(x, axis=-2) * n
     err = max(np.abs(got_re - ref.real).max(), np.abs(got_im - ref.imag).max())
     assert err <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("shift", [True, False], ids=["half-pixel", "no-shift"])
+@pytest.mark.parametrize("two_n", [24, 40, 74, 256],
+                         ids=lambda n: "2n%d-B%d-C%d" % ((n,) + FK.best_split(n)))
+def test_fc_emulation_against_the_chain(two_n, shift):
+    """Fc's two launches (the factors on pass 1's load, pass 2's transposed
+    load by either mapping, the signed scale on its store) give what the
+    chain of passes gives, transposed image and all: splits with a C that
+    is a multiple of 4 and one that is not (37)."""
+    from tomobar_tpu_torch.ops import usfft as U
+
+    rng = np.random.default_rng(two_n)
+    fre = rng.standard_normal((2, two_n, two_n)).astype(f32)
+    fim = rng.standard_normal((2, two_n, two_n)).astype(f32)
+    got = fc_emulated(fre, fim, shift)
+    ref = U._ifft2_chain(torch.from_numpy(fre), torch.from_numpy(fim), two_n // 2, shift)
+    scale = max(float(r.abs().max()) for r in ref)
+    for g, r in zip(got, ref):
+        assert not np.isnan(g).any()
+        assert np.abs(g - r.numpy()).max() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("two_n", [1280, 2048, 5120])
+def test_fc_passes_at_the_flagship_splits(two_n):
+    """Each pass of Fc on a thin strip at the splits FOURIER_INV meets
+    (1280: 2 x 640; 2048: 2 x 1024; 5120: 5 x 1024), against numpy: pass 1
+    along axis -2 of (x * c(i) c(l)), pass 2 along the last axis of its
+    (3, 2n) input with the signed scale, stored transposed."""
+    B, Cn = FK.best_split(two_n)
+    plan = FK.stage_plan(Cn)
+    cre, cim = FK.centred_factors(two_n // 2)
+    c = cre.astype(np.float64) + 1j * cim
+    rng = np.random.default_rng(two_n)
+    L = 3
+    x = rng.standard_normal((2, 1, two_n, L)).astype(f32)
+    got = f_emulated(x[0], x[1], 1, B, Cn, plan, mode=1, centre=C(cre, cim))
+    ref = np.fft.ifft((x[0] + 1j * x[1]) * (c[:, None] * c[None, :L]), axis=-2) * two_n
+    for g, r in zip(got, (ref.real, ref.imag)):
+        assert np.abs(g - r).max() <= 1e-5 * np.abs(ref).max()
+    y = rng.standard_normal((2, 1, L, two_n)).astype(f32)
+    scale = f32(1.0 / (two_n * two_n))
+    got = f_emulated(y[0], y[1], 1, B, Cn, plan, mode=2, scale=scale)
+    m = np.arange(two_n)[:, None] + np.arange(L)[None, :]
+    ref = (np.fft.ifft(y[0] + 1j * y[1], axis=-1) * two_n).transpose(0, 2, 1)
+    ref = ref * np.where(m % 2 == 1, -1.0, 1.0) * float(scale)
+    for g, r in zip(got, (ref.real, ref.imag)):
+        assert np.abs(g - r).max() <= 1e-5 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("Cn", [2, 3, 6, 7, 37, 120, 509, 640, 999, 1000, 1024])

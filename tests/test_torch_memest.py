@@ -125,19 +125,25 @@ def test_model_with_mask_and_padding_against_a_real_call():
 def test_chunk_heuristic_within_a_quarter_of_the_ifft2_stage(nz, nproj, n):
     """``fourier_inv_pair_bytes`` (the chunk count's plan, 4 grid-sized
     buffer pairs per z-pair) against the modelled peak stage on a CUDA
-    device, where every call is planned: the ifft2 stage, within 25%.  The
-    model only (no call runs).  At n > 512, where the ifft2 passes run the
-    F kernel; below, they run ``torch.fft`` with its complex copies and the
-    plan covers ~0.64 of the stage (a third of the free memory is the
-    budget)."""
+    device, where every call is planned.  The model only (no call runs),
+    at n > 512, where the ifft2 stage is the centred F (Fc), which holds 3
+    such pairs: where it peaks (few angles) the plan is not below it; where
+    the filter stage peaks (1801 angles at n 2560) the plan is within 25%
+    of it.  (Below n 512 the ifft2 passes run ``torch.fft`` with its
+    complex copies, and the plan covers ~0.64 of the stage; a third of the
+    free memory is the budget.)"""
     rt, _, _ = problem(nz, nproj, n)
     # the model of a CUDA-bound instance, which this machine need not have
     on_cuda = SimpleNamespace(device=torch.device("cuda"), recon_size=rt.recon_size,
                               detectors_x_pad=rt.detectors_x_pad)
     r = M.estimate_fourier_inv_memory(on_cuda, (nz, nproj, n), per_stage=True, chunk_count=1)
-    assert r["stage_peak_name"] == "ifft2"
     ratio = fourier_inv_pair_bytes(n) * (nz // 2) / r["stage_peak"]
-    assert 0.75 <= ratio <= 1.25, ratio
+    if r["stage_peak_name"] == "ifft2":
+        assert 1.0 <= ratio <= 1.34, ratio  # 4 planned pairs against Fc's 3 and the rest
+    else:
+        assert r["stage_peak_name"] == "filter"
+        assert 0.75 <= ratio <= 1.25, ratio
+    assert (r["stage_peak_name"] == "filter") == (nproj == 1801)
     # the CPU model of the same call: the plain FFT's complex copies
     cpu = M.estimate_fourier_inv_memory(rt, (nz, nproj, n), per_stage=True)
     assert cpu["stages"]["ifft2"]["total"] > r["stages"]["ifft2"]["total"]

@@ -89,6 +89,73 @@ def test_ifft2_centered_matches_jax(n):
             np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL * np.abs(want).max())
 
 
+@pytest.mark.parametrize("shift", [True, False], ids=["half-pixel", "no-shift"])
+@pytest.mark.parametrize("n", [4, 640, 2560])
+def test_centred_factors_are_the_checker_times_the_ramp(n, shift):
+    """Fc's 2n-long table c: c(i) c(j) (a float32 product of the float32
+    table, as the kernel forms it) is the (2n)^2 checkerboard times the
+    half-pixel ramp that ``_ifft2_chain`` builds, to float32 rounding."""
+    from tomobar_tpu_torch.ops import fft_kernels as FK
+
+    two_n = 2 * n
+    cre, cim = FK.centred_factors(n, shift)
+    assert cre.dtype == cim.dtype == np.float32 and cre.shape == (two_n,)
+    c = torch.complex(torch.from_numpy(cre), torch.from_numpy(cim))
+    i = torch.arange(two_n)
+    ang = 2.0 * np.pi * (np.arange(two_n) - n) * 0.5 / two_n
+    r1 = torch.as_tensor(np.cos(ang), dtype=torch.float32)
+    r2 = torch.as_tensor(np.sin(ang), dtype=torch.float32)
+    for r0 in range(0, two_n, 512):  # row strips of the (2n)^2 tables
+        rows = slice(r0, r0 + 512)
+        checker = torch.where((i[rows, None] + i[None, :]) % 2 == 1, -1.0, 1.0)
+        if shift:
+            ramp = torch.complex(r1[rows, None] * r1[None, :] - r2[rows, None] * r2[None, :],
+                                 r1[rows, None] * r2[None, :] + r2[rows, None] * r1[None, :])
+        else:
+            ramp = torch.ones_like(checker, dtype=torch.complex64)
+        want = checker * ramp
+        got = c[rows, None] * c[None, :]
+        assert (got - want).abs().max() <= 4 * 2.0**-24
+        if not shift:
+            assert torch.equal(got, want)
+
+
+def test_only_the_ifft2_stage_takes_the_centred_variant(monkeypatch):
+    """Fc's two launches (planned on meta, where a card's call would launch
+    them) serve ``_ifft2_centered`` on a card's tensor at the sizes where
+    its passes run F, and nothing else: not the same stage on the CPU or
+    below F's sizes, not F's other callers (axis -2 transforms, the FBP
+    filter, FOURIER_INV's filter stage)."""
+    from tomobar_tpu_torch.ops import fft_kernels as FK
+    from tomobar_tpu_torch.ops import fft_real as FR
+
+    calls = []
+    real = FK._centred_pass
+    monkeypatch.setattr(FK, "_centred_pass", lambda *a: (calls.append(a[0]), real(*a))[1])
+
+    def grids(n, device="meta"):
+        return torch.zeros((2, 2 * n, 2 * n), device=device), torch.zeros((2, 2 * n, 2 * n), device=device)
+
+    out = PU._ifft2_centered(*grids(640), 640)
+    assert calls == [1, 2] and out[0].is_meta and out[0].shape == (2, 1280, 1280)
+    calls.clear()
+    PU._ifft2_centered(*grids(256), 256)  # 2n = 512: torch.fft's size
+    PU._ifft2_centered(*grids(640, "cpu"), 640)
+    x = torch.zeros((2, 1280, 1280), device="meta")
+    FR._fft_axis2(x, x, 1)
+    FR.fft2_pairs(x, x)
+    FR.ifft2_pairs(x, x)
+    w = torch.zeros(8192, device="meta")
+    FR.apply_freq_filter_real(torch.zeros((2, 6, 8192), device="meta"), w, w)
+    assert calls == []
+    angles = np.linspace(0, np.pi, 30, endpoint=False)
+    rd = RecToolsDIRCuPy(640, 0, 4, 0.0, angles, 640, device="meta")
+    rd.FBP(torch.zeros((30, 4, 640), device="meta"))
+    assert calls == []
+    rec = rd.FOURIER_INV(torch.zeros((4, 30, 640), device="meta"), chunk_count=2)
+    assert rec.shape == (4, 640, 640) and calls == [1, 2, 1, 2]  # two launches a z-block
+
+
 @pytest.mark.parametrize("odd_horiz,odd_vert", [(False, False), (True, True)])
 @pytest.mark.parametrize("recon_size", [40, 41])
 def test_unpad_mul_phi_matches_jax(odd_horiz, odd_vert, recon_size):

@@ -62,6 +62,7 @@ _SIGNATURES = {
     "tt_usfft_grid": [_P] * 7 + [_I] * 5 + [_F] * 3 + [_P],
     "tt_usfft_grid_tile": [_I],
     "tt_fft_axis2": [_P] * 5 + [_I] * 4 + [_P, _I, _P],
+    "tt_fft_axis2_centred": [_P] * 6 + [_F] + [_I] * 5 + [_P, _I, _P],
 }
 
 # launches per kernel since the last reset, the counters of

@@ -13,8 +13,9 @@ Stages (``ops/usfft.py``, shape nz x nproj x N, default kwargs):
 * ``fft1d``: STEP1, pack the z-pairs, ``torch.fft`` along detX, the
   fftshift sign and scale;
 * ``grid``: STEP2, the Gaussian gridding onto (2n, 2n) (G);
-* ``ifft2``: STEP3, the checkerboard-signed inverse 2D transform (F twice
-  with a transpose between);
+* ``ifft2``: STEP3, the checkerboard-signed inverse 2D transform (Fc, F's
+  centred variant: two launches, the factors and the transpose folded into
+  their loads and stores);
 * ``unpad``: STEP4, crop, phi and the pair unpacking.
 
 The work models (:func:`stage_work`) count what each stage's function must

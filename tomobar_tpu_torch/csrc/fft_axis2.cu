@@ -48,9 +48,40 @@
 //    different halves of the banks.
 //  * All tables (DFT_B, T and the roots w_C^j) are float64 on the host cast
 //    to float32; no library FFT, GEMM or tensor-core path is used.
+//
+// Fc, the centred variant (fft_axis2_centred_kernel, tt_fft_axis2_centred):
+// FOURIER_INV's whole inverse 2-D transform of (Z, 2n, 2n) grids in two
+// launches of the same block, with nothing grid-sized made between or
+// around them.  Replaces no TPU kernel: the JAX package's _ifft2_centered
+// runs the checkerboard, the half-pixel ramp, the transpose and the scale as
+// XLA passes around its two fused F passes.  What the stage computes is
+//     out[m, k] = (-1)^(m+k) / (2n)^2 * sum_j e(j m) sum_i e(i k) x[i, j] c(i) c(j)
+// with e(t) = exp(+2i*pi*t/(2n)) and c(k) = (-1)^k exp(i*pi*(k - n)/(2n))
+// (c(k) = (-1)^k without the half-pixel shift): the checkerboard and the
+// ramp are both separable, so one 2n-long table replaces three (2n)^2 ones.
+//  * Pass 1 (kCentredRows) is F along axis -2 that multiplies each element
+//    by c(i) c(j) as it loads it.  The inverse runs the forward block on
+//    swapped (im, re) pointers; in that frame the caller's factor c is
+//    conj(c), since swap(c x) = conj(c) swap(x).
+//  * Pass 2 (kCentredCols) transforms along the other axis by reading its
+//    input transposed: the cluster's 8 "columns" are 8 rows of pass 1's
+//    output, and block k1 reads its slab n1 = k1 as 8 runs of C contiguous
+//    floats, 16 bytes a thread, a warp 8 rows x 16 floats, whose smem slots
+//    fall two words to a bank (the fewest for 64-bit stores).  It stores as
+//    F does, multiplied by (-1)^(m+k) / (2n)^2, so the image comes out
+//    transposed, as the chain of passes left it.  Reading transposed costs
+//    no barrier; storing transposed from pass 1 would have needed a third
+//    cluster barrier and scattered reads of the digit-reversed slabs.
+//  * Bound: each pass moves what F moves (1.68 GB at 4 x 5120^2, 0.50 ms at
+//    3.35 TB/s); the twelve grid-sized PyTorch passes it replaces moved
+//    about 3.6 GB a z-pair.  Prediction before the first run: each pass
+//    within 10% of F's 1.40 ms at 4 x 5120^2, so the stage at ~2.9 ms per
+//    4 pairs against ~9.9 ms for the chain.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -62,6 +93,9 @@ constexpr int kMaxC = 1024;
 constexpr int kMaxStages = 10;      // C <= 1024 has at most 10 prime factors
 constexpr int kPlanThreads = 512;   // block size of the run-time plan
 constexpr int kMaxItems = kMaxC * kCols / kPlanThreads;
+
+// how a launch loads and stores: F, or one of the two passes of Fc
+enum Mode { kPlain = 0, kCentredRows = 1, kCentredCols = 2 };
 
 struct StagePlan {
   int n;                  // number of stages
@@ -76,6 +110,10 @@ __device__ __forceinline__ float2 csub(float2 a, float2 b) {
 }
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+// a * conj(b)
+__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
+  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
 }
 // a * (-i)
 __device__ __forceinline__ float2 mul_mi(float2 a) { return make_float2(a.y, -a.x); }
@@ -299,14 +337,62 @@ __device__ __forceinline__ void b_step(cg::cluster_group& cluster, float2* slab,
   }
 }
 
-// C_ > 0: the compile-time plan C_ = R1*R2*R3*R4 (unused radices are 1);
-// C_ == 0: C and the radices come from `plan`.
-template <int C_, int R1, int R2, int R3, int R4, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-fft_axis2_kernel(const float* __restrict__ re, const float* __restrict__ im,
-                 float* __restrict__ ore, float* __restrict__ oim,
-                 const float2* __restrict__ tables, int B, int C_arg,
-                 StagePlan plan, int L, int n_tiles) {
+// The load of pass 2 of Fc: the slab of rows first + n2 (n2 < C) of the
+// columns l0 + col is in[z, l0 + col, first + n2] of a (Z, L, n) input, so
+// each column is a run of C contiguous floats.  A warp takes 8 columns x 16
+// floats, 16 bytes a thread, where C_ is a multiple of 4 (the compile-time
+// plans; the entry checks the alignment), and one float a thread otherwise.
+template <int C_, int THREADS>
+__device__ __forceinline__ void load_transposed(const float* __restrict__ re,
+                                                const float* __restrict__ im,
+                                                float2* slab, long long base,
+                                                int first, int n, int C, int l0,
+                                                int L) {
+  if constexpr (C_ > 0 && C_ % 4 == 0) {
+    for (int it = threadIdx.x; it < C_ / 4 * kCols; it += THREADS) {
+      const int col = it % kCols;
+      const int n2 = it / kCols * 4;
+      const int l = l0 + col;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (l < L) {
+        const long long off = base + static_cast<long long>(l) * n + first + n2;
+        a = *reinterpret_cast<const float4*>(re + off);
+        b = *reinterpret_cast<const float4*>(im + off);
+      }
+      slab[slot(n2) * kCols + col] = make_float2(a.x, b.x);
+      slab[slot(n2 + 1) * kCols + col] = make_float2(a.y, b.y);
+      slab[slot(n2 + 2) * kCols + col] = make_float2(a.z, b.z);
+      slab[slot(n2 + 3) * kCols + col] = make_float2(a.w, b.w);
+    }
+  } else {
+    const int runs = (C + 3) / 4;
+    for (int it = threadIdx.x; it < runs * 4 * kCols; it += THREADS) {
+      const int n2 = it / (4 * kCols) * 4 + it % 4;
+      const int col = it / 4 % kCols;
+      if (n2 >= C) continue;
+      const int l = l0 + col;
+      float2 v = make_float2(0.f, 0.f);
+      if (l < L) {
+        const long long off = base + static_cast<long long>(l) * n + first + n2;
+        v = make_float2(re[off], im[off]);
+      }
+      slab[slot(n2) * kCols + col] = v;
+    }
+  }
+}
+
+// The block of F (MODE kPlain) and of the two passes of Fc.  C_ > 0: the
+// compile-time plan C_ = R1*R2*R3*R4 (unused radices are 1); C_ == 0: C and
+// the radices come from `plan`.  kCentredRows multiplies element (i, l) by
+// conj(c(i) c(l)) as it loads it (`centre` holds c, B*C of it);
+// kCentredCols reads a (Z, L, B*C) input transposed and stores
+// (-1)^(row + l) * `scale` times the result.
+template <int MODE, int C_, int R1, int R2, int R3, int R4, int THREADS>
+__device__ __forceinline__ void fft_axis2_block(
+    const float* __restrict__ re, const float* __restrict__ im,
+    float* __restrict__ ore, float* __restrict__ oim,
+    const float2* __restrict__ tables, const float2* __restrict__ centre,
+    float scale, int B, int C_arg, const StagePlan& plan, int L, int n_tiles) {
   extern __shared__ __align__(16) float2 f_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = C_ > 0 ? C_ : C_arg;
@@ -329,16 +415,22 @@ fft_axis2_kernel(const float* __restrict__ re, const float* __restrict__ im,
   for (int j = threadIdx.x; j < B * B; j += THREADS) wb[j] = g_wb[j];
 
   // 1. the slab n1 = k1: rows k1*C + n2
-  for (int it = threadIdx.x; it < items; it += THREADS) {
-    const int col = it % kCols;
-    const int n2 = it / kCols;
-    const int l = l0 + col;
-    float2 v = make_float2(0.f, 0.f);
-    if (l < L) {
-      const long long off = base + static_cast<long long>(k1 * C + n2) * L + l;
-      v = make_float2(re[off], im[off]);
+  if constexpr (MODE == kCentredCols) {
+    load_transposed<C_, THREADS>(re, im, slab, base, k1 * C, B * C, C, l0, L);
+  } else {
+    for (int it = threadIdx.x; it < items; it += THREADS) {
+      const int col = it % kCols;
+      const int n2 = it / kCols;
+      const int l = l0 + col;
+      float2 v = make_float2(0.f, 0.f);
+      if (l < L) {
+        const long long off = base + static_cast<long long>(k1 * C + n2) * L + l;
+        v = make_float2(re[off], im[off]);
+        if constexpr (MODE == kCentredRows)
+          v = cmul_conj(v, cmul(centre[k1 * C + n2], centre[l]));
+      }
+      slab[slot(n2) * kCols + col] = v;
     }
-    slab[slot(n2) * kCols + col] = v;
   }
   cluster.sync();
 
@@ -392,25 +484,48 @@ fft_axis2_kernel(const float* __restrict__ re, const float* __restrict__ im,
     }
     const float2 v = slab[slot(pos) * kCols + col];
     const long long off = base + static_cast<long long>(k1 + B * k2) * L + l;
-    ore[off] = v.x;
-    oim[off] = v.y;
+    if constexpr (MODE == kCentredCols) {
+      const float f = ((k1 + B * k2 + l) & 1) ? -scale : scale;
+      ore[off] = v.x * f;
+      oim[off] = v.y * f;
+    } else {
+      ore[off] = v.x;
+      oim[off] = v.y;
+    }
   }
 }
 
 template <int C_, int R1, int R2, int R3, int R4, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+fft_axis2_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                 float* __restrict__ ore, float* __restrict__ oim,
+                 const float2* __restrict__ tables, int B, int C_arg,
+                 StagePlan plan, int L, int n_tiles) {
+  fft_axis2_block<kPlain, C_, R1, R2, R3, R4, THREADS>(
+      re, im, ore, oim, tables, nullptr, 0.f, B, C_arg, plan, L, n_tiles);
+}
+
+template <int MODE, int C_, int R1, int R2, int R3, int R4, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+fft_axis2_centred_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                         float* __restrict__ ore, float* __restrict__ oim,
+                         const float2* __restrict__ tables,
+                         const float2* __restrict__ centre, float scale, int B,
+                         int C_arg, StagePlan plan, int L, int n_tiles) {
+  fft_axis2_block<MODE, C_, R1, R2, R3, R4, THREADS>(
+      re, im, ore, oim, tables, centre, scale, B, C_arg, plan, L, n_tiles);
+}
+
+template <int MODE, int C_, int R1, int R2, int R3, int R4, int THREADS>
 int launch(const float* re, const float* im, float* ore, float* oim,
-           const float* tables, int Z, int B, int C, const StagePlan& plan,
-           int L, cudaStream_t stream) {
+           const float* tables, const float* centre, float scale, int Z, int B,
+           int C, const StagePlan& plan, int L, cudaStream_t stream) {
   const int n_tiles = (L + kCols - 1) / kCols;
   const long long blocks = static_cast<long long>(Z) * n_tiles * B;
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = fft_axis2_kernel<C_, R1, R2, R3, R4, THREADS>;
   const size_t smem =
       sizeof(float2) * (C + kMaxB * kMaxB + static_cast<size_t>((C + 1) & ~1) * kCols);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned int>(blocks));
   cfg.blockDim = dim3(THREADS);
@@ -423,9 +538,23 @@ int launch(const float* re, const float* im, float* ore, float* oim,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, re, im, ore, oim,
-                           reinterpret_cast<const float2*>(tables), B, C, plan, L,
-                           n_tiles);
+  const float2* t2 = reinterpret_cast<const float2*>(tables);
+  cudaError_t err;
+  if constexpr (MODE == kPlain) {
+    auto kernel = fft_axis2_kernel<C_, R1, R2, R3, R4, THREADS>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaLaunchKernelEx(&cfg, kernel, re, im, ore, oim, t2, B, C, plan, L, n_tiles);
+  } else {
+    auto kernel = fft_axis2_centred_kernel<MODE, C_, R1, R2, R3, R4, THREADS>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaLaunchKernelEx(&cfg, kernel, re, im, ore, oim, t2,
+                             reinterpret_cast<const float2*>(centre), scale, B, C,
+                             plan, L, n_tiles);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -435,6 +564,38 @@ bool plan_is(const StagePlan& plan, int r1, int r2, int r3) {
          plan.radix[2] == r3;
 }
 
+template <int MODE>
+int dispatch(const float* re, const float* im, float* ore, float* oim,
+             const float* tables, const float* centre, float scale, int Z, int B,
+             int C, const StagePlan& plan, int L, cudaStream_t stream) {
+  if (C == 1024 && plan_is(plan, 16, 8, 8))
+    return launch<MODE, 1024, 16, 8, 8, 1, 256>(re, im, ore, oim, tables, centre, scale, Z,
+                                                B, C, plan, L, stream);
+  if (C == 640 && plan_is(plan, 5, 16, 8))
+    return launch<MODE, 640, 5, 16, 8, 1, 320>(re, im, ore, oim, tables, centre, scale, Z,
+                                               B, C, plan, L, stream);
+  return launch<MODE, 0, 1, 1, 1, 1, kPlanThreads>(re, im, ore, oim, tables, centre, scale,
+                                                   Z, B, C, plan, L, stream);
+}
+
+// the checks of both entries; fills `plan` from the host's radices
+int make_plan(int Z, int B, int C, int L, const int* radices, int n_stages,
+              StagePlan* plan) {
+  if (B < 2 || B > kMaxB || C < 2 || C > kMaxC || Z < 0 || L < 0 ||
+      n_stages < 1 || n_stages > kMaxStages)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *plan = {};
+  plan->n = n_stages;
+  int product = 1;
+  for (int i = 0; i < n_stages; ++i) {
+    if (radices[i] < 2 || radices[i] > C) return static_cast<int>(cudaErrorInvalidValue);
+    plan->radix[i] = radices[i];
+    product *= radices[i];
+  }
+  if (product != C) return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
 }  // namespace
 
 // radices: n_stages host ints whose product is C (the wrapper's stage plan)
@@ -442,21 +603,29 @@ extern "C" int tt_fft_axis2(const float* re, const float* im, float* ore,
                             float* oim, const float* tables, int Z, int B,
                             int C, int L, const int* radices, int n_stages,
                             cudaStream_t stream) {
-  if (B < 2 || B > kMaxB || C < 2 || C > kMaxC || Z < 0 || L < 0 ||
-      n_stages < 1 || n_stages > kMaxStages)
-    return static_cast<int>(cudaErrorInvalidValue);
-  StagePlan plan = {};
-  plan.n = n_stages;
-  int product = 1;
-  for (int i = 0; i < n_stages; ++i) {
-    if (radices[i] < 2 || radices[i] > C) return static_cast<int>(cudaErrorInvalidValue);
-    plan.radix[i] = radices[i];
-    product *= radices[i];
-  }
-  if (product != C) return static_cast<int>(cudaErrorInvalidValue);
-  if (C == 1024 && plan_is(plan, 16, 8, 8))
-    return launch<1024, 16, 8, 8, 1, 256>(re, im, ore, oim, tables, Z, B, C, plan, L, stream);
-  if (C == 640 && plan_is(plan, 5, 16, 8))
-    return launch<640, 5, 16, 8, 1, 320>(re, im, ore, oim, tables, Z, B, C, plan, L, stream);
-  return launch<0, 1, 1, 1, 1, kPlanThreads>(re, im, ore, oim, tables, Z, B, C, plan, L, stream);
+  StagePlan plan;
+  const int err = make_plan(Z, B, C, L, radices, n_stages, &plan);
+  if (err != 0) return err;
+  return dispatch<kPlain>(re, im, ore, oim, tables, nullptr, 0.f, Z, B, C, plan, L, stream);
+}
+
+// Fc, pass 1 or 2 (see the head of this file).  centre: c(k), k < B*C, as
+// float32 (re, im) pairs (pass 1; its L columns index it too); scale: the
+// store's factor (pass 2, whose input is (Z, L, B*C), 16-byte aligned).
+extern "C" int tt_fft_axis2_centred(const float* re, const float* im, float* ore,
+                                    float* oim, const float* tables,
+                                    const float* centre, float scale, int pass,
+                                    int Z, int B, int C, int L, const int* radices,
+                                    int n_stages, cudaStream_t stream) {
+  StagePlan plan;
+  const int err = make_plan(Z, B, C, L, radices, n_stages, &plan);
+  if (err != 0) return err;
+  if (pass == 1 && L <= B * C)
+    return dispatch<kCentredRows>(re, im, ore, oim, tables, centre, scale, Z, B, C, plan,
+                                  L, stream);
+  if (pass != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<std::uintptr_t>(re) | reinterpret_cast<std::uintptr_t>(im)) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return dispatch<kCentredCols>(re, im, ore, oim, tables, centre, scale, Z, B, C, plan, L,
+                                stream);
 }

@@ -18,6 +18,16 @@ as in-place stages whose radices :func:`stage_plan` picks.
 :func:`fft_axis2_plain` is the plain version (``torch.fft`` along dim -2).
 :func:`fft_axis2` runs it for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises.
+
+:func:`ifft2_centred` (Fc) is the centred variant of the same kernel: the
+whole inverse 2-D transform of FOURIER_INV's (..., 2n, 2n) grids, with the
+checkerboard, the half-pixel ramp and the 1/(2n)^2 scale folded into the
+loads and stores of two launches and the transpose between them into the
+second one's load.  Both factors are separable: the first pass multiplies
+element (i, j) by ``c(i) c(j)``, c from :func:`centred_factors`, the
+second its output (m, k) by ``(-1)^(m+k) / (2n)^2``.  Its plain version is
+the chain of passes ``usfft._ifft2_chain``; ``usfft._ifft2_centered``
+routes CUDA tensors here, and Fc takes CUDA tensors only.
 """
 
 from __future__ import annotations
@@ -40,6 +50,8 @@ __all__ = [
     "twiddle",
     "fft_axis2",
     "fft_axis2_plain",
+    "centred_factors",
+    "ifft2_centred",
 ]
 
 MAX_C = 1024  # largest C-point transform (the JAX package's _MAX_MATMUL_N)
@@ -168,3 +180,74 @@ def fft_axis2(re: torch.Tensor, im: torch.Tensor, sign: int):
     _build.check("F", err)
     trace.count("F")
     return ore, oim
+
+
+@lru_cache(maxsize=None)
+def centred_factors(n: int, half_pixel_shift: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """Real/imag parts of c(k) = (-1)^k exp(i*pi*(k - n)/(2n)), k < 2n
+    ((-1)^k without ``half_pixel_shift``), built in float64 then cast:
+    c(i) c(j) is the (2n)^2 checkerboard (-1)^(i+j) times the half-pixel
+    ramp exp(-2i*pi*((i - n) + (j - n)) * s/(2n)), s = -0.5, of
+    ``usfft._ifft2_centered``."""
+    k = np.arange(2 * n, dtype=np.float64)
+    sign = np.where(k % 2 == 1, -1.0, 1.0)
+    if not half_pixel_shift:
+        return sign.astype(np.float32), np.zeros(2 * n, dtype=np.float32)
+    ang = np.pi * (k - n) / (2 * n)
+    return (sign * np.cos(ang)).astype(np.float32), (sign * np.sin(ang)).astype(np.float32)
+
+
+@lru_cache(maxsize=16)
+def _device_centre(n: int, half_pixel_shift: bool, device) -> torch.Tensor:
+    """:func:`centred_factors` on ``device`` as float32 (re, im) pairs."""
+    cre, cim = centred_factors(n, half_pixel_shift)
+    return torch.as_tensor(np.stack([cre, cim], axis=1).ravel(), device=device)
+
+
+def _centred_pass(pass_: int, src, dst, half_pixel_shift: bool) -> None:
+    """One launch of Fc: pass 1 along axis -2 of ``src`` with c(i) c(j) on
+    the load, pass 2 along its axis -1 with the sign and scale on the
+    store; both inverse, on swapped re/im as F's inverse."""
+    (re, im), (ore, oim) = src, dst
+    if ore.is_meta:  # a memory plan: the outputs, no launch
+        return
+    two_n = re.shape[-1]
+    B, C = best_split(two_n)
+    Z = re.numel() // (two_n * two_n)
+    tables = _device_tables(two_n, B, C, re.device)
+    centre = _device_centre(two_n // 2, half_pixel_shift, re.device)
+    plan = stage_plan(C)
+    radices = (ctypes.c_int * len(plan))(*plan)
+    lib = _build.library()
+    with torch.cuda.device(re.device):
+        err = lib.tt_fft_axis2_centred(
+            im.data_ptr(), re.data_ptr(), oim.data_ptr(), ore.data_ptr(), tables.data_ptr(),
+            centre.data_ptr(), 1.0 / (two_n * two_n), pass_, Z, B, C, two_n, radices,
+            len(plan), torch.cuda.current_stream(re.device).cuda_stream,
+        )
+    _build.check("Fc", err)
+    trace.count("Fc")
+
+
+def ifft2_centred(re: torch.Tensor, im: torch.Tensor, half_pixel_shift: bool = True):
+    """Fc: the centred inverse 2-D transform of (..., 2n, 2n) grids in two
+    launches, 2n = B*C from :func:`best_split` with 1 < B <= 8 and C <=
+    1024.  Returns (-1)^(m+k) / (2n)^2 times the inverse DFT of
+    ``(re + 1j*im) * c(i) c(j)``, TRANSPOSED in its last two axes, as
+    ``usfft._ifft2_centered``'s chain returns it."""
+    if re.device.type not in ("cuda", "meta") or im.device != re.device:
+        raise ValueError(f"Fc: tensors on {re.device} and {im.device}; the kernel takes CUDA tensors")
+    if re.dtype != torch.float32 or im.dtype != torch.float32:
+        raise TypeError(f"Fc: expected float32, got {re.dtype} and {im.dtype}")
+    if re.shape != im.shape or re.dim() < 2 or re.shape[-1] != re.shape[-2] or re.shape[-1] % 2:
+        raise ValueError(f"Fc: re {tuple(re.shape)} and im {tuple(im.shape)} must be one (..., 2n, 2n) shape")
+    two_n = re.shape[-1]
+    B, C = best_split(two_n)
+    if not (1 < B <= MAX_B and C <= MAX_C):
+        raise ValueError(f"Fc: 2n = {two_n} splits as B={B}, C={C}; the kernel takes 1 < B <= {MAX_B}, C <= {MAX_C}")
+    src = (re.contiguous(), im.contiguous())
+    mid = (torch.empty_like(src[0]), torch.empty_like(src[1]))
+    _centred_pass(1, src, mid, half_pixel_shift)
+    out = (torch.empty_like(src[0]), torch.empty_like(src[1]))
+    _centred_pass(2, mid, out, half_pixel_shift)
+    return out

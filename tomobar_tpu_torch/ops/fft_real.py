@@ -33,6 +33,7 @@ __all__ = [
     "ifft2_pairs",
     "apply_freq_filter_real",
     "use_fused_axis2",
+    "runs_f",
 ]
 
 
@@ -43,10 +44,17 @@ def use_fused_axis2(n: int) -> bool:
     return B != 0 and 1 < B <= MAX_B and C <= MAX_C
 
 
+def runs_f(n: int) -> bool:
+    """True where :func:`_fft_axis2` sends a length-n transform to the F
+    kernel: above a C-point transform (below, ``torch.fft``) and where
+    :func:`use_fused_axis2` holds."""
+    return n > MAX_C and use_fused_axis2(n)
+
+
 def _fft_axis2(re: torch.Tensor, im: torch.Tensor, sign: int):
     """Length-n transform along axis -2 of (..., n, L), unnormalised."""
     n = re.shape[-2]
-    if n > MAX_C and use_fused_axis2(n):
+    if runs_f(n):
         return fft_axis2(re, im, sign)
     return fft_axis2_plain(re, im, sign)
 

@@ -34,7 +34,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from tomobar_tpu_torch.ops.fft_real import _fft_axis2, apply_freq_filter_real, fft_pairs
+from tomobar_tpu_torch.ops.fft_kernels import ifft2_centred
+from tomobar_tpu_torch.ops.fft_real import _fft_axis2, apply_freq_filter_real, fft_pairs, runs_f
 from tomobar_tpu_torch.ops.filters import calc_filter_np
 from tomobar_tpu_torch.ops.usfft_kernels import grid
 from tomobar_tpu_torch.trace import span
@@ -167,12 +168,24 @@ def _ifft2_centered(
 
     ``half_pixel_shift`` applies an exact Fourier-domain shift of
     (-0.5, -0.5) pixels, aligning the output with FBP on the same grid (the
-    JAX package's deliberate departure from the reference).  Both 1-D
-    passes run along axis -2 (the F kernel) with one transpose between, so
-    the result is the inverse image TRANSPOSED in its last two axes; every
-    later factor is symmetric, and ``_unpad_mul_phi`` restores the
-    orientation on the small cropped volume.
+    JAX package's deliberate departure from the reference).  The result is
+    the inverse image TRANSPOSED in its last two axes; every later factor
+    is symmetric, and ``_unpad_mul_phi`` restores the orientation on the
+    small cropped volume.  On a CUDA tensor, where the passes run the F
+    kernel, the whole stage is its centred variant Fc (two launches,
+    ``fft_kernels.ifft2_centred``); elsewhere it is :func:`_ifft2_chain`.
     """
+    if fre.device.type in ("cuda", "meta") and runs_f(2 * n):
+        return ifft2_centred(fre, fim, half_pixel_shift)
+    return _ifft2_chain(fre, fim, n, half_pixel_shift)
+
+
+def _ifft2_chain(
+    fre: torch.Tensor, fim: torch.Tensor, n: int, half_pixel_shift: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_ifft2_centered` as a chain of passes, Fc's plain version:
+    the checkerboard and the ramp, both 1-D passes along axis -2 (F, or
+    ``torch.fft``) with one transpose between, the signed scale."""
     two_n = 2 * n
     dev = fre.device
     i = torch.arange(two_n, device=dev)
@@ -244,9 +257,10 @@ def _unpad_mul_phi(
 
 def fourier_inv_pair_bytes(n: int) -> int:
     """Bytes that the chunk count plans for per z-pair: 4 grid-sized
-    float32 (re, im) buffer pairs of (2n)^2, what the ifft2 stage holds at
-    its peak on a CUDA tensor.  ``utils/memest.py`` replays that stage and
-    its tests hold the two within 25% of each other."""
+    float32 (re, im) buffer pairs of (2n)^2.  On a CUDA tensor the ifft2
+    stage (the centred F) holds 3 such pairs at its peak, and with many
+    angles the filter stage peaks instead, within 25% of the plan;
+    ``utils/memest.py`` replays both and its tests hold the plan to them."""
     return 4 * 2 * (2 * n) * (2 * n) * 4
 
 

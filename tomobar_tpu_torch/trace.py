@@ -58,7 +58,7 @@ MAX_SPANS = 1 << 17
 _API = "tomobar::api."
 
 #: launches by kernel name; each kernel wrapper counts one where it launches
-launches = dict.fromkeys(("K1", "K1p", "K2", "K3", "K4", "K4p", "PD", "PDw", "G", "F"), 0)
+launches = dict.fromkeys(("K1", "K1p", "K2", "K3", "K4", "K4p", "PD", "PDw", "G", "F", "Fc"), 0)
 #: misses (builds) and hits of ``_DrivenPlan.group``'s cache of parameters
 counters = {"projector.plan_builds": 0, "projector.plan_hits": 0}
 

@@ -311,15 +311,21 @@ def _grid_stage(r: _Replay, p, pairs: int) -> Tuple[int, int]:
 
 
 def _ifft2_stage(r: _Replay, p, pairs: int) -> Tuple[int, int]:
-    """``_ifft2_centered``: the checkerboard (int64 temporaries), the signed
+    """``_ifft2_centered``.  On CUDA where its passes run F: the centred
+    variant Fc, pass 1's two grids, then pass 2's (its tables are cached).
+    Elsewhere the chain: the checkerboard (int64 temporaries), the signed
     grids, the half-pixel ramps and products, two axis -2 passes around a
     transposed copy of each grid, the scaled outputs."""
-    from tomobar_tpu_torch.ops.fft_kernels import MAX_C
-    from tomobar_tpu_torch.ops.fft_real import use_fused_axis2
+    from tomobar_tpu_torch.ops.fft_real import runs_f
 
-    n, two_n = p.n, 2 * p.n
+    two_n = 2 * p.n
     cell = F32 * two_n * two_n
     grid = pairs * cell
+    if r.cuda and runs_f(two_n):
+        mid = (r.new(grid), r.new(grid))
+        out = (r.new(grid), r.new(grid))
+        r.free(*mid)
+        return out
     arange = r.new(8 * two_n)
     isum = r.new(2 * cell)
     parity = r.new(2 * cell)
@@ -333,8 +339,7 @@ def _ifft2_stage(r: _Replay, p, pairs: int) -> Tuple[int, int]:
     ramp_re, ramp_im = _complex_mul(r, cell), _complex_mul(r, cell)
     shifted = (_complex_mul(r, grid), _complex_mul(r, grid))
     r.free(*signed)
-    kernel = r.cuda and two_n > MAX_C and use_fused_axis2(two_n)
-    fre, fim = _fft(r, grid, kernel, True)
+    fre, fim = _fft(r, grid, False, True)
     r.free(*shifted)
     t = r.new(grid)
     r.free(fre)
@@ -342,7 +347,7 @@ def _ifft2_stage(r: _Replay, p, pairs: int) -> Tuple[int, int]:
     t = r.new(grid)
     r.free(fim)
     fim = t
-    out = _fft(r, grid, kernel, True)
+    out = _fft(r, grid, False, True)
     r.free(fre, fim)
     fre, fim = out
     scale = r.new(cell)

@@ -47,7 +47,9 @@ where the tree has the wavefront, that kernel alone on 8 x 2560^2 through
 its C entry, a route the wrapper does not take there; F at 4 x 5120 x 5120
 (sign +1), 8192 x 7208 and 2560 x 7208 (sign -1), beside its plain version
 (``torch.fft`` with the complex pack and split) and ``torch.fft`` alone on
-an already complex tensor.  Times are means of CUDA-event timings in ms;
+an already complex tensor; ``ifft2``: FOURIER_INV's whole ifft2 stage
+(``usfft._ifft2_centered``) on 4 x 5120 x 5120 grids, the centred F (Fc)
+where the tree has it, the chain of passes around F before.  Times are means of CUDA-event timings in ms;
 the first line of output is the card's name and power limit.
 """
 
@@ -263,6 +265,13 @@ def worker(repo: str, kernels) -> dict:
             (lambda: torch.fft.fft(xc, dim=-2)) if sign < 0
             else (lambda: torch.fft.ifft(xc, dim=-2, norm="forward")), 10)
         del re_, im_, xc
+    if "ifft2" in kernels:  # FOURIER_INV's whole ifft2 stage, whatever runs it
+        from tomobar_tpu_torch.ops import usfft as US
+
+        re_ = torch.randn((4, 2 * N, 2 * N), generator=gen, device=dev)
+        im_ = torch.randn((4, 2 * N, 2 * N), generator=gen, device=dev)
+        out[f"ifft2 stage 4x{2 * N}x{2 * N}"] = ms(lambda: US._ifft2_centered(re_, im_, N), 10)
+        del re_, im_
     return out
 
 
@@ -342,7 +351,7 @@ def main() -> int:
     ap.add_argument("--kernels", default="K1,K4,PD,F",
                     help="comma-separated: K1, K1p, K2, K3, K4 (with K4p), PD, PDw (PD on 20, 64 and "
                          "512 slices), F, G, Gx (G's C entry with other tile orders, no compensation, "
-                         "fewer angles)")
+                         "fewer angles), ifft2 (FOURIER_INV's ifft2 stage)")
     ap.add_argument("--ptxas", metavar="SOURCE.cu",
                     help="first print each tree's register and spill report of csrc/SOURCE.cu")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
