@@ -298,28 +298,30 @@ def admm(
         x0 = _volume(sino, projector.geom.recon_size)
     x = z = x0
     z_old = u = torch.zeros_like(x0)
+    nz, n = x0.shape[0], x0.shape[-1]
     for it in range(iterations):
         x_prev = x
         for s in range(n_sub):
-            grad = grad_data_term(
-                projector,
-                z,
-                subs[s],
-                sub_ind=s if use_os else None,
-                w=w_subs[s],
-                fidelity=fidelity,
-                huber_threshold=fid_kwargs.get("huber_threshold"),
-                studentst_threshold=fid_kwargs.get("studentst_threshold"),
-            )
-            z = z - tau * (grad + rho_const * (z - x + u))
-            if nonnegativity:
-                z = torch.clamp(z, min=0.0)
-            if it > 1:
-                z = (1.0 - relax_par) * z_old + relax_par * z
-            z_old = z
-            x = z + u
-            if regul_fn is not None:
-                x = regul_fn(x)
+            with span("tomobar::solver.admm_subset", nz=nz, n=n):
+                grad = grad_data_term(
+                    projector,
+                    z,
+                    subs[s],
+                    sub_ind=s if use_os else None,
+                    w=w_subs[s],
+                    fidelity=fidelity,
+                    huber_threshold=fid_kwargs.get("huber_threshold"),
+                    studentst_threshold=fid_kwargs.get("studentst_threshold"),
+                )
+                z = z - tau * (grad + rho_const * (z - x + u))
+                if nonnegativity:
+                    z = torch.clamp(z, min=0.0)
+                if it > 1:
+                    z = (1.0 - relax_par) * z_old + relax_par * z
+                z_old = z
+                x = z + u
+                if regul_fn is not None:
+                    x = regul_fn(x)
         u = u + (z - x)
         if _stop(projector, "ADMM", it, x, x_prev, tolerance, verbose):
             break

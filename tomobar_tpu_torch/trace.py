@@ -34,9 +34,11 @@ The spans:
 | ``tomobar::projector.plan`` | ``_DrivenPlan.group`` on a miss of its cache (the group's parameters, uploaded) |
 | ``tomobar::projector.fp`` / ``.bp`` | ``_Plan.fp`` / ``_Plan.bp`` (every FP and BP of ``Projector``) |
 | ``tomobar::solver.subset`` | one ordered subset of ``solvers.core.fista`` |
+| ``tomobar::solver.admm_subset`` | one ordered subset of ``solvers.core.admm`` |
 | ``tomobar::fidelity.grad`` | ``fidelity.grad_data_term`` |
 | ``tomobar::regul.prox`` | ``regularisers.prox_regul`` |
 | ``tomobar::usfft.<stage>`` | the five stages of ``ops/usfft.py``'s ``fourier_inv``: ``filter``, ``fft1d``, ``grid``, ``ifft2``, ``unpad`` |
+| ``tomobar::prep.normalise`` | ``utils.tools.normaliser`` on a tensor ("mean" or "median") |
 
 The record is one per process and assumes the spans of one thread.
 """

@@ -15,6 +15,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tomobar_tpu_torch.trace import span
+
 __all__ = [
     "normaliser",
     "autocropper",
@@ -205,7 +207,10 @@ def normaliser(
                 "median or dynamic"
             )
         if is_tensor:
-            return _normalise_torch(data, flats, darks, log, method, axis)
+            with span("tomobar::prep.normalise", frames=data.shape[axis],
+                      rows=data.shape[1 - axis], det_x=data.shape[2],
+                      flats=flats.shape[axis], darks=darks.shape[axis]):
+                return _normalise_torch(data, flats, darks, log, method, axis)
         flat_field = reduce(flats, axis)
         dark_field = reduce(darks, axis)
 
