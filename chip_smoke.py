@@ -31,11 +31,15 @@ Phases, in order; any failure raises and exits non-zero:
    (iso/aniso x nonneg, nz 1, 3 and 8, plus bf16 duals; iteration counts
    1, K - 1, K + 1 and 20 for K iterations per launch; 3 x 500 x 510, which
    its tiles do not divide; 9 slices refused) and PDw, its y-wavefront for
-   more than 8 slices (12, 17 and 20 slices, one slab; 300 rows, three
-   y-segments; 33 and 70 slices, slabs of 32 with a halo in z), each
-   against its plain
+   more than 8 slices (12, 17 and 20 slices, one slab; 300 rows, several
+   y-segments; 33 and 70 slices, slabs flush with the volume's faces and a
+   halo in z inside), each against its plain
    version on the same inputs; K1, K3 and K4 must equal their plain
-   versions bit for bit.
+   versions bit for bit.  PDw's cut from the shape (``wave_plan``) against
+   the fixed cut of 128-row segments and 32-slice slabs, handed straight
+   to its C entry, at 20 x 2608^2 (40 iterations), 20 and 64 x 2560^2 and
+   41 x 512^2: equal bit for bit, both timed, the block-row counters
+   grown; cuts it cannot run refused.
 4. adjointness of the kernel pair.
 5. the slice on the CPU (plain versions) and on the GPU (kernels),
    256^2 x 4 slices x 90 angles, OS5, PWLS, nonneg, PD-TV 20.
@@ -640,6 +644,102 @@ def check_pd_shapes(torch, PDT, errs, dev) -> None:
         args = (data, 0.05, k + 1, 0, 1, 12.0, True)
         errs.compare(key, f"{'x'.join(map(str, shape))}, {k + 1} iterations, bf16 duals",
                      PDT.pd_tv(*args), PDT.pd_tv_plain(*args), tol=TOL_PD_BF16)
+
+
+def fixed_wave_cut(nz: int):
+    """The cut the wavefront had before its plan came from the shape, as
+    ``(R, zs, n)`` for a launch of k iterations: y-segments of 128 rows,
+    one slab up to 32 slices, else as many slabs of 32 as slabs that keep
+    32 - 2k took."""
+    return lambda k: (128, nz, 1) if nz <= 32 else (128, 32, -(-nz // (32 - 2 * k)))
+
+
+def pdw_with_cut(torch, PDT, data, lam: float, iterations: int, lc: float, cut):
+    """One iso, nonneg prox of PDw through its C entry, the wrapper's
+    launches and buffers, each launch of k iterations cut as ``cut(k)``."""
+    from tomobar_tpu_torch import _build
+
+    lib = _build.library()
+    sigma, tau, lt, theta = PDT.pd_tv_constants(lam, lc)
+    nz, ny, nx = data.shape
+    launches = PDT.launch_plan(iterations, PDT.FUSE)
+    u = [torch.empty_like(data) for _ in range(2)]
+    ps = [[torch.empty_like(data) for _ in range(3)] for _ in range(2)]
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    unused = data.data_ptr()
+    for i, (k, first, last) in enumerate(launches):
+        src = [unused] * 3 if first else [p.data_ptr() for p in ps[(i - 1) % 2]]
+        dst = [unused] * 3 if last else [p.data_ptr() for p in ps[i % 2]]
+        err = lib.tt_pd_tv_wave(
+            data.data_ptr(), unused if first else u[(i - 1) % 2].data_ptr(), *src,
+            u[i % 2].data_ptr(), *dst, nz, ny, nx, sigma, tau, lt, theta, 1, 1, 0, k,
+            int(first), int(last), *cut(k), stream)
+        _build.check("PDw", err)
+    return u[(len(launches) - 1) % 2]
+
+
+def check_pdw_plans(torch, PDT, errs, dev) -> dict:
+    """PDw through the wrapper, which cuts each launch by ``wave_plan`` from
+    the shape and the card's slots, against the fixed cut handed straight
+    to the C entry (``fixed_wave_cut``), at the benchmark's PDw shapes (20 x
+    2608^2 at 40 iterations, 20 and 64 x 2560^2 at 20) and at 41 x 512^2:
+    equal bit for bit (a kept voxel computes the same under any cut), both
+    timed in turns, and the block-row counters grown by each launch's
+    ``wave_rows``.  Plans the kernel cannot run are refused first.  Returns
+    the ms of a prox by shape, (wrapper, fixed cut)."""
+    from tomobar_tpu_torch import _build, trace
+
+    lib = _build.library()
+    for bad in ((128, 33, 3), (128, 64, 1), (128, 32, 2), (0, 27, 3)):
+        err = lib.tt_pd_tv_wave(*[None] * 9, 64, 128, 128, 1.0, 0.1, 0.1, 1.0, 1, 1, 0,
+                                PDT.FUSE, 1, 1, *bad, None)
+        print(f"[3] tt_pd_tv_wave on 64 x 128^2 cut as {bad}: error {err} (refused, no launch)")
+        require(err != 0, f"tt_pd_tv_wave ran the cut {bad} of 64 slices")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    times = {}
+    for (nz, n), iters in (((20, 2608), 40), ((20, 2560), 20), ((64, 2560), 20),
+                           ((41, 512), 20)):
+        data = torch.rand((nz, n, n), generator=gen, device=dev)
+        args = (data, 5e-4, iters, 0, 1, 12.0)
+        fixed = fixed_wave_cut(nz)
+        before = dict(trace.counters)
+        got = PDT.pd_tv(*args)
+        torch.cuda.synchronize()
+        grown = {c: trace.counters[c] - before[c] for c in ("pdw.rows_launched", "pdw.rows_kept")}
+        want = [0, 0]
+        for k, _, _ in PDT.launch_plan(iters, PDT.FUSE):
+            zs = PDT.wave_slabs(nz, k)[0]
+            slots = PDT._slots(lib, dev, zs, k, False, True)
+            rows = PDT.wave_rows(nz, n, n, k, slots, PDT.wave_plan(nz, n, n, k, slots))
+            want = [w + r for w, r in zip(want, rows)]
+        require([grown["pdw.rows_launched"], grown["pdw.rows_kept"]] == want and want[0] > 0,
+                f"PDw {nz}x{n}^2: the block-row counters grew by {grown}, not {want}")
+        ref = pdw_with_cut(torch, PDT, data, 5e-4, iters, 12.0, fixed)
+        errs.compare("PDw", f"{nz}x{n}^2, {iters} iterations, wave_plan's cut against the "
+                     f"fixed cut {fixed(PDT.FUSE)}", got, ref, tol=0.0, record=False)
+        del got, ref
+        ms = {"plan": [], "fixed": []}
+        for side in ("plan", "fixed", "fixed", "plan", "plan", "fixed"):
+            fn = ((lambda: PDT.pd_tv(*args)) if side == "plan" else
+                  (lambda: pdw_with_cut(torch, PDT, data, 5e-4, iters, 12.0, fixed)))
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms[side].append(a.elapsed_time(b))
+        slots = PDT._slots(lib, dev, PDT.wave_slabs(nz, PDT.FUSE)[0], PDT.FUSE, False, True)
+        plan = PDT.wave_plan(nz, n, n, PDT.FUSE, slots)
+        share = [kept / launched for launched, kept in (
+            PDT.wave_rows(nz, n, n, PDT.FUSE, slots, c) for c in (plan, fixed(PDT.FUSE)))]
+        times[f"{nz}x{n}^2"] = (min(ms["plan"]), min(ms["fixed"]))
+        print(f"[3] PDw {nz}x{n}^2, {iters} iterations, {slots} slots: wave_plan {plan} "
+              f"{min(ms['plan']):.3f}-{max(ms['plan']):.3f} ms (kept / launched block-rows "
+              f"{share[0]:.3f}), fixed cut {fixed(PDT.FUSE)} {min(ms['fixed']):.3f}-"
+              f"{max(ms['fixed']):.3f} ms ({share[1]:.3f}); outputs equal bit for bit")
+        del data
+        torch.cuda.empty_cache()
+    return times
 
 
 def outer_iteration_launches(counts_after, keys, path: str) -> dict:
@@ -2776,6 +2876,7 @@ def main() -> int:
             )
     print("[3] PD-TV at other iteration counts and shapes, lambda 0.05, L 12:")
     check_pd_shapes(torch, PDT, errs, dev)
+    check_pdw_plans(torch, PDT, errs, dev)
 
     # ---- 4. adjointness on the card ----------------------------------------
     check_adjointness(torch, geoms, dev, 4, "4")

@@ -92,6 +92,12 @@ def test_pd_shapes(errs, dev):
     CS.check_pd_shapes(torch, PDT, errs, dev)
 
 
+def test_pdw_plans(errs, dev):
+    """PDw cut by ``wave_plan`` equals PDw under the fixed cut bit for bit,
+    at the benchmark's shapes and 41 x 512^2 (``chip_smoke.py`` phase 3)."""
+    CS.check_pdw_plans(torch, PDT, errs, dev)
+
+
 def test_direct_kernels(errs, dev):
     CS.check_direct_kernels(torch, errs, dev)
 

@@ -1423,9 +1423,10 @@ def test_pd_route_mirrors_the_kernel():
 # PDw: csrc/pd_tv.cu, pd_tv_wave_kernel (the y-streaming wavefront)
 # ---------------------------------------------------------------------------
 
-PDW_K, PDW_WARPS1, PDW_WARPS, PDW_X, PDW_ROWS = (
-    cu_const("pd_tv.cu", n) for n in ("kPDWK", "kPDWWarps1", "kPDWWarps", "kPDWX", "kPDWRows"))
+PDW_K, PDW_WARPS1, PDW_WARPS, PDW_X, PDW_SMEM = (
+    cu_const("pd_tv.cu", n) for n in ("kPDWK", "kPDWWarps1", "kPDWWarps", "kPDWX", "kPDWSmem"))
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a block can use on an H100
+H100_SLOTS = 132  # PDw blocks an H100 runs at once: one on each SM
 
 
 def pdw_fuse(nz):
@@ -1433,12 +1434,24 @@ def pdw_fuse(nz):
     return PDW_K
 
 
-def pdw_slabs(nz, K, zmax=PDW_WARPS):
-    """launch_wave(): (slices of a slab with its halo, one a warp row;
-    slices a slab keeps; slabs)."""
-    if nz <= zmax:
-        return nz, nz, 1
-    return zmax, zmax - 2 * K, -(-nz // (zmax - 2 * K))
+def card_plan(slots=H100_SLOTS):
+    """The wrapper's cut of a launch, ``wave_plan`` on a card of ``slots``."""
+    return lambda nz, ny, nx, k: PDT.wave_plan(nz, ny, nx, k, slots)
+
+
+def cut(zmax, rows):
+    """A cut of emulation size: ``wave_slabs``' rule at slabs of at most
+    ``zmax`` slices, y-segments of ``rows`` rows."""
+    return lambda nz, ny, nx, k: (rows, *PDT.wave_slabs(nz, k, zmax))
+
+
+def pdw_slab(bz, n, zs, nz, K):
+    """pd_tv_wave_kernel's slab bz of n: (first slice, first and end of the
+    kept slices); slab 0 flush with slice 0, the last with slice nz - 1."""
+    zk0 = 0 if bz == 0 else zs - K + (bz - 1) * (zs - 2 * K)
+    zk1 = nz if bz == n - 1 else zk0 + zs - (K if bz == 0 else 2 * K)
+    z0 = 0 if bz == 0 else nz - zs if bz == n - 1 else zk0 - K
+    return z0, zk0, zk1
 
 
 def pdw_smem_bytes(K, zs, W=32 * PDW_X):
@@ -1448,7 +1461,7 @@ def pdw_smem_bytes(K, zs, W=32 * PDW_X):
 
 
 def pdw_block(data, u_in, p_in, u_out, p_out, stored, bx, by, bz, K, first, last, consts,
-              iso, nonneg, bf16, W, zs, zk, slabs, rows):
+              iso, nonneg, bf16, W, rows, zs, slabs):
     """One block of pd_tv_wave_kernel, every thread's voxels of a plane at
     once: the sweep's steps, the levels of a step (dual step, barrier,
     primal step), the u planes by row parity, the staged level 0, the
@@ -1479,9 +1492,7 @@ def pdw_block(data, u_in, p_in, u_out, p_out, stored, bx, by, bz, K, first, last
     off = lz * W + lx
     x0, y0 = bx * (W - 2 * K) - K, by * rows
     y1 = min(ny, y0 + rows)
-    zk0 = bz * zk
-    zk1 = min(nz, zk0 + zk)
-    z0 = 0 if slabs == 1 else zk0 - K
+    z0, zk0, zk1 = pdw_slab(bz, slabs, zs, nz, K)
     gx, gz = x0 + lx, z0 + lz
     inside = (gx >= 0) & (gx < nx) & (gz >= 0) & (gz < nz)
     keep = inside & (lx >= K) & (lx < W - K) & (gz >= zk0) & (gz < zk1)
@@ -1572,15 +1583,18 @@ def pdw_block(data, u_in, p_in, u_out, p_out, stored, bx, by, bz, K, first, last
 
 
 def pdw_emulated(data, lam, iterations, mtv, nonneg, lc, bf16=False, K=None,
-                 W=32 * PDW_X, zmax=PDW_WARPS, rows=PDW_ROWS):
+                 W=32 * PDW_X, plan=None):
     """pd_tv() on a deep CUDA volume: the wrapper's launches of the
     wavefront, each block by block, at the kernel's constants or at the
-    given sweep depth K, strip width W, slab depth zmax and segment rows."""
+    given sweep depth K and strip width W, each launch of k iterations cut
+    into ``plan(nz, ny, nx, k) = (R, zs, n)``, by default the wrapper's
+    on an H100."""
     nz, ny, nx = data.shape
     consts = PDT.pd_tv_constants(lam, lc)
+    plan = plan or card_plan()
     u_prev, p_prev, n_launches = None, None, 0
     for k, first, last in PDT.launch_plan(iterations, K or pdw_fuse(nz)):
-        zs, zk, slabs = pdw_slabs(nz, k, zmax)
+        rows, zs, slabs = plan(nz, ny, nx, k)
         assert 2 * k < W and (slabs == 1 or 2 * k < zs)
         u_out = np.full(data.shape, np.nan, dtype=f32)
         p_out = [np.full(data.shape, np.nan, dtype=f32) for _ in range(3)]
@@ -1589,8 +1603,8 @@ def pdw_emulated(data, lam, iterations, mtv, nonneg, lc, bf16=False, K=None,
             for by in range(-(-ny // rows)):
                 for bx in range(-(-nx // (W - 2 * k))):
                     pdw_block(data, u_prev, p_prev, u_out, p_out, stored, bx, by, bz, k,
-                              first, last, consts, mtv == 0, nonneg, bf16, W, zs, zk, slabs,
-                              rows)
+                              first, last, consts, mtv == 0, nonneg, bf16, W, rows, zs,
+                              slabs)
         assert np.all(stored == 1)  # every voxel belongs to one kept block
         u_prev, p_prev = u_out, p_out
         n_launches += 1
@@ -1617,13 +1631,14 @@ def test_pdw_emulation_against_plain(K, zmax, mtv, nonneg):
     9 iterations (sweeps of K and a shorter last one) within 1e-6 of the
     maximum of the plain version, NaN in every shared-memory word and
     dual register the block did not write."""
-    pdw_check(pd_case(24, 40, 64, seed=K + zmax), 9, mtv, nonneg, K=K, zmax=zmax, rows=16)
+    pdw_check(pd_case(24, 40, 64, seed=K + zmax), 9, mtv, nonneg, K=K, plan=cut(zmax, 16))
 
 
 @pytest.mark.parametrize("nz", [17, 20, 40])
 def test_pdw_emulation_kernel_constants(nz):
-    """At the kernel's own sweep depth, strip, slabs and segment: one slab
-    up to 32 slices, slabs of 32 with a halo of K beyond."""
+    """At the kernel's own sweep depth and strip, cut as the wrapper cuts
+    them on an H100: one slab up to 32 slices, two slabs flush with the
+    volume's faces beyond."""
     pdw_check(pd_case(nz, 30, 70, seed=nz), 8, 0, 1)
 
 
@@ -1631,7 +1646,7 @@ def test_pdw_emulation_bf16_duals():
     """bfloat16 duals are rounded after every iteration, inside a sweep too
     (the next level reads them rounded, the divergence unrounded)."""
     data = pd_case(24, 40, 64, seed=5)
-    half = pdw_check(data, 9, 0, 1, bf16=True, tol=1e-3, K=4, zmax=16, rows=16)
+    half = pdw_check(data, 9, 0, 1, bf16=True, tol=1e-3, K=4, plan=cut(16, 16))
     full = PDT.pd_tv_plain(torch.as_tensor(data), 0.05, 9, 0, 1, 12.0).numpy()
     assert np.abs(half - full).max() > 1e-5 * np.abs(full).max()  # the rounding is there
 
@@ -1648,7 +1663,7 @@ def test_pdw_emulation_against_jax():
 
     for nx, jax_fn in ((64, jax_PD_TV), (128, lambda *a: pd_tv_pallas(*a, interpret=True))):
         data = pd_case(24, 40, nx, seed=nx)
-        got, _ = pdw_emulated(data, 0.05, 9, 0, 1, 12.0, K=4, zmax=16, rows=16)
+        got, _ = pdw_emulated(data, 0.05, 9, 0, 1, 12.0, K=4, plan=cut(16, 16))
         ref = np.asarray(jax_fn(jnp.asarray(data), 0.05, 9, 0, 1, 12.0))
         np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-6)
 
@@ -1659,12 +1674,116 @@ def test_pdw_launch_fits_the_card():
     than the strip and the slab; up to kPDWWarps1 slices in the blocks of
     fewer warps."""
     W = 32 * PDW_X
-    assert PDW_WARPS1 <= PDW_WARPS <= 32
+    assert PDW_WARPS1 <= PDW_WARPS <= 32 and PDW_SMEM == SMEM_PER_BLOCK
     for nz in (PD_ZMAX + 1, 17, PDW_WARPS1, PDW_WARPS1 + 1, PDW_WARPS, PDW_WARPS + 1, 64, 512):
         K = pdw_fuse(nz)
-        zs, zk, slabs = pdw_slabs(nz, K)
+        rows, zs, slabs = PDT.wave_plan(nz, 2560, 2560, K, H100_SLOTS)
         assert pdw_smem_bytes(K, zs) <= SMEM_PER_BLOCK and zs <= PDW_WARPS
-        assert 2 * K < W and zk >= 1 and (slabs == 1 or zk == zs - 2 * K)
+        assert 2 * K < W and rows >= 1 and (slabs == 1 or zs - 2 * K >= 1)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_pdw_emulation_flush_slabs_at_an_odd_depth(K):
+    """41 slices in slabs of at most 16: five slabs of 15 (K 4) or three
+    (K 1), the first flush with slice 0 and the last with slice 40, a halo
+    only on their inner faces, within 1e-6 of the plain version; 5
+    iterations, so K 4 ends with a launch of 1 and its own cut."""
+    assert cut(16, 16)(41, 24, 64, 4) == (16, 15, 5)
+    pdw_check(pd_case(41, 24, 64, seed=41), 5 if K == 4 else 2, 0, 1, K=K, plan=cut(16, 16))
+
+
+def test_pdw_emulation_ragged_last_segment():
+    """45 rows in segments of 16: the last one 13 rows, its sweep ending
+    at the volume's last row."""
+    pdw_check(pd_case(20, 45, 64, seed=45), 6, 1, 1, plan=cut(32, 16))
+
+
+def test_pdw_emulation_plans_agree_bit_for_bit():
+    """One input through the wrapper's cut on an H100 (two slabs of 25,
+    one-row segments) and through slabs of at most 16 in 7-row segments:
+    every kept voxel does the same operations on the same values, so the
+    outputs are equal bit for bit."""
+    data = pd_case(41, 23, 70, seed=7)
+    assert card_plan()(41, 23, 70, 4) == (1, 25, 2)
+    a, _ = pdw_emulated(data, 0.05, 5, 0, 1, 12.0)
+    b, _ = pdw_emulated(data, 0.05, 5, 0, 1, 12.0, plan=cut(16, 7))
+    assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+# The plan from the shape (ops/pd_tv.py wave_plan), against the fixed cut
+# that the kernel had before: segments of 128 rows, slabs of 32 with K
+# slices of halo on both faces (the volume's own too).
+
+def parent_plan(nz, ny, k):
+    """(R, zs, n) of the fixed cut."""
+    if nz <= PDW_WARPS:
+        return min(128, ny), nz, 1
+    return 128, PDW_WARPS, -(-nz // (PDW_WARPS - 2 * k))
+
+
+def modelled_cost(nz, ny, nx, k, slots, plan):
+    """A launch's modelled time: waves x (R + 2k) x zs."""
+    rows, zs, n = plan
+    blocks = -(-nx // (32 * PDW_X - 2 * k)) * -(-ny // rows) * n
+    return -(-blocks // slots) * (rows + 2 * k) * zs
+
+
+SWEEP = (64, 100, 127, 128, 129, 300, 1000, 2048, 2560, 2608, 4096)
+
+
+@pytest.mark.parametrize("slots", [132, 264])
+def test_wave_plan_sweep(slots):
+    """nz 9-200, ny and nx 64-4096: every slice kept once, inner halos of
+    K at least, slabs of at most 32 slices within 227 KB, segments that
+    cover the rows once, and a modelled time no longer than the fixed
+    cut's."""
+    for nz in range(PD_ZMAX + 1, 201):
+        for k in range(1, PDW_K + 1):
+            zs, n = PDT.wave_slabs(nz, k)
+            assert zs <= PDW_WARPS and pdw_smem_bytes(k, zs) <= SMEM_PER_BLOCK
+            kept = np.zeros(nz, np.int64)
+            for bz in range(n):
+                z0, zk0, zk1 = pdw_slab(bz, n, zs, nz, k)
+                assert 0 <= z0 and z0 + zs <= nz and zk0 < zk1
+                assert zk0 - z0 >= (k if bz > 0 else 0)
+                assert z0 + zs - zk1 >= (k if bz < n - 1 else 0)
+                kept[zk0:zk1] += 1
+            assert np.all(kept == 1), (nz, k)
+        k = PDW_K
+        for ny in SWEEP:
+            for nx in SWEEP:
+                plan = PDT.wave_plan(nz, ny, nx, k, slots)
+                rows = plan[0]
+                assert plan[1:] == PDT.wave_slabs(nz, k) and 1 <= rows <= ny
+                assert (-(-ny // rows) - 1) * rows < ny  # no empty segment
+                assert (modelled_cost(nz, ny, nx, k, slots, plan)
+                        <= modelled_cost(nz, ny, nx, k, slots, parent_plan(nz, ny, k)))
+
+
+@pytest.mark.parametrize("shape,plan,waves,share", [
+    ((20, 2560, 2560), (128, 20, 1), 7, 0.937),
+    ((20, 2608, 2608), (187, 20, 1), 5, 0.952),
+    ((64, 2560, 2560), (128, 27, 3), 21, 0.740),
+], ids=["chunk20", "admm-2608", "chunk64"])
+def test_wave_plan_at_the_cells(shape, plan, waves, share):
+    """The benchmark's PDw shapes on 132 SMs: 2560^2 keeps 20 segments of
+    128 (no cheaper cut), 2608^2 takes 14 of 187 in 5 waves (8 before), 64
+    slices 3 slabs of 27 (of 32 before); the kept share of the launched
+    block-rows, the counters' ratio."""
+    nz, ny, nx = shape
+    assert PDT.wave_plan(nz, ny, nx, PDW_K, H100_SLOTS) == plan
+    launched, kept = PDT.wave_rows(nz, ny, nx, PDW_K, H100_SLOTS, plan)
+    assert launched % (H100_SLOTS * plan[1] * (plan[0] + 2 * PDW_K)) == 0
+    assert launched // (H100_SLOTS * plan[1] * (plan[0] + 2 * PDW_K)) == waves
+    assert round(kept / launched, 3) == share
+    fixed = parent_plan(nz, ny, PDW_K)
+    assert (modelled_cost(nz, ny, nx, PDW_K, H100_SLOTS, plan)
+            < modelled_cost(nz, ny, nx, PDW_K, H100_SLOTS, fixed)) == (shape[1] == 2608 or nz > 32)
+
+
+def test_wave_plan_mirrors_the_kernel():
+    """The planner's strip and slab depth are the kernel's constants."""
+    assert PDT.WAVE_X == 32 * PDW_X and PDT.WAVE_Z_MAX == PDW_WARPS
 
 
 # ---------------------------------------------------------------------------

@@ -119,6 +119,42 @@ def test_counters_report_their_increase_over_the_recording():
     assert all(v == 0 for v in _build.launch_counts.values())
 
 
+def test_pdw_counts_its_launched_and_kept_block_rows(monkeypatch):
+    """At each PDw launch the wrapper adds the launch's block-rows to
+    ``pdw.rows_launched`` (waves x slots x slab slices x (segment rows +
+    2K)) and ``pdw.rows_kept`` (strips x nz x ny), and hands the kernel
+    ``wave_plan``'s cut: here through a stand-in for the kernel library on
+    a card of 132 slots, 9 iterations (launches of 4, 4, 1) on 41 x 100 x
+    120.  K 4: 2 slabs of 25, 20 segments of 5 rows, 3 strips of 56
+    columns, 120 blocks in one wave, so 132 x 25 x 13 = 42900 block-rows
+    launched and 3 x 41 x 100 = 12300 kept; K 1: 2 slabs of 22, 25
+    segments of 4, 2 strips of 62, so 132 x 22 x 6 = 17424 and 8200."""
+    from contextlib import nullcontext
+    from types import SimpleNamespace
+
+    from tomobar_tpu_torch.ops import pd_tv as PDT
+
+    cuts = []
+
+    def wave(*args):
+        cuts.append(args[-4:-1])
+        return 0
+
+    lib = SimpleNamespace(tt_pd_tv_fuse=lambda nz: 4, tt_pd_tv_wave=wave,
+                          tt_pd_tv_wave_slots=lambda zs, k, bf16, iso: 132)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
+    monkeypatch.setattr(PDT, "_wave_slots", {})
+    with _profile():
+        PDT._pd_tv_cuda(torch.zeros((41, 100, 120)), 0.05, 9, 0, 1, 12.0, False)
+    assert cuts == [(5, 25, 2), (5, 25, 2), (4, 22, 2)]
+    snap = trace.snapshot()["counters"]
+    assert snap["PDw"] == 3
+    assert snap["pdw.rows_launched"] == 2 * 132 * 25 * 13 + 132 * 22 * 6 == 103224
+    assert snap["pdw.rows_kept"] == 2 * 3 * 41 * 100 + 2 * 41 * 100 == 32800
+
+
 def test_a_full_record_drops_and_counts(monkeypatch):
     monkeypatch.setattr(trace, "MAX_SPANS", 2)
     with _profile():

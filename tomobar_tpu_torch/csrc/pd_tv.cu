@@ -88,11 +88,10 @@
 // again for the SM:
 //
 //  * A block owns an x-strip of W = 32 kPDWX columns (with a halo of K on
-//    each side) and a z-slab, one slice a warp row: all of a volume of up
-//    to 32 slices (no halo in z), else slabs of 32 that keep 32 - 2K.  It
-//    walks a y-segment of kPDWRows output rows in a sequential sweep, one
-//    row-plane (slab x strip) a step.  Thread (lane, w) holds columns
-//    lane + 32 i of slice w of every plane.
+//    each side) and a z-slab, one slice a warp row, and walks a y-segment
+//    of R output rows in a sequential sweep, one row-plane (slab x strip) a
+//    step.  Thread (lane, w) holds columns lane + 32 i of slice w of every
+//    plane.
 //  * K iterations ride the sweep as levels: at step s level j computes row
 //    s - j from level j - 1's rows s - j and s - j + 1, which level j - 1
 //    wrote in the step before and in this one.  Level 0 is the only one
@@ -112,12 +111,25 @@
 //    plane of row ny still holds row ny - 2 when level j + 1 asks for its
 //    "next" row at ny - 1.
 //  * What bounds it is latency: each level step waits on a barrier and on
-//    two dependent chains, so the SM needs many warps.  Up to 20 slices a
-//    block has at most 20 warps and 96 registers a thread, deeper ones 32
-//    and 64.  With K = 4 a 20-slice block takes 24 planes, 135 KB (32
-//    slices: 209 KB), one block an SM; 46 strips x 20 segments = 920 blocks.
-//    The strip's x halo costs 64 / 56 = 1.14 times the work, the segment's
-//    early start 1.06, a slab's z halo 32 / 24 = 1.33.
+//    two dependent chains, so the SM needs many warps.  Slabs of up to 20
+//    slices run in blocks of at most 20 warps and 96 registers a thread,
+//    deeper ones in blocks of 32 and 64.  With K = 4 a 20-slice block takes
+//    24 planes, 135 KB (32 slices: 209 KB), one block an SM, and a launch
+//    takes about waves x (R + 2K) x zs: its blocks run in waves of one a
+//    slot (tt_pd_tv_wave_slots: the SMs times the blocks an SM holds), each
+//    block's sweep R + 2K steps of zs warp rows.
+//  * The plan (R, zs, slabs) comes from the shape and the card's slots
+//    (ops/pd_tv.py wave_plan).  z: a volume of up to 32 slices is one slab;
+//    a deeper one takes the fewest slabs, of the fewest slices zs <= 32,
+//    that keep it once with the first slab flush with slice 0 and the last
+//    with slice nz - 1, so only inner faces carry K slices of halo (64
+//    slices: 3 slabs of 27, 81 warp rows, where slabs of 32 with a halo on
+//    every face took 96).  y: R minimises waves x (R + 2K) over the segment
+//    counts, 128 on a tie (2560^2: 46 strips x 20 segments of 128 = 920
+//    blocks, 7 waves of 132; 2608^2: 47 x 14 of 187 = 658, 5 waves, where 21
+//    of 128 took 8).  The strip's x halo costs 64 / 56 = 1.14 times the
+//    work.  A kept voxel computes the same values in the same order under
+//    any plan, so the output does not depend on it.
 //  * The primal step multiplies by 1 / (1 + lt) instead of dividing (one
 //    rounding more than the plain version), and the zero boundary of the
 //    divergence is an FMA with a factor of 0 or 1, which rounds as the
@@ -361,9 +373,9 @@ int launch(Args a, cudaStream_t stream) {
 
 constexpr int kPDWK = 4;         // iterations (levels) a sweep fuses
 constexpr int kPDWWarps1 = 20;   // warp rows (slices) of a block up to 20 slices
-constexpr int kPDWWarps = 32;    // warp rows of the blocks of deeper volumes: slabs of 32
+constexpr int kPDWWarps = 32;    // warp rows of the blocks of deeper slabs, the most a slab has
 constexpr int kPDWX = 2;         // columns of a thread, 32 apart
-constexpr int kPDWRows = 128;    // output rows of a block's y-segment
+constexpr int kPDWSmem = 232448;  // bytes of shared memory a block can use
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -376,9 +388,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Block (bx, by, bz): strip bx (columns x0 .. x0 + W - 1), y-segment by
-// (output rows y0 .. y1 - 1), slab bz (slices z0 .. z0 + zs - 1, keeping
-// zk of them), a slice a warp row, WARPS warp rows at most, K <= kPDWK
-// levels, iso or aniso projection.  Dynamic shared
+// (output rows y0 .. y1 - 1, `rows` a segment), slab bz of gridDim.z
+// (slices z0 .. z0 + zs - 1, keeping zk0 .. zk1 - 1), a slice a warp row,
+// WARPS warp rows at most, K <= kPDWK levels, iso or aniso projection.  Dynamic shared
 // memory: 3K + 12 planes of zs x W floats, each between pads of W + 1, so
 // that a read one column or slice past the plane stays inside: u of levels
 // 1 .. K - 1 by row parity, the staged level 0 (u, then p1, p2, p3) by row
@@ -387,7 +399,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // s - j at step s, and row s + 1 is staged during step s).  The volume has
 // fewer than 2^31 voxels (the wrapper's z-chunks), so indices are 32-bit.
 template <typename D, int WARPS, bool ISO>
-__global__ void __launch_bounds__(32 * WARPS, 1) pd_tv_wave_kernel(Args a, int zs, int zk) {
+__global__ void __launch_bounds__(32 * WARPS, 1) pd_tv_wave_kernel(Args a, int zs, int rows) {
   constexpr int V = kPDWX, W = 32 * kPDWX;
   extern __shared__ float pd_wave_smem[];
   const int K = a.iters, ring = K + 2;
@@ -405,11 +417,14 @@ __global__ void __launch_bounds__(32 * WARPS, 1) pd_tv_wave_kernel(Args a, int z
   for (int i = wz * 32 + lane; i < n_planes * PL; i += 32 * TZ) pd_wave_smem[i] = 0.f;
 
   const int x0 = static_cast<int>(blockIdx.x) * (W - 2 * K) - K;
-  const int y0 = static_cast<int>(blockIdx.y) * kPDWRows;
-  const int y1 = min(a.ny, y0 + kPDWRows);
-  const int zk0 = static_cast<int>(blockIdx.z) * zk;
-  const int zk1 = min(a.nz, zk0 + zk);
-  const int z0 = gridDim.z == 1 ? 0 : zk0 - K;
+  const int y0 = static_cast<int>(blockIdx.y) * rows;
+  const int y1 = min(a.ny, y0 + rows);
+  // the first slab starts at slice 0 and the last one ends at nz, a halo of
+  // K only on their inner face; the slabs between have K on both faces
+  const int bz = static_cast<int>(blockIdx.z), bz_last = static_cast<int>(gridDim.z) - 1;
+  const int zk0 = bz == 0 ? 0 : zs - K + (bz - 1) * (zs - 2 * K);
+  const int zk1 = bz == bz_last ? a.nz : zk0 + zs - (bz == 0 ? K : 2 * K);
+  const int z0 = bz == 0 ? 0 : bz == bz_last ? a.nz - zs : zk0 - K;
   const int sy = a.nx, sz = a.nx * a.ny;
   const D* p_in[3] = {static_cast<const D*>(a.p_in[0]), static_cast<const D*>(a.p_in[1]),
                       static_cast<const D*>(a.p_in[2])};
@@ -606,34 +621,81 @@ __global__ void __launch_bounds__(32 * WARPS, 1) pd_tv_wave_kernel(Args a, int z
   }
 }
 
+// dynamic shared memory of a block: 3K + 12 planes of zs x W floats with pads
+size_t wave_smem(int zs, int K) {
+  constexpr int W = 32 * kPDWX;
+  return sizeof(float) * (3 * K + 12) * (zs * W + 2 * (W + 1));
+}
+
+// a plan the kernel runs: y-segments of `rows` rows, `slabs` slabs of zs
+// slices, a warp row a slice, in kPDWSmem bytes.  One slab is the whole
+// volume.  Of more, slab 0 keeps slices 0 .. zs - K - 1, each slab between
+// the next zs - 2K, the last one the rest from slice nz - zs: so every slice
+// is kept once where the last slab keeps one at least and its inner face
+// has K slices of halo
+bool wave_plan_ok(int nz, int ny, int K, int rows, int zs, int slabs) {
+  if (rows < 1 || (ny + rows - 1) / rows > 65535 || slabs < 1 || slabs > 65535 ||
+      zs > kPDWWarps || wave_smem(zs, K) > static_cast<size_t>(kPDWSmem))
+    return false;
+  if (slabs == 1) return zs == nz;
+  if (zs > nz || zs <= K || (slabs > 2 && zs <= 2 * K)) return false;
+  const long long last0 = zs - K + static_cast<long long>(slabs - 2) * (zs - 2 * K);
+  return last0 < nz && last0 - (nz - zs) >= K;
+}
+
 template <typename D, int WARPS, bool ISO>
-int launch_wave_blocks(const Args& a, int zs, int zk, int slabs, cudaStream_t stream) {
+int launch_wave_blocks(const Args& a, int rows, int zs, int slabs, cudaStream_t stream) {
   constexpr int W = 32 * kPDWX;
   const int K = a.iters;
-  const size_t smem = sizeof(float) * (3 * K + 12) * (zs * W + 2 * (W + 1));
-  const dim3 grid((a.nx + W - 2 * K - 1) / (W - 2 * K), (a.ny + kPDWRows - 1) / kPDWRows, slabs);
-  if (zs > WARPS || grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = wave_smem(zs, K);
+  const dim3 grid((a.nx + W - 2 * K - 1) / (W - 2 * K), (a.ny + rows - 1) / rows, slabs);
   const cudaError_t err = cudaFuncSetAttribute(pd_tv_wave_kernel<D, WARPS, ISO>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  pd_tv_wave_kernel<D, WARPS, ISO><<<grid, dim3(32, zs), smem, stream>>>(a, zs, zk);
+  pd_tv_wave_kernel<D, WARPS, ISO><<<grid, dim3(32, zs), smem, stream>>>(a, zs, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-// a warp row a slice: one slab of up to 20 slices in blocks of at most 20
-// warp rows (96 registers a thread), one of up to 32 or slabs of 32 with a
-// halo of K in z in blocks of 32 (64 registers)
+// a warp row a slice: slabs of up to 20 slices in blocks of at most 20 warp
+// rows (96 registers a thread), deeper ones in blocks of 32 (64 registers)
 template <typename D, bool ISO>
-int launch_wave(const Args& a, cudaStream_t stream) {
+int launch_wave(const Args& a, int rows, int zs, int slabs, cudaStream_t stream) {
   const int K = a.iters;
   if (K < 1 || K > kPDWK || 2 * K >= 32 * kPDWX || a.nz < 2 || a.ny < 2 ||
-      static_cast<long long>(a.nz) * a.ny * a.nx > 0x7fffffffLL)
+      static_cast<long long>(a.nz) * a.ny * a.nx > 0x7fffffffLL ||
+      !wave_plan_ok(a.nz, a.ny, K, rows, zs, slabs))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (a.nz <= kPDWWarps1) return launch_wave_blocks<D, kPDWWarps1, ISO>(a, a.nz, a.nz, 1, stream);
-  if (a.nz <= kPDWWarps) return launch_wave_blocks<D, kPDWWarps, ISO>(a, a.nz, a.nz, 1, stream);
-  const int zk = kPDWWarps - 2 * K;
-  return launch_wave_blocks<D, kPDWWarps, ISO>(a, kPDWWarps, zk, (a.nz + zk - 1) / zk, stream);
+  if (zs <= kPDWWarps1) return launch_wave_blocks<D, kPDWWarps1, ISO>(a, rows, zs, slabs, stream);
+  return launch_wave_blocks<D, kPDWWarps, ISO>(a, rows, zs, slabs, stream);
+}
+
+// blocks of the instance for slabs of zs slices and K levels that the
+// current device runs at once: its SMs times the blocks one SM holds;
+// minus the CUDA error where the query fails
+template <typename D, int WARPS, bool ISO>
+int instance_slots(int zs, int K) {
+  const size_t smem = wave_smem(zs, K);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(pd_tv_wave_kernel<D, WARPS, ISO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pd_tv_wave_kernel<D, WARPS, ISO>,
+                                                        32 * zs, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return per_sm > 0 ? sms * per_sm : -static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename D, bool ISO>
+int wave_slots(int zs, int K) {
+  if (zs < 2 || zs > kPDWWarps || K < 1 || K > kPDWK ||
+      wave_smem(zs, K) > static_cast<size_t>(kPDWSmem))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return zs <= kPDWWarps1 ? instance_slots<D, kPDWWarps1, ISO>(zs, K)
+                          : instance_slots<D, kPDWWarps, ISO>(zs, K);
 }
 
 // iterations one launch fuses on nz slices: the tile kernel's up to
@@ -667,19 +729,30 @@ int tt_pd_tv(const float* data, const float* u, const void* p1, const void* p2,
 
 // tt_pd_tv's iterations by the y-streaming wavefront, on nz >= 2 slices and
 // fewer than 2^31 voxels (the wrapper's route above kPDZMax), `iters` at
-// most kPDWK
+// most kPDWK, cut into y-segments of `rows` rows and `slabs` z-slabs of zs
+// slices (ops/pd_tv.py wave_plan); a plan it cannot run is refused
 int tt_pd_tv_wave(const float* data, const float* u, const void* p1, const void* p2,
                   const void* p3, float* u_out, void* p1_out, void* p2_out,
                   void* p3_out, int nz, int ny, int nx, float sigma, float tau,
                   float lt, float theta, int iso, int nonneg, int bf16, int iters,
-                  int first, int last, cudaStream_t stream) {
+                  int first, int last, int rows, int zs, int slabs, cudaStream_t stream) {
   if (static_cast<long long>(nz) * ny * nx == 0 || iters == 0) return 0;
   const Args a{data, u, {p1, p2, p3}, u_out, {p1_out, p2_out, p3_out},
                nz, ny, nx, iters, sigma, tau, lt, theta,
                iso, nonneg, first, last};
-  if (bf16) return iso ? launch_wave<__nv_bfloat16, true>(a, stream)
-                      : launch_wave<__nv_bfloat16, false>(a, stream);
-  return iso ? launch_wave<float, true>(a, stream) : launch_wave<float, false>(a, stream);
+  if (bf16) return iso ? launch_wave<__nv_bfloat16, true>(a, rows, zs, slabs, stream)
+                      : launch_wave<__nv_bfloat16, false>(a, rows, zs, slabs, stream);
+  return iso ? launch_wave<float, true>(a, rows, zs, slabs, stream)
+             : launch_wave<float, false>(a, rows, zs, slabs, stream);
+}
+
+// blocks of tt_pd_tv_wave with slabs of zs slices and `iters` levels that
+// the current device runs at once (its SMs times the blocks an SM holds),
+// or minus the CUDA error
+int tt_pd_tv_wave_slots(int zs, int iters, int bf16, int iso) {
+  if (bf16) return iso ? wave_slots<__nv_bfloat16, true>(zs, iters)
+                      : wave_slots<__nv_bfloat16, false>(zs, iters);
+  return iso ? wave_slots<float, true>(zs, iters) : wave_slots<float, false>(zs, iters);
 }
 
 }  // extern "C"

@@ -14,10 +14,14 @@ tiles that it keeps in registers and shared memory; deeper volumes go to
 the y-streaming wavefront kernel (``PDw``), whose sweep carries several
 iterations through the volume as levels (see ``csrc/pd_tv.cu``).  Either
 way a prox of n iterations is ``ceil(n / K)`` launches, the last one
-shorter where K does not divide n.
+shorter where K does not divide n.  How a wavefront launch cuts the volume
+into z-slabs and y-segments comes from the shape and the card
+(:func:`wave_plan`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -26,7 +30,7 @@ from tomobar_tpu_torch import _build, trace
 from tomobar_tpu_torch.utils.tools import free_device_bytes
 
 __all__ = ["pd_tv", "pd_tv_plain", "pd_tv_constants", "launch_plan", "z_chunks", "fuse",
-           "CHUNK_BYTES", "MAX_ELEMENTS"]
+           "wave_slabs", "wave_plan", "wave_rows", "CHUNK_BYTES", "MAX_ELEMENTS"]
 
 # A prox holds eight volumes beside its input and output (u and three duals,
 # twice), so a deep stack goes through in z-chunks.  n iterations widen a
@@ -44,6 +48,11 @@ MAX_ELEMENTS = 2**31 - 1
 # iterations a launch of either fuses: tt_pd_tv_fuse's values, for a memory
 # plan on meta tensors, which reaches no library
 FUSE, FUSE_Z_MAX = 4, 8
+# the wavefront's strip of WAVE_X columns (csrc/pd_tv.cu's 32 kPDWX), its
+# slabs of at most WAVE_Z_MAX slices (kPDWWarps, a warp row a slice), and
+# the y-segment that a tie of wave_plan keeps (the kernel's fixed one before
+# the plan came from the shape)
+WAVE_X, WAVE_Z_MAX, WAVE_ROWS = 64, 32, 128
 
 
 def fuse(nz: int) -> int:
@@ -143,6 +152,67 @@ def launch_plan(iterations: int, fuse: int):
     return [(k, i == 0, i == len(counts) - 1) for i, k in enumerate(counts)]
 
 
+def wave_slabs(nz: int, k: int, zmax: int = WAVE_Z_MAX):
+    """``(zs, n)``: the wavefront's z-slabs for launches of k iterations.
+    Up to ``zmax`` slices, one slab of nz.  Deeper, the fewest slabs n and
+    the fewest slices zs <= zmax with which the first slab, flush with
+    slice 0, keeps zs - k slices, each slab between keeps zs - 2k and the
+    last, flush with slice nz - 1, the rest with k slices of halo on its
+    inner face: ``2 (zs - k) + (n - 2) (zs - 2k) >= nz``."""
+    if nz <= zmax:
+        return nz, 1
+    n = -(-(nz - 2 * k) // (zmax - 2 * k))
+    return -(-(nz + 2 * k * (n - 1)) // n), n
+
+
+@functools.cache
+def _segment_rows(ny: int):
+    """Every y-segment length that is the shortest for its segment count,
+    and WAVE_ROWS."""
+    return sorted({-(-ny // m) for m in range(1, ny + 1)} | {min(WAVE_ROWS, ny)})
+
+
+def wave_rows(nz: int, ny: int, nx: int, k: int, slots: int, plan) -> tuple:
+    """``(launched, kept)`` block-rows of one wavefront launch under
+    ``plan = (R, zs, n)``: its waves of ``slots`` blocks times each block's
+    zs warp rows over its R + 2k steps, and the strips times the volume's
+    nz x ny rows; the counters ``pdw.rows_launched`` and ``pdw.rows_kept``."""
+    r, zs, n = plan
+    strips = -(-nx // (WAVE_X - 2 * k))
+    waves = -(-(strips * -(-ny // r) * n) // slots)
+    return waves * slots * zs * (r + 2 * k), strips * nz * ny
+
+
+def wave_plan(nz: int, ny: int, nx: int, k: int, slots: int):
+    """``(R, zs, n)``: how a wavefront launch of k iterations cuts a
+    (nz, ny, nx) volume for a card that runs ``slots`` of its blocks at
+    once: :func:`wave_slabs` in z, and y-segments of R rows, where R
+    minimises the launch's modelled time, its waves of blocks times each
+    block's sweep of R + 2k rows (:func:`wave_rows`' launched block-rows
+    over slots x zs), keeping WAVE_ROWS on a tie and else the longest of
+    the ties."""
+    zs, n = wave_slabs(nz, k)
+    tie = min(WAVE_ROWS, ny)
+    rows = min(_segment_rows(ny), key=lambda r: (
+        wave_rows(nz, ny, nx, k, slots, (r, zs, n))[0], r != tie, -r))
+    return rows, zs, n
+
+
+# blocks of the wavefront that a card runs at once, by (device, slab
+# slices, iterations, bf16 duals, iso): tt_pd_tv_wave_slots
+_wave_slots = {}
+
+
+def _slots(lib, device, zs: int, k: int, bf16: bool, iso: bool) -> int:
+    key = (device.index, zs, k, bf16, iso)
+    if key not in _wave_slots:
+        slots = lib.tt_pd_tv_wave_slots(zs, k, int(bf16), int(iso))
+        if slots <= 0:
+            _build.check("PDw", -slots)
+        _wave_slots[key] = slots
+    return _wave_slots[key]
+
+
 def z_chunks(nz: int, ny: int, nx: int, iterations: int, budget_bytes: int):
     """``(z0, z1, h0, h1)`` per chunk: the slices [z0, z1) it keeps and the
     slices [h0, h1) it is run on (a halo of ``iterations`` slices on each
@@ -230,21 +300,31 @@ def _pd_tv_cuda(data, regularisation_parameter, iterations, methodTV, nonneg,
     ]
     if lib is None:
         return u[(len(plan) - 1) % 2]
-    kernel, name = (lib.tt_pd_tv_wave, "PDw") if nz > FUSE_Z_MAX else (lib.tt_pd_tv, "PD")
+    wave = nz > FUSE_Z_MAX
+    kernel, name = (lib.tt_pd_tv_wave, "PDw") if wave else (lib.tt_pd_tv, "PD")
     stream = torch.cuda.current_stream(data.device).cuda_stream
     unused = data.data_ptr()  # stands in for a buffer the launch does not touch
     with torch.cuda.device(data.device):
         for i, (k, first, last) in enumerate(plan):
             src = [unused] * 3 if first else [p.data_ptr() for p in ps[(i - 1) % 2]]
             dst = [unused] * 3 if last else [p.data_ptr() for p in ps[i % 2]]
+            cut = ()
+            if wave:  # the slabs and segments of this launch
+                slots = _slots(lib, data.device, wave_slabs(nz, k)[0], k, half_precision,
+                               methodTV == 0)
+                cut = wave_plan(nz, ny, nx, k, slots)
             # 2D: the third dual is never touched; the second stands in for it
             err = kernel(
                 data.data_ptr(), unused if first else u[(i - 1) % 2].data_ptr(),
                 src[0], src[1], src[-1], u[i % 2].data_ptr(), dst[0], dst[1], dst[-1],
                 nz, ny, nx, sigma, tau, lt, theta, int(methodTV == 0),
                 int(bool(nonneg)), int(half_precision), k, int(first), int(last),
-                stream,
+                *cut, stream,
             )
             _build.check(name, err)
             trace.count(name)
+            if wave:
+                launched, kept = wave_rows(nz, ny, nx, k, slots, cut)
+                trace.count("pdw.rows_launched", launched)
+                trace.count("pdw.rows_kept", kept)
     return u[(len(plan) - 1) % 2]

@@ -18,7 +18,8 @@ on or off.  While it is off a span costs one check of that flag.
   synchronisation.
 * :func:`count` adds to one of the counters: the kernels' launches by
   kernel name (:data:`launches`, which ``_build.launch_counts`` is) and
-  the projector's plan cache (:data:`counters`).  The counters always
+  the projector's plan cache and the wavefront PD-TV kernel's block-rows
+  (:data:`counters`).  The counters always
   count; while a profiler records, the record keeps each one's increase.
 * :func:`snapshot` returns the record: every finished span with its host
   and device seconds and its self time (its time less that of its child
@@ -39,6 +40,14 @@ The spans:
 | ``tomobar::regul.prox`` | ``regularisers.prox_regul`` |
 | ``tomobar::usfft.<stage>`` | the five stages of ``ops/usfft.py``'s ``fourier_inv``: ``filter``, ``fft1d``, ``grid``, ``ifft2``, ``unpad`` |
 | ``tomobar::prep.normalise`` | ``utils.tools.normaliser`` on a tensor ("mean" or "median") |
+
+The counters beside the launches:
+
+| Counter | Where, what |
+|---|---|
+| ``projector.plan_builds`` / ``.plan_hits`` | ``_DrivenPlan.group``: misses (builds) and hits of its cache |
+| ``pdw.rows_launched`` | ``ops/pd_tv.py`` at each ``PDw`` launch: the launch's waves x slots x slab slices x (segment rows + 2K), the block-rows its blocks sweep (``wave_rows``) |
+| ``pdw.rows_kept`` | the same launch's strips x nz x ny, the block-rows it keeps; over ``pdw.rows_launched``, the plan's share of useful block-rows |
 
 The record is one per process and assumes the spans of one thread.
 """
@@ -61,8 +70,10 @@ _API = "tomobar::api."
 
 #: launches by kernel name; each kernel wrapper counts one where it launches
 launches = dict.fromkeys(("K1", "K1p", "K2", "K3", "K4", "K4p", "PD", "PDw", "G", "F", "Fc"), 0)
-#: misses (builds) and hits of ``_DrivenPlan.group``'s cache of parameters
-counters = {"projector.plan_builds": 0, "projector.plan_hits": 0}
+#: misses (builds) and hits of ``_DrivenPlan.group``'s cache of parameters;
+#: block-rows that PDw launches sweep and keep
+counters = {"projector.plan_builds": 0, "projector.plan_hits": 0, "pdw.rows_launched": 0,
+            "pdw.rows_kept": 0}
 
 
 class _Record:

@@ -42,7 +42,8 @@ angles); PD as
 one prox of 20 iterations (lambda 5e-4, L 12, iso, nonneg) on 8, 1, 2, 4, 12
 and 16 x 2560^2 (this tree sends more than 8 slices to the y-wavefront
 kernel, trees before it up to 16 to the tile kernel); ``PDw``: on 20, 64 and
-512 x 2560^2 (trees before the wavefront: the tile kernel's z-chunks) and,
+512 x 2560^2 (trees before the wavefront: the tile kernel's z-chunks), 40
+iterations on 20 x 2608^2 (the ADMM recipe's padded grid) and,
 where the tree has the wavefront, that kernel alone on 8 x 2560^2 through
 its C entry, a route the wrapper does not take there; F at 4 x 5120 x 5120
 (sign +1), 8192 x 7208 and 2560 x 7208 (sign -1), beside its plain version
@@ -243,6 +244,11 @@ def worker(repo: str, kernels) -> dict:
                 lambda: PDT.pd_tv(deep, 5e-4, 20, 0, 1, 12.0), reps)
             del deep
             torch.cuda.empty_cache()
+        # the ADMM recipe's prox: 40 iterations on the 24-px-padded 2608^2 grid
+        deep = torch.rand((20, N + 48, N + 48), generator=gen, device=dev)
+        out[f"PD 40 iterations 20 slices {N + 48}^2"] = ms(
+            lambda: PDT.pd_tv(deep, 5e-4, 40, 0, 1, 12.0), 5)
+        del deep
         from tomobar_tpu_torch import _build
 
         lib = _build.library()
@@ -291,10 +297,14 @@ def wave_prox(PDT, lib, data, lam: float, iterations: int, lc: float):
     for i, (k, first, last) in enumerate(plan):
         src = [unused] * 3 if first else [p.data_ptr() for p in ps[(i - 1) % 2]]
         dst = [unused] * 3 if last else [p.data_ptr() for p in ps[i % 2]]
+        cut = ()  # a tree whose kernel takes its cut: the wrapper's
+        if hasattr(PDT, "wave_plan"):
+            slots = PDT._slots(lib, data.device, PDT.wave_slabs(nz, k)[0], k, False, True)
+            cut = PDT.wave_plan(nz, ny, nx, k, slots)
         err = lib.tt_pd_tv_wave(
             data.data_ptr(), unused if first else u[(i - 1) % 2].data_ptr(), *src,
             u[i % 2].data_ptr(), *dst, nz, ny, nx, sigma, tau, lt, theta, 1, 1, 0, k,
-            int(first), int(last), stream)
+            int(first), int(last), *cut, stream)
         if err:
             raise RuntimeError(f"tt_pd_tv_wave: CUDA error {err}")
     return u[(len(plan) - 1) % 2]
@@ -350,7 +360,7 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", default="K1,K4,PD,F",
                     help="comma-separated: K1, K1p, K2, K3, K4 (with K4p), PD, PDw (PD on 20, 64 and "
-                         "512 slices), F, G, Gx (G's C entry with other tile orders, no compensation, "
+                         "512 slices, 40 iterations on 20 x 2608^2), F, G, Gx (G's C entry with other tile orders, no compensation, "
                          "fewer angles), ifft2 (FOURIER_INV's ifft2 stage)")
     ap.add_argument("--ptxas", metavar="SOURCE.cu",
                     help="first print each tree's register and spill report of csrc/SOURCE.cu")
