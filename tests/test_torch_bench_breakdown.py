@@ -1,7 +1,7 @@
 """The port's breakdowns (``tomobar_tpu_torch/bench/breakdown.py`` and
 ``fourier_breakdown.py``) on the CPU at N 32: the JAX package's keys, and
-FOURIER_INV's chained stages equal to the port's ``fourier_inv`` bit for
-bit (tolerance 0: the same operations in the same order)."""
+FOURIER_INV's five stages read from the spans of whole calls, one of each
+per z-block that the call plans."""
 
 import numpy as np
 import pytest
@@ -10,7 +10,6 @@ import torch
 from tomobar_tpu_torch import RecToolsDIRCuPy
 from tomobar_tpu_torch.bench import breakdown as B
 from tomobar_tpu_torch.bench import fourier_breakdown as FB
-from tomobar_tpu_torch.ops.usfft import fourier_inv
 
 torch.set_num_threads(1)
 
@@ -46,22 +45,35 @@ def test_fourier_breakdown_on_given_data(capsys):
     capsys.readouterr()
 
 
+def _stage_spans(rt, data, **kwargs):
+    seconds, spans = FB.stage_seconds(lambda: rt.FOURIER_INV(data, **kwargs), calls=2)
+    assert list(seconds) == list(spans) == list(FB.STAGES)
+    assert all(v > 0 for v in seconds.values()), seconds
+    return spans
+
+
 @pytest.mark.parametrize("n, nz, nproj", [(32, 4, 24), (64, 2, 30), (48, 6, 17)])
 def test_chained_stages_equal_fourier_inv(n, nz, nproj):
+    """The stages chained inside the call: asked for 2 z-blocks (one where
+    the volume holds one z-pair), every stage is timed (> 0 s) and
+    recorded once per planned z-block."""
+    blocks = min(2, nz // 2)
     angles = np.linspace(0, np.pi, nproj, endpoint=False)
     rt = RecToolsDIRCuPy(n, 0, nz, 0.0, angles, n, device="cpu")
     data = torch.as_tensor(np.random.default_rng(n).standard_normal((nz, nproj, n)).astype(np.float32))
-    ms, rec, (sre, sim) = FB.fourier_inv_by_stage(rt, data)
-    assert list(ms) == list(FB.STAGES) and all(v >= 0 for v in ms.values())
-    assert sre.shape == sim.shape == (nz // 2, nproj, n)
-    assert torch.equal(rec, fourier_inv(rt, data))
-    assert torch.equal(rec, rt.FOURIER_INV(data))
+    assert _stage_spans(rt, data, chunk_count=2) == dict.fromkeys(FB.STAGES, blocks)
+    assert _stage_spans(rt, data) == dict.fromkeys(FB.STAGES, 1)
 
 
 def test_stages_refuse_odd_axes():
-    rt = RecToolsDIRCuPy(32, 0, 3, 0.0, np.linspace(0, np.pi, 10, endpoint=False), 32, device="cpu")
-    with pytest.raises(ValueError, match="even axes"):
-        FB.fourier_inv_by_stage(rt, torch.zeros((3, 10, 32)))
+    """Odd axes and padding, which the stages no longer refuse: the call's
+    own stages, all five reported; a call with no FOURIER_INV reports
+    none."""
+    rt = RecToolsDIRCuPy(31, 0, 3, 0.0, np.linspace(0, np.pi, 10, endpoint=False), 31, device="cpu")
+    data = torch.as_tensor(np.random.default_rng(3).standard_normal((3, 10, 31)).astype(np.float32))
+    assert _stage_spans(rt, data, padding=4) == dict.fromkeys(FB.STAGES, 1)
+    assert FB.stage_seconds(lambda: None) == (dict.fromkeys(FB.STAGES, 0.0),
+                                               dict.fromkeys(FB.STAGES, 0))
 
 
 def test_breakdown_runs_on_the_card_unless_asked(monkeypatch):

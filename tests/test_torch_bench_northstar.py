@@ -1,12 +1,14 @@
 """The port's north-star bench (``tomobar_tpu_torch/bench/northstar.py``) on
-the CPU: its phantom against the JAX package's, its FISTA and ADMM steps
-against the JAX package's ``solvers.core.fista`` / ``admm`` on the
-interpret-mode Pallas projector, and a whole run at N 32.
+the CPU: its phantom against the JAX package's, the outer iterates that its
+observer of the prox sees in the port's ``solvers.core.fista`` / ``admm``
+against those solvers and against the JAX package's on the interpret-mode
+Pallas projector, and a whole run at N 32.
 
-Tolerances: the phantom exactly; the steps bit for bit against the port's
-own ``fista``/``admm``, and rel L2 2e-4 after 3 outer iterations against
-the JAX package's, the slice's tolerance (``tests/test_torch_slice.py``: the
-Pallas bf16x3 products compounded over the iterations).
+Tolerances: the phantom exactly; the observed iterates bit for bit against
+the port's own ``fista``/``admm`` of as many iterations, and rel L2 2e-4
+after 3 outer iterations against the JAX package's, the slice's tolerance
+(``tests/test_torch_slice.py``: the Pallas bf16x3 products compounded over
+the iterations).
 """
 
 import time
@@ -65,64 +67,93 @@ def _rel(got, want):
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
+def _prox(x):
+    from tomobar_tpu_torch.regularisers import PD_TV
+
+    return PD_TV(x, LAM, TV, 0, 1, 12.0)
+
+
+def _fista(P, b, L, k, regul_fn=_prox):
+    from tomobar_tpu_torch.solvers import core as solvers
+
+    return solvers.fista(P, b, k, L, nonnegativity=True, fidelity="PWLS", regul_fn=regul_fn)
+
+
+def _admm(P, b, L, x0, k, regul_fn=_prox):
+    from tomobar_tpu_torch.solvers import core as solvers
+
+    return solvers.admm(P, b, k, L, nonnegativity=True, regul_fn=regul_fn, x0=x0)
+
+
+def _observed(solve, P, phantom):
+    """The x that ``_trajectory``'s observer sees at each outer iteration
+    of ``solve(regul_fn)``, with the solver's result and the trajectory."""
+    seen, last = [], []
+    x, traj = NS._trajectory(solve, lambda v: last.append(_prox(v)) or last[-1],
+                             len(P.subset_indices), phantom,
+                             on_step=lambda i: seen.append(last[-1]))
+    return seen, x, traj
+
+
+def _x0():
+    return torch.as_tensor(np.random.default_rng(12).uniform(0.0, 1.0, (NZ, N, N)).astype(np.float32))
+
+
 def test_fista_steps_match_jax_fista(jax_pallas):
+    """The observed third iterate of the port's 3-iteration ``fista`` is
+    the JAX package's 3-iteration ``fista``."""
     jg, P, sino, L = _problem()
-    step, carry = NS.make_fista_step(P, torch.as_tensor(sino), L, LAM, TV)
-    for _ in range(3):
-        carry = step(carry)
+    b = torch.as_tensor(sino)
+    seen, _, _ = _observed(lambda reg: _fista(P, b, L, 3, reg), P, NS.ellipsoid_phantom(N, NZ, "cpu"))
     want = np.asarray(jax_solvers.fista(
         jax_projector.Projector(jg), jnp.asarray(sino), 3, L, nonnegativity=True,
         fidelity="PWLS", regul_fn=lambda x: jax_PD_TV(x, LAM, TV, 0, 1, 12.0)))
-    assert np.abs(want).max() > 0
-    assert _rel(carry[0].numpy(), want) <= TOL_REL
+    assert len(seen) == 3 and np.abs(want).max() > 0
+    assert _rel(seen[2].numpy(), want) <= TOL_REL
 
 
 def test_admm_steps_match_jax_admm(jax_pallas):
-    """Warm-started at the same volume; the third step relaxes (outer index
-    2), as the solver does."""
+    """Warm-started at the same volume; the third iteration relaxes (outer
+    index 2), in both solvers."""
     jg, P, sino, L = _problem()
-    x0 = np.random.default_rng(12).uniform(0.0, 1.0, (NZ, N, N)).astype(np.float32)
-    step, carry = NS.make_admm_step(P, torch.as_tensor(sino), L, LAM, TV, torch.as_tensor(x0))
-    for _ in range(3):
-        carry = step(carry)
+    x0 = _x0()
+    seen, _, _ = _observed(lambda reg: _admm(P, torch.as_tensor(sino), L, x0, 3, reg), P,
+                           NS.ellipsoid_phantom(N, NZ, "cpu"))
     want = np.asarray(jax_solvers.admm(
         jax_projector.Projector(jg), jnp.asarray(sino), 3, L, nonnegativity=True,
-        regul_fn=lambda x: jax_PD_TV(x, LAM, TV, 0, 1, 12.0), x0=jnp.asarray(x0)))
-    assert _rel(carry[0].numpy(), want) <= TOL_REL
+        regul_fn=lambda x: jax_PD_TV(x, LAM, TV, 0, 1, 12.0), x0=jnp.asarray(x0.numpy())))
+    assert len(seen) == 3
+    assert _rel(seen[2].numpy(), want) <= TOL_REL
 
 
 def test_fista_steps_equal_the_ports_fista():
-    """3 steps are 3 iterations of ``solvers.core.fista`` on the port, bit
-    for bit: the bench's copy of the loop times what the solver computes."""
-    from tomobar_tpu_torch.regularisers import PD_TV
-    from tomobar_tpu_torch.solvers import core as solvers
-
+    """The observer's k-th x (k = 1, 2, 3) is ``fista(iterations=k)`` bit for
+    bit, and its rel-RMSE is that x's: the trajectory reads the outer
+    iterate."""
     _, P, sino, L = _problem()
     b = torch.as_tensor(sino)
-    step, carry = NS.make_fista_step(P, b, L, LAM, TV)
-    for _ in range(3):
-        carry = step(carry)
-    want = solvers.fista(P, b, 3, L, nonnegativity=True, fidelity="PWLS",
-                         regul_fn=lambda x: PD_TV(x, LAM, TV, 0, 1, 12.0))
-    assert float(want.abs().max()) > 0
-    assert torch.equal(carry[0], want)
+    phantom = NS.ellipsoid_phantom(N, NZ, "cpu")
+    seen, x, traj = _observed(lambda reg: _fista(P, b, L, 3, reg), P, phantom)
+    assert len(seen) == len(traj) == 3 and torch.equal(x, seen[2])
+    for k in (1, 2, 3):
+        want = _fista(P, b, L, k)
+        assert float(want.abs().max()) > 0
+        assert torch.equal(seen[k - 1], want)
+        assert traj[k - 1][1] == NS._rel_rmse(want, phantom)
 
 
 def test_admm_steps_equal_the_ports_admm():
-    """3 steps from a warm start are 3 iterations of ``solvers.core.admm``
-    on the port, bit for bit (the third relaxes)."""
-    from tomobar_tpu_torch.regularisers import PD_TV
-    from tomobar_tpu_torch.solvers import core as solvers
-
+    """The observer's k-th x (k = 1, 2, 3) from a warm start is
+    ``admm(iterations=k)`` bit for bit (the third relaxes)."""
     _, P, sino, L = _problem()
-    b = torch.as_tensor(sino)
-    x0 = torch.as_tensor(np.random.default_rng(12).uniform(0.0, 1.0, (NZ, N, N)).astype(np.float32))
-    step, carry = NS.make_admm_step(P, b, L, LAM, TV, x0)
-    for _ in range(3):
-        carry = step(carry)
-    want = solvers.admm(P, b, 3, L, nonnegativity=True,
-                        regul_fn=lambda x: PD_TV(x, LAM, TV, 0, 1, 12.0), x0=x0)
-    assert torch.equal(carry[0], want)
+    b, x0 = torch.as_tensor(sino), _x0()
+    phantom = NS.ellipsoid_phantom(N, NZ, "cpu")
+    seen, x, traj = _observed(lambda reg: _admm(P, b, L, x0, 3, reg), P, phantom)
+    assert len(seen) == len(traj) == 3 and torch.equal(x, seen[2])
+    for k in (1, 2, 3):
+        want = _admm(P, b, L, x0, k)
+        assert torch.equal(seen[k - 1], want)
+        assert traj[k - 1][1] == NS._rel_rmse(want, phantom)
 
 
 def test_inputs_are_the_runs():
@@ -187,16 +218,26 @@ def test_run_northstar_on_step(small_run):
 
 
 def test_trajectory_keeps_a_slow_step():
-    """A step 10x the median stays in the trajectory as measured (the JAX
-    package's bench clamped it to the median)."""
+    """An outer iteration 10x the median stays in the trajectory as
+    measured (the JAX package's bench clamped it to the median): the
+    observer watches a prox that sleeps in one outer iteration of 2
+    subsets."""
     phantom = torch.ones((1, 4, 4))
-    delays = iter([0.01, 0.01, 0.1, 0.01, 0.01])
+    delays = iter([0.005, 0.005] * 2 + [0.05, 0.05] + [0.005, 0.005] * 2)
 
-    def step(carry):
+    def prox(v):
         time.sleep(next(delays))
-        return (carry[0] * 0.5,)
+        return v * 0.5
 
-    _, traj = NS._trajectory(step, (torch.full((1, 4, 4), 2.0),), phantom, 5)
+    def solve(regul_fn):
+        x = torch.full((1, 4, 4), 2.0)
+        for _ in range(5 * 2):
+            x = regul_fn(x)
+        return x
+
+    x, traj = NS._trajectory(solve, prox, 2, phantom)
     steps = [d for _, _, d in traj]
+    assert len(traj) == 5 and float(x[0, 0, 0]) == 2.0 * 0.5 ** 10
     assert steps[2] >= 0.1 and steps[2] > 5 * np.median(steps)
     assert traj[-1][0] == pytest.approx(sum(steps)) and traj[-1][0] >= 0.14
+    assert [r for _, r, _ in traj] == [abs(2.0 * 0.25 ** (i + 1) - 1.0) for i in range(5)]

@@ -18,11 +18,13 @@ Stages (``ops/usfft.py``, shape nz x nproj x N, default kwargs):
   their loads and stores);
 * ``unpad``: STEP4, crop, phi and the pair unpacking.
 
-The work models (:func:`stage_work`) count what each stage's function must
-do on the card, the F and G kernels' arithmetic (:func:`.breakdown.work_fft`,
-:func:`.breakdown.work_grid`) and each stage's input read and output
-written once, against the H100 bounds of :mod:`.breakdown`; there is no
-matrix-unit peak here.
+Each stage's time is the device seconds of its ``tomobar::usfft.<stage>``
+spans inside whole ``FOURIER_INV`` calls, summed over a call's z-blocks
+(:func:`stage_seconds`).  The work models (:func:`stage_work`) count what
+each stage's function must do on the card, the F and G kernels'
+arithmetic (:func:`.breakdown.work_fft`, :func:`.breakdown.work_grid`) and
+each stage's input read and output written once, against the H100 bounds
+of :mod:`.breakdown`; there is no matrix-unit peak here.
 
 Run on a machine with the card::
 
@@ -33,52 +35,41 @@ from __future__ import annotations
 
 import json
 import os
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
 from tomobar_tpu_torch.bench.breakdown import _device, stage_report, work_fft, work_grid
 
-__all__ = ["STAGES", "fourier_inv_by_stage", "stage_work", "fourier_breakdown"]
+__all__ = ["STAGES", "stage_seconds", "stage_work", "fourier_breakdown"]
 
 STAGES = ("filter", "fft1d", "grid", "ifft2", "unpad")
 
 
-def fourier_inv_by_stage(rt, data: torch.Tensor):
-    """FOURIER_INV of ``rt`` (a ``RecToolsDIRCuPy``) on 3D ``data``
-    [detY, angles, detX] with even axes and default kwargs, stage by stage
-    with a mark between stages (CUDA events on a card); returns the ms per
-    stage (:data:`STAGES`), the reconstruction (equal to ``rt.FOURIER_INV
-    (data)``) and the gridding input (the spectra the path gives G)."""
-    from tomobar_tpu_torch.bench.harness import Marks
-    from tomobar_tpu_torch.ops import fft_real as FR
-    from tomobar_tpu_torch.ops import usfft as US
-    from tomobar_tpu_torch.ops import usfft_kernels as UK
+def stage_seconds(fn: Callable, calls: int = 1) -> Tuple[Dict[str, float], Dict[str, int]]:
+    """Run ``fn()`` (a FOURIER_INV call) ``calls`` times under
+    ``torch.profiler`` and read its ``tomobar::usfft.<stage>`` spans
+    (``trace.snapshot()``; the host's clock where CUDA is not initialised).
+    Returns, per call and for each of :data:`STAGES`, the device seconds
+    summed over the call's z-blocks and the number of its spans (one a
+    z-block)."""
+    from tomobar_tpu_torch import trace
 
-    p = US._pipeline(rt, tuple(data.shape), {})
-    if p.odd_vert or p.odd_horiz or p.n != p.data_n:
-        raise ValueError(f"fourier_inv_by_stage takes even axes and no padding, got {tuple(data.shape)}")
-    n = p.n
-    theta = -np.asarray(rt.geom.angles, dtype=np.float64)
-    rot = float(np.mean(rt.geom.cor_horizontal)) + 0.5
-    mu = -np.log(1e-4) / (2 * n * n)
-    marks = Marks(data.device)
-    marks.mark()
-    filtered = US._fbp_filter_stage(data, p.data_n, n, p.filter_type, p.cutoff_freq, rot,
-                                    p.power_of_2_oversampling, p.oversampling_level)
-    marks.mark()
-    dre, dim = US._pack_pairs(filtered)
-    sre, sim = FR.fft_pairs(dre, dim)
-    scale = US._sign_vector(n, data.device) * (4.0 / n)
-    sre, sim = sre * scale, sim * scale
-    marks.mark()
-    fre, fim = UK.grid(sre, sim, n, theta)
-    marks.mark()
-    fre, fim = US._ifft2_centered(fre, fim, n)
-    marks.mark()
-    rec = US._unpad_mul_phi(fre, fim, n, p.nproj, p.nz, False, False, rt.recon_size, mu)
-    marks.mark()
-    return dict(zip(STAGES, marks.elapsed_ms())), rec, (sre, sim)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    trace.reset()
+    with torch.profiler.profile(activities=acts):
+        for _ in range(calls):
+            fn()
+    seconds, spans = dict.fromkeys(STAGES, 0.0), dict.fromkeys(STAGES, 0)
+    for sp in trace.snapshot()["spans"]:
+        stage = sp["name"].removeprefix("tomobar::usfft.")
+        if stage in seconds:
+            seconds[stage] += sp["device_s"] / calls
+            spans[stage] += 1
+    return seconds, {k: n // calls for k, n in spans.items()}
 
 
 def stage_work(N: int, nz: int, nproj: int, ow: int) -> dict:
@@ -103,9 +94,9 @@ def stage_work(N: int, nz: int, nproj: int, ow: int) -> dict:
 
 
 def fourier_breakdown(N, nz, nproj, reps=5, device=None, data=None):
-    """Time FOURIER_INV's stages (the mean of ``reps`` staged calls after a
-    warm-up) and the whole call on ``data`` [nz, nproj, N], random data by
-    default, on ``device`` (the card by default, else ``data``'s); returns
+    """Time FOURIER_INV's stages (:func:`stage_seconds` over ``reps`` calls
+    after a warm-up) and the whole call on ``data`` [nz, nproj, N], random
+    data by default, on ``device`` (the card by default, else ``data``'s); returns
     the shape, the oversampled width and each stage's record
     (:func:`.breakdown.stage_report`) with ``total_ms`` and
     ``stage_sum_ms``."""
@@ -123,16 +114,15 @@ def fourier_breakdown(N, nz, nproj, reps=5, device=None, data=None):
         raise ValueError(f"data {tuple(data.shape)}, not ({nz}, {nproj}, {N})")
     ow = US._pipeline(rt, tuple(data.shape), {}).ow
     out = {"shape": f"{nproj}x{nz}x{N}", "oversampled_width": ow}
-    fourier_inv_by_stage(rt, data)  # warm-up: tables, plans
-    runs = [fourier_inv_by_stage(rt, data)[0] for _ in range(reps)]
+    rt.FOURIER_INV(data)  # warm-up: tables, plans
+    stage_s, _ = stage_seconds(lambda: rt.FOURIER_INV(data), reps)
     work = stage_work(N, nz, nproj, ow)
     labels = {"filter": f"filter (ow={ow})", "fft1d": "pack + fft1d", "grid": "usfft gridding",
               "ifft2": f"ifft2 ({2 * N}^2)", "unpad": "unpad * phi"}
     res = {}
     for k in STAGES:
         ops, moved = work[k]
-        res[k] = stage_report(labels[k], float(np.mean([r[k] for r in runs])) / 1e3,
-                              flops=ops, bytes_moved=moved)
+        res[k] = stage_report(labels[k], stage_s[k], flops=ops, bytes_moved=moved)
     res["total_ms"] = round(time_fn(rt.FOURIER_INV, data, reps=reps) * 1e3, 3)
     res["stage_sum_ms"] = round(sum(res[k]["ms"] for k in STAGES), 3)
     print(f"{'total':26s} {res['total_ms']:9.3f} ms   (stage sum {res['stage_sum_ms']:.3f})")

@@ -9,6 +9,8 @@ Counterpart of ``tomobar_tpu/bench/harness.py``:
 * :func:`time_cuda` / :func:`time_device`: milliseconds of calls enqueued
   one by one, and of calls replayed from a CUDA graph (the device alone);
 * :class:`Marks`: times between points of one run, for stage breakdowns;
+* :func:`outer_iteration_s`: one outer iteration of a solver, as the
+  3- less the 2-iteration call;
 * :func:`rmse` / :func:`rel_rmse`: the RMSE-against-phantom quality metric
   of the reference demos (TomoPhantom's QualityTools);
 * :func:`trace`: a ``torch.profiler`` trace of the card, exported for
@@ -26,8 +28,8 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten
 
-__all__ = ["device_sync", "time_fn", "time_cuda", "time_device", "Marks", "rmse",
-           "rel_rmse", "trace"]
+__all__ = ["device_sync", "time_fn", "time_cuda", "time_device", "Marks",
+           "outer_iteration_s", "rmse", "rel_rmse", "trace"]
 
 
 def _device_of(x) -> torch.device:
@@ -120,6 +122,20 @@ class Marks:
             torch.cuda.synchronize()
             return [a.elapsed_time(b) for a, b in zip(pts, pts[1:])]
         return [(b - a) * 1e3 for a, b in zip(pts, pts[1:])]
+
+
+def outer_iteration_s(call: Callable) -> float:
+    """Seconds of one outer iteration of ``call(k)``, which runs k outer
+    iterations of a solver from the same start: ``call(3)`` less
+    ``call(2)``, each between two :class:`Marks` on the device of
+    ``call(1)``'s result, which warms up."""
+    marks = Marks(_device_of(call(1)))
+    for k in (2, 3):
+        marks.mark()
+        call(k)
+        marks.mark()
+    ms = marks.elapsed_ms()
+    return (ms[2] - ms[0]) / 1e3
 
 
 def rmse(a, b) -> float:

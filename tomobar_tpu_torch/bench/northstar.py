@@ -22,16 +22,17 @@ against the phantom, taken outside the timed steps):
 * ``fista.time_to_fbp_rmse_s`` / ``time_to_rmse_s``: seconds of FISTA to
   reach FBP's rel-RMSE / 1.02 x the run's best;
 * ``fista.iter_s``: outer iterations per second, from the 3- less the
-  2-iteration run from the same state, after a warm-up step;
+  2-iteration call of ``solvers.core.fista`` after a warm-up call;
 * ``admm.*``: warm-started (FBP) relaxed ADMM-OS24, 3 outer iterations.
 
-Each outer step is written out here on the port's ``Projector``,
-``fidelity.grad_data_term`` and ``regularisers.PD_TV``, as
-``solvers.core.fista`` / ``admm`` run it, because the solvers take no
-per-iteration hook; ADMM relaxes from outer iteration index 2 on, as the
-solver and the reference do.  The trajectories time this copy of the
-loops, not the solvers; ``tests/test_torch_bench_northstar.py`` holds 3
-steps of each to 3 iterations of the solver, bit for bit.
+The trajectories time ``solvers.core.fista`` and ``admm`` themselves.  The
+prox each solver is given is watched: its output at the last subset of an
+outer iteration is that iteration's x (the momentum or dual update that
+follows does not change x), so there the step's end is marked, the
+rel-RMSE taken and the next step's start marked.  Step 1 therefore also
+holds the solver's set-up (the weights and the subset slices, a few ms),
+and each step's momentum (FISTA) or dual (ADMM) update is counted in the
+step after it.
 
 Run on a machine with the card::
 
@@ -43,13 +44,13 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Callable, List, Optional, Tuple
+from itertools import accumulate, count
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["ELLIPSOIDS", "ellipsoid_phantom", "make_fista_step", "make_admm_step",
-           "northstar_inputs", "run_northstar"]
+__all__ = ["ELLIPSOIDS", "ellipsoid_phantom", "northstar_inputs", "run_northstar"]
 
 # (cx, cy, cz, ax, ay, az, value): the JAX package's bench phantom
 # (examples/phantom3d_fista_os_tv.py's ellipsoids)
@@ -79,114 +80,39 @@ def ellipsoid_phantom(n: int, nz: int, device) -> torch.Tensor:
     return torch.clamp(vol, min=0.0)
 
 
-def make_fista_step(projector, sino: torch.Tensor, lipschitz_const: float,
-                    regul_param: float, tv_iters: int) -> Tuple[Callable, tuple]:
-    """One outer iteration of FISTA-OS with PWLS weights, non-negativity and
-    the PD-TV prox (iso, nonneg, L 12), as ``solvers.core.fista`` runs it;
-    returns ``step(carry) -> carry`` and the carry at zero, (x, x_t, t)."""
-    from tomobar_tpu_torch.fidelity import grad_data_term
-    from tomobar_tpu_torch.regularisers import PD_TV
-    from tomobar_tpu_torch.solvers.core import _prepare_weights, _subset_slices
-
-    n_sub = len(projector.subset_indices)
-    L_inv = float(np.float32(1.0 / lipschitz_const))
-    w = _prepare_weights(projector, sino, "PWLS", {})
-    subs, w_subs = _subset_slices(projector, sino, w)
-    one, four, half = np.float32(1.0), np.float32(4.0), np.float32(0.5)
-
-    def step(carry):
-        x, x_t, t = carry
-        for s in range(n_sub):
-            x_old, t_old = x, t
-            grad = grad_data_term(projector, x_t, subs[s], sub_ind=s if n_sub > 1 else None,
-                                  w=w_subs[s], fidelity="PWLS")
-            x = torch.clamp(x_t - L_inv * grad, min=0.0)
-            x = PD_TV(x, regul_param, tv_iters, 0, 1, 12.0)
-            t = np.float32((one + np.sqrt(one + four * t * t)) * half)
-            x_t = x + float(np.float32((t_old - one) / t)) * (x - x_old)
-        return x, x_t, t
-
-    n = projector.geom.recon_size
-    x0 = torch.zeros((sino.shape[0], n, n), dtype=torch.float32, device=sino.device)
-    return step, (x0, x0, np.float32(1.0))
-
-
-def make_admm_step(projector, sino: torch.Tensor, lipschitz_const: float,
-                   regul_param: float, tv_iters: int, x0: torch.Tensor,
-                   rho: float = 1.0, relax_par: float = 1.6) -> Tuple[Callable, tuple]:
-    """One outer iteration of linearised, relaxed ADMM-OS (LS,
-    non-negativity, the PD-TV prox of ``regul_param / rho``) warm-started
-    at ``x0``, as ``solvers.core.admm`` runs it; returns ``step(carry) ->
-    carry`` and the first carry, (x, z, z_old, u, outer index)."""
-    from tomobar_tpu_torch.fidelity import grad_data_term
-    from tomobar_tpu_torch.regularisers import PD_TV
-    from tomobar_tpu_torch.solvers.core import _subset_slices
-
-    n_sub = len(projector.subset_indices)
-    tau = float(np.float32(0.9 / (lipschitz_const + rho)))
-    subs, _ = _subset_slices(projector, sino)
-    lam = regul_param / rho
-
-    def step(carry):
-        x, z, z_old, u, it = carry
-        for s in range(n_sub):
-            grad = grad_data_term(projector, z, subs[s], sub_ind=s if n_sub > 1 else None)
-            z = torch.clamp(z - tau * (grad + rho * (z - x + u)), min=0.0)
-            if it > 1:
-                z = (1.0 - relax_par) * z_old + relax_par * z
-            z_old = z
-            x = PD_TV(z + u, lam, tv_iters, 0, 1, 12.0)
-        return x, z, z_old, u + (z - x), it + 1
-
-    zeros = torch.zeros_like(x0)
-    return step, (x0, x0, zeros, zeros, 0)
-
-
 def _rel_rmse(rec: torch.Tensor, ref: torch.Tensor) -> float:
     """rel-RMSE of ``rec`` against ``ref`` on their device, in float64."""
     num = torch.sqrt(torch.mean((rec.double() - ref.double()) ** 2))
     return float(num / torch.clamp(torch.sqrt(torch.mean(ref.double() ** 2)), min=1e-30))
 
 
-def _trajectory(step: Callable, carry, phantom: torch.Tensor, outer: int,
+def _trajectory(solve: Callable, prox: Callable, n_sub: int, phantom: torch.Tensor,
                 on_step: Optional[Callable] = None):
-    """``outer`` steps from ``carry``, each timed alone (CUDA events on a
-    card, ``time.perf_counter`` on the CPU) with the rel-RMSE of its x after
-    it; returns the last carry and [(cumulative s, rel-RMSE, the step's
-    s)], the steps' times as measured.  ``on_step(i)``, where given, is
-    called after step i and its timing."""
+    """``solve(regul_fn)`` with ``regul_fn`` the prox ``prox`` watched: its
+    output at every ``n_sub``-th call is an outer iteration's x, where the
+    step's end is marked (CUDA events on a card, ``time.perf_counter`` on
+    the CPU), its rel-RMSE taken, ``on_step(i)`` called (where given) and
+    the next step's start marked; the output is passed on unchanged.
+    Returns the solver's result and [(cumulative s, rel-RMSE, the step's
+    s)], the steps' times as measured."""
     from tomobar_tpu_torch.bench.harness import Marks
 
-    traj, total = [], 0.0
-    for i in range(outer):
-        marks = Marks(phantom.device)
-        marks.mark()
-        carry = step(carry)
-        marks.mark()
-        dt = marks.elapsed_ms()[0] / 1e3
-        total += dt
-        traj.append((total, _rel_rmse(carry[0], phantom), dt))
-        if on_step is not None:
-            on_step(i)
-    return carry, traj
+    marks, rmses, calls = Marks(phantom.device), [], count(1)
 
+    def watched(v):
+        x = prox(v)
+        if next(calls) % n_sub == 0:
+            marks.mark()
+            rmses.append(_rel_rmse(x, phantom))
+            if on_step is not None:
+                on_step(len(rmses) - 1)
+            marks.mark()
+        return x
 
-def _iteration_s(step: Callable, carry, device) -> float:
-    """Seconds of one outer iteration: a run of 3 steps less a run of 2 from
-    the same ``carry``, after a warm-up step."""
-    from tomobar_tpu_torch.bench.harness import Marks
-
-    step(carry)
-    times = []
-    for k in (2, 3):
-        marks = Marks(device)
-        marks.mark()
-        c = carry
-        for _ in range(k):
-            c = step(c)
-        marks.mark()
-        times.append(marks.elapsed_ms()[0] / 1e3)
-    return times[1] - times[0]
+    marks.mark()
+    x = solve(watched)
+    steps = [ms / 1e3 for ms in marks.elapsed_ms()[0::2]]
+    return x, list(zip(accumulate(steps), rmses, steps))
 
 
 def _traj_out(traj: List[tuple]) -> list:
@@ -236,9 +162,10 @@ def run_northstar(
     (``solver`` ``"fista"`` or ``"admm"``), outside its timing."""
     from tomobar_tpu_torch import RecToolsDIRCuPy
     from tomobar_tpu_torch.bench.breakdown import _device
-    from tomobar_tpu_torch.bench.harness import device_sync
+    from tomobar_tpu_torch.bench.harness import device_sync, outer_iteration_s
     from tomobar_tpu_torch.geometry import Geometry
     from tomobar_tpu_torch.ops.projector import Projector
+    from tomobar_tpu_torch.regularisers import PD_TV
     from tomobar_tpu_torch.solvers import core as solvers
 
     dev = _device(device)
@@ -279,15 +206,21 @@ def run_northstar(
     log(f"FBP rel-RMSE {rmse_fbp:.4f} ({out['fbp_s']} s)")
 
     # FISTA-OS-PWLS-PD-TV from zero
-    step, carry = make_fista_step(P, sino, L, regul_param, tv_iters)
-    carry, traj = _trajectory(step, carry, phantom, fista_outer,
-                              on_step and (lambda i: on_step("fista", i)))
+    def prox(x):
+        return PD_TV(x, regul_param, tv_iters, 0, 1, 12.0)
+
+    def fista(k, regul_fn=prox):
+        return solvers.fista(P, sino, k, L, nonnegativity=True, fidelity="PWLS",
+                             regul_fn=regul_fn)
+
+    _, traj = _trajectory(lambda reg: fista(fista_outer, reg), prox, len(P.subset_indices),
+                          phantom, on_step and (lambda i: on_step("fista", i)))
     rmses = [r for _, r, _ in traj]
     best = min(rmses)
     tgt = 1.02 * best
     t_conv = next(t for t, r, _ in traj if r <= tgt)
     t_fbp = next((t for t, r, _ in traj if r <= rmse_fbp), None)
-    iter_dt = _iteration_s(step, carry, dev)
+    iter_dt = outer_iteration_s(fista)
     out["fista"] = {
         "rel_rmse_final": round(rmses[-1], 4),
         "rel_rmse_best": round(best, 4),
@@ -301,15 +234,16 @@ def run_northstar(
         "trajectory": _traj_out(traj),
         "iter_s": round(1.0 / iter_dt, 4) if iter_dt > 0 else None,
     }
-    del carry
     log(f"FISTA: best rel-RMSE {best:.4f}, time-to-RMSE {t_conv:.2f} s, "
         f"{out['fista']['iter_s']} iter/s")
 
-    # warm-start ADMM-OS24
+    # warm-start ADMM-OS24, LS; rho 1, so its prox (of regul_param / rho) is FISTA's
     P24 = Projector(Geometry(N, nz, angles, 0.0, N, os_number=24))
-    step, carry = make_admm_step(P24, sino, L, regul_param, tv_iters, fbp.contiguous())
-    carry, traj = _trajectory(step, carry, phantom, admm_outer,
-                              on_step and (lambda i: on_step("admm", i)))
+    x0 = fbp.contiguous()
+    _, traj = _trajectory(
+        lambda reg: solvers.admm(P24, sino, admm_outer, L, rho_const=1.0, nonnegativity=True,
+                                 regul_fn=reg, x0=x0),
+        prox, len(P24.subset_indices), phantom, on_step and (lambda i: on_step("admm", i)))
     out["admm"] = {
         "warm_start": "FBP",
         "os": 24,

@@ -120,25 +120,16 @@ def count_collectives_in_step(mesh, projector, sino: torch.Tensor, lipschitz_con
             for op, v in comm.stats.items()}
 
 
-def _outer_s(projector, sino, lipschitz_const, regul_fn) -> float:
-    """Seconds of one outer FISTA iteration: the 3- less the 2-iteration
-    call, after a warm-up call."""
-    from tomobar_tpu_torch.bench.harness import Marks
+def _fista_outer_s(projector, sino, lipschitz_const: float, regul_fn) -> float:
+    """Seconds of one outer iteration of ``solvers.core.fista`` (PWLS,
+    non-negativity, ``regul_fn``) on ``sino`` through ``projector``
+    (:func:`.harness.outer_iteration_s`)."""
+    from tomobar_tpu_torch.bench.harness import outer_iteration_s
     from tomobar_tpu_torch.solvers import core as solvers
 
-    def call(k):
-        return solvers.fista(projector, sino, k, lipschitz_const, nonnegativity=True,
-                             fidelity="PWLS", regul_fn=regul_fn)
-
-    call(1)
-    times = []
-    for k in (2, 3):
-        marks = Marks(sino.device)
-        marks.mark()
-        call(k)
-        marks.mark()
-        times.append(marks.elapsed_ms()[0] / 1e3)
-    return times[1] - times[0]
+    return outer_iteration_s(lambda k: solvers.fista(
+        projector, sino, k, lipschitz_const, nonnegativity=True, fidelity="PWLS",
+        regul_fn=regul_fn))
 
 
 def _rank(rank: int, world: int, port: int, backend: str, mesh, cfg: dict, out_dir: str):
@@ -160,7 +151,7 @@ def _rank(rank: int, world: int, port: int, backend: str, mesh, cfg: dict, out_d
     slab = torch.rand((nz // mesh[0], nproj, N), generator=gen, device=m.device)
     reg = {"method": "PD_TV", "regul_param": 5e-4, "iterations": cfg["tv"]}
     counts = count_collectives_in_step(m, sp, slab, cfg["L"], reg)
-    t = _outer_s(sp, slab, cfg["L"], sharded_regul_fn(m, reg, nonneg=True)) \
+    t = _fista_outer_s(sp, slab, cfg["L"], sharded_regul_fn(m, reg, nonneg=True)) \
         if backend == "nccl" else None
     with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
         json.dump({"z_index": m.z_index, "counts": counts, "outer_s": t}, f)
@@ -200,7 +191,7 @@ def run(N=None, nz_per_device=None, nproj=None, os_number=None, tv_iters=None,
     L = solvers.power_method(P, (nz1, N, N), device=dev)
     sino = torch.rand((nz1, nproj, N), generator=torch.Generator(device=dev).manual_seed(0),
                       device=dev)
-    t1 = _outer_s(P, sino, L, lambda x: PD_TV(x, 5e-4, tv, 0, 1, 12.0))
+    t1 = _fista_outer_s(P, sino, L, lambda x: PD_TV(x, 5e-4, tv, 0, 1, 12.0))
     del sino
     torch.cuda.empty_cache()
     out = {"metric": f"weak scaling over z ({nproj} x {nz1}/z-shard x {N}, FISTA-OS{os_number}"

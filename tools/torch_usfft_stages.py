@@ -11,12 +11,14 @@ one chunk of ``--slices`` rows of a 1801 x 2560 scan (random counts on the
 card; the stages' times do not depend on the values), one warm-up call,
 ``--calls`` calls timed between CUDA events with the peak of
 ``torch.cuda.max_memory_allocated``, then ``--calls`` calls under
-``torch.profiler``, where the spans ``tomobar::usfft.filter``, ``.fft1d``,
-``.grid``, ``.ifft2`` and ``.unpad`` (one of each a z-block) record; their
-device seconds (``trace.snapshot()``) are summed over the z-blocks of a
-call.  The launches per call come from the kernels' counters.  The first
-line of output is the card's name and power limit; then one JSON line per
-tree and round.  ``--device cpu --slices 4 --width 128`` runs the same on
+``torch.profiler``, read by the tree's
+``tomobar_tpu_torch.bench.fourier_breakdown.stage_seconds``: the device
+seconds of the spans ``tomobar::usfft.filter``, ``.fft1d``, ``.grid``,
+``.ifft2`` and ``.unpad`` (one of each a z-block), summed over the
+z-blocks of a call (a tree without that function is run by its own copy
+of this tool).  The launches per call come from the kernels' counters.
+The first line of output is the card's name and power limit; then one
+JSON line per tree and round.  ``--device cpu --slices 4 --width 128`` runs the same on
 the CPU at a toy size (host times: no card figure).
 """
 
@@ -28,15 +30,14 @@ import os
 import subprocess
 import sys
 
-STAGES = ("filter", "fft1d", "grid", "ifft2", "unpad")
-
 
 def worker(repo: str, slices: int, width: int, nproj: int, calls: int, device: str) -> dict:
     sys.path.insert(0, os.path.abspath(repo))
     import numpy as np
     import torch
 
-    from tomobar_tpu_torch import RecToolsDIRCuPy, _build, trace
+    from tomobar_tpu_torch import RecToolsDIRCuPy, _build
+    from tomobar_tpu_torch.bench.fourier_breakdown import stage_seconds
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -66,28 +67,13 @@ def worker(repo: str, slices: int, width: int, nproj: int, calls: int, device: s
         else:
             rt.FOURIER_INV(data)
     launches = {k: v // calls for k, v in _build.launch_counts.items() if v}
-    trace.reset()
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if cuda:
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts):
-        for _ in range(calls):
-            rt.FOURIER_INV(data)
-        sync()
-    snap = trace.snapshot()
-    stage_s = {s: 0.0 for s in STAGES}
-    blocks = 0
-    for sp in snap["spans"]:
-        name = sp["name"].removeprefix("tomobar::usfft.")
-        if name in stage_s:
-            stage_s[name] += sp["device_s"] / calls
-            blocks += name == "filter"
+    stage_s, spans = stage_seconds(lambda: rt.FOURIER_INV(data), calls)
     return {
         "tree": repo,
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu (host times)",
         "call_ms": ms,
         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None,
-        "z_blocks": blocks // calls,
+        "z_blocks": spans["filter"],
         "stage_s_per_call": stage_s,
         "launches_per_call": launches,
     }
