@@ -62,14 +62,20 @@ Phases, in order; any failure raises and exits non-zero:
    variant, FOURIER_INV's whole ifft2 stage in two launches) against the
    chain of passes it replaces at 2n = 1280, 2048 and 5120 on 1 and 3
    z-pairs (rel L2 <= 1e-6), with and without the half-pixel shift, and
-   its launches in a chunked FOURIER_INV call (two a z-block, F only in
-   the filter stage); FOURIER_INV and
+   its launches in a chunked FOURIER_INV call (two a z-block, beside Ff's
+   one and no F); Ff (F's filter variant, FOURIER_INV's whole filter stage
+   in one launch) against its plain version (the edge pad, F twice, the
+   crop) on one z-block of the benchmark's 512-row FOURIER_INV cell (57 x
+   1801 x 2560, ow 8192) and on padded odd widths (the run-time plans, the
+   one-float loads and stores), rel L2 <= 1e-6; F's and Fc's outputs on
+   seeded inputs against their recorded digests (``F_DIGESTS``, bit for
+   bit); FOURIER_INV and
    3D FBP at 256^2 x 4 x 90 on the CPU and on the GPU; then on phase 6's
    clean 1801 x 8 x 2560 sinogram: FOURIER_INV and FBP times after a
-   warm-up call, G/F/Fc launch counts per path, both paths' time by stage
+   warm-up call, G/F/Fc/Ff launch counts per path, both paths' time by stage
    (FOURIER_INV's from its spans, through ``bench.fourier_breakdown``),
    its correlation with a Ram-Lak FBP inside the inscribed circle, peak
-   memory, and G, F and Fc beside their plain versions at the flagship
+   memory, and G, F, Fc and Ff beside their plain versions at the flagship
    shapes (G on seeded random spectra against a float64 plain sum, and
    twice for bit-equal grids).
 8. the 2D path: K1p/K4p (the packed nz = 1 pair) against their plain
@@ -268,11 +274,16 @@ from tomobar_tpu_torch.bench.breakdown import (  # noqa: E402
     work_unshear,
 )
 from tomobar_tpu_torch.bench.breakdown import flagship_breakdown  # noqa: E402
-from tomobar_tpu_torch.bench.fourier_breakdown import STAGES, fourier_breakdown  # noqa: E402
+from tomobar_tpu_torch.bench.fourier_breakdown import (  # noqa: E402
+    STAGES,
+    fourier_breakdown,
+    stage_work,
+)
 from tomobar_tpu_torch.bench.harness import time_cuda, time_device  # noqa: E402
 
 TOL_KERNEL = 1e-5  # max|kernel - plain| / max|plain|, fp32 sums in another order
 TOL_FC = 1e-6  # rel L2 of Fc against the chain of passes: the same F, other factor roundings
+TOL_FF = 1e-6  # rel L2 of Ff against its plain version: the same transforms, other orders
 TOL_PD_BF16 = 1e-3  # bf16 duals: a one-ulp fp32 difference can flip a rounding
 TOL_ADJOINT = 1e-5  # |<Ax,y> - <x,A^T y>| / |<Ax,y>|
 TOL_SLICE = 1e-4  # rel L2 between the CPU and the GPU reconstruction
@@ -311,6 +322,22 @@ KERNELS = {
           "tomobar_tpu/ops/fft_real.py:208"),
     "Fc": ("fft_axis2_centred", "tomobar_tpu_torch/csrc/fft_axis2.cu",
            "none: the XLA passes around F's two in tomobar_tpu/ops/usfft.py _ifft2_centered"),
+    "Ff": ("fft_axis2_filter", "tomobar_tpu_torch/csrc/fft_axis2.cu",
+           "none: the XLA passes around F's two in tomobar_tpu/ops/usfft.py _fbp_filter_stage"),
+}
+# F's and Fc's outputs on f_digests' seeded inputs on an H100 (sm_90a), as
+# the kernels gave them before Ff joined their source and after: neither
+# may change by a bit
+F_DIGESTS = {
+    "F n=8192 sign -1": "0b4f9a8c059fea9a",
+    "F n=8192 sign +1": "c3f603fc321c7256",
+    "F n=2560 sign -1": "905e2cdab69ca4f5",
+    "F n=2560 sign +1": "d3b3240d79830d0f",
+    "F n=3000 sign -1": "04926d8225941184",
+    "F n=3000 sign +1": "01a96ae7adcc6b4f",
+    "Fc 2n=1280": "63d857692fa5bad1",
+    "Fc 2n=2048": "1b551ec5c1bddac1",
+    "Fc 2n=5120": "cd3ff8b1153b0d08",
 }
 ITERATIVE = ("K1", "K2", "K3", "K4", "PD")  # the kernels of phase 6's path
 PROJECTOR_3D = ("K1", "K2", "K3", "K4")  # phase 11's path, 3D
@@ -832,7 +859,7 @@ def check_centred_ifft2(torch, errs, dev) -> None:
     """7a: Fc against the chain of passes it replaces (``usfft._ifft2_chain``:
     the checkerboard and ramp, F, a transposed copy, F, the signed scale) at
     the splits FOURIER_INV meets, on 1 and 3 z-pairs; then its launches in a
-    chunked FOURIER_INV call: two a z-block, and F only in the filter stage."""
+    chunked FOURIER_INV call: two a z-block, beside Ff's one, and no F."""
     from tomobar_tpu_torch import RecToolsDIRCuPy, _build
     from tomobar_tpu_torch.ops import fft_kernels as FK
     from tomobar_tpu_torch.ops import usfft as US
@@ -862,9 +889,93 @@ def check_centred_ifft2(torch, errs, dev) -> None:
     rt.FOURIER_INV(sino, chunk_count=2)
     counts = dict(_build.launch_counts)
     print(f"  FOURIER_INV 8 x 180 x 640 in 2 z-blocks: launches {json.dumps(counts)}")
-    require(counts["Fc"] == 4 and counts["F"] == 4,
+    require(counts["Fc"] == 4 and counts["Ff"] == 2 and counts["F"] == 0,
             f"FOURIER_INV in 2 z-blocks: Fc {counts['Fc']} (want 2 a block), "
-            f"F {counts['F']} (want the filter stage's 2 a block)")
+            f"Ff {counts['Ff']} (want 1 a block), F {counts['F']} (want none)")
+
+
+def check_filter_stage(torch, errs, dev) -> None:
+    """7a: Ff against its plain version (``usfft._fbp_filter_plain``: the
+    edge pad, F twice around the filter multiply, the crop), rel L2 <=
+    TOL_FF, one launch and no F: on one z-block of the benchmark's 512-row
+    FOURIER_INV cell (57 x 1801 x 2560, ow 8192: the plan 16 x 8 x 8, the
+    16-byte loads and stores), at ow 1024 (the run-time plan 8 x 8 x 8)
+    and at ow 3003 (B 3, C 1001 = 7 x 11 x 13: no register butterfly), with
+    odd raw widths, padded detectors, odd output widths and CoR offsets.
+    A second call allocates its output and nothing else (its tables are
+    cached): nothing ow-wide."""
+    from tomobar_tpu_torch import _build
+    from tomobar_tpu_torch.ops import fft_kernels as FK
+    from tomobar_tpu_torch.ops import usfft as US
+
+    gen = torch.Generator(device=dev).manual_seed(74)
+    for shape, width, ftype, axis, p2, level in (
+        ((57, 1801, 2560), 2560, "shepp", 0.5, True, 4),
+        ((3, 91, 300), 305, "ramp", 2.5, True, 4),
+        ((4, 181, 1001), 1015, "hann", 3.7, False, 3),
+    ):
+        data = torch.rand(shape, generator=gen, device=dev)
+        raw = shape[-1]
+        ow = US._oversampled_width(raw, width, p2, level)
+        label = (f"{'x'.join(map(str, shape))} to width {width}, ow {ow} "
+                 f"(B, C = {FK.best_split(ow)}), {ftype}, CoR {axis - 0.5:g}")
+        _build.reset_launch_counts()
+        got = US._fbp_filter_stage(data, raw, width, ftype, 1.0, axis, p2, level)
+        require(_build.launch_counts["Ff"] == 1 and _build.launch_counts["F"] == 0,
+                f"Ff {label}: launches {dict(_build.launch_counts)}")
+        ref = US._fbp_filter_plain(data, ow, raw, width, ftype, 1.0, axis)
+        errs.compare("Ff", label, got, ref)
+        rel = rel_l2(torch, got, ref)
+        print(f"  Ff {label}: rel L2 against the plain version {rel:.3e} (tol {TOL_FF:g})")
+        require(rel <= TOL_FF, f"Ff {label}: rel L2 {rel:.3e} > {TOL_FF:g}")
+        del got, ref
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        got = US._fbp_filter_stage(data, raw, width, ftype, 1.0, axis, p2, level)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated(dev) - held
+        print(f"  Ff {label}: a second call allocated {extra} bytes, its output {got.nbytes}")
+        require(extra < got.nbytes + 2**21, f"Ff {label}: allocated {extra} bytes, "
+                f"its output is {got.nbytes}")
+        del data, got
+
+
+def f_digests(torch, FK, dev) -> dict:
+    """sha256 (first 16 hex digits) of F's and Fc's outputs on inputs drawn
+    by numpy (the same on any card and any PyTorch): F at n = 8192, 2560
+    (its compile-time plans) and 3000 (the run-time plan), both signs; Fc at
+    2n = 1280, 2048 and 5120."""
+    import hashlib
+
+    def digest(outs):
+        h = hashlib.sha256()
+        for t in outs:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    rng = np.random.default_rng(73)
+    out = {}
+    for n in (8192, 2560, 3000):
+        re, im = (torch.as_tensor(v, device=dev)
+                  for v in rng.standard_normal((2, 2, n, 72)).astype(np.float32))
+        for sign in (-1, 1):
+            out[f"F n={n} sign {sign:+d}"] = digest(FK.fft_axis2(re, im, sign))
+    for two_n in (1280, 2048, 5120):
+        re, im = (torch.as_tensor(v, device=dev)
+                  for v in rng.standard_normal((2, 1, two_n, two_n)).astype(np.float32))
+        out[f"Fc 2n={two_n}"] = digest(FK.ifft2_centred(re, im))
+    return out
+
+
+def check_f_unchanged(torch, dev) -> None:
+    """7a: F's and Fc's outputs bit for bit as recorded (``F_DIGESTS``)."""
+    from tomobar_tpu_torch.ops import fft_kernels as FK
+
+    got = f_digests(torch, FK, dev)
+    print(f"  F and Fc digests: {json.dumps(got)}")
+    differ = {k: (v, F_DIGESTS.get(k)) for k, v in got.items() if F_DIGESTS.get(k) != v}
+    require(not differ, f"F or Fc outputs differ from their recorded digests: {differ}")
 
 
 def fbp_by_stage(torch, rt, by_angle):
@@ -899,6 +1010,9 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     check_direct_kernels(torch, errs, dev)
     print("[7] Fc, the centred F, against the chain of passes it replaces:")
     check_centred_ifft2(torch, errs, dev)
+    print("[7] Ff, the filter F, against its plain version; F and Fc as recorded:")
+    check_filter_stage(torch, errs, dev)
+    check_f_unchanged(torch, dev)
 
     # ---- 7b. FOURIER_INV and 3D FBP on the CPU and on the card -------------
     angles90 = np.linspace(0.0, np.pi, 90, endpoint=False)
@@ -930,7 +1044,8 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
 
     fi, ms_fi = timed("FOURIER_INV", lambda: rt.FOURIER_INV(clean))
     require(launches["FOURIER_INV"].get("G", 0) > 0, "FOURIER_INV did not launch G")
-    require(launches["FOURIER_INV"].get("F", 0) > 0, "FOURIER_INV did not launch F")
+    require(launches["FOURIER_INV"].get("Ff", 0) > 0, "FOURIER_INV did not launch Ff")
+    require(launches["FOURIER_INV"].get("F", 0) == 0, "FOURIER_INV launched F")
     require(launches["FOURIER_INV"].get("Fc", 0) > 0, "FOURIER_INV did not launch Fc")
     fbp, ms_fbp = timed("FBP (sinc)", lambda: rt.FBP(by_angle))
     require(launches["FBP (sinc)"].get("F", 0) > 0, "FBP did not launch F")
@@ -1003,12 +1118,22 @@ def direct_path(torch, errs, measure, dev, clean, angles) -> dict:
     measure("Fc", f"4 x {2 * N} x {2 * N}, both passes", lambda: FK.ifft2_centred(re, im),
             lambda: US._ifft2_chain(re, im, N), (2 * ops, 2 * nbytes), reps=5, plain_reps=5)
     del re, im
+    # Ff: the filter stage of one z-block of the benchmark's 512-row cell
+    # (57 slices), beside its plain version (the edge pad, F twice, the crop)
+    block = torch.rand((57, NA, N), generator=gen, device=dev)
+    ow = US._oversampled_width(N, N, True, 4)
+    measure("Ff", f"57 x {NA} x {N}, ow {ow}",
+            lambda: US._fbp_filter_stage(block, N, N, "shepp", 1.0, 0.5),
+            lambda: US._fbp_filter_plain(block, ow, N, N, "shepp", 1.0, 0.5),
+            stage_work(N, 57, NA, ow)["filter"], reps=5, plain_reps=3)
+    del block
     per_call = {k: (launches["FOURIER_INV"].get(k, 0), "FOURIER_INV call")
-                for k in ("G", "F", "Fc")}
+                for k in ("G", "F", "Fc", "Ff")}
     return {
         "G": launches["FOURIER_INV"].get("G", 0),
-        "F": launches["FOURIER_INV"].get("F", 0) + launches["FBP (sinc)"].get("F", 0),
+        "F": launches["FBP (sinc)"].get("F", 0),
         "Fc": launches["FOURIER_INV"].get("Fc", 0),
+        "Ff": launches["FOURIER_INV"].get("Ff", 0),
     }, per_call, {"FOURIER_INV": fi, "FBP": fbp}, ms_fi, fb
 
 
@@ -1409,7 +1534,7 @@ def big_stack(torch, errs, dev, clean, angles, small):
     del out, vol
     launches = {k: v for k, v in _build.launch_counts.items() if v}
     print(f"[9] launch counts of the phase: {json.dumps(launches)}")
-    for k in ("K3", "K4", "F", "G", "PDw"):
+    for k in ("K3", "K4", "F", "G", "PDw", "Ff"):
         require(launches.get(k, 0) > 0, f"kernel {k} was not launched by the big stack")
     return launches, plan
 
@@ -1869,7 +1994,7 @@ def raw_to_reconstruction(torch, dev, angles, plan_512) -> dict:
     launches = {k: v for k, v in _build.launch_counts.items() if v}
     print(f"[13] at the found centre, first calls: FOURIER_INV {ms_fi:.2f} ms, FBP (sinc) "
           f"{ms_fbp:.2f} ms; launches of the path {json.dumps(launches)}")
-    for k in ("G", "F", "K3", "K4"):
+    for k in ("G", "F", "K3", "K4", "Ff"):
         require(launches.get(k, 0) > 0, f"kernel {k} was not launched by the raw-to-recon path")
     print(f"[13] the next calls: FOURIER_INV {time_cuda(lambda: rt.FOURIER_INV(sino), 3):.2f} ms, "
           f"FBP (sinc) {time_cuda(lambda: rt.FBP(by_angle), 3):.2f} ms")

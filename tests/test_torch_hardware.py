@@ -10,8 +10,9 @@ machine need not have; nothing here needs it.)  A CUDA kernel has no
 interpret mode, so the tier-1 run on the CPU skips this file.  The kernel
 checks are ``chip_smoke.py``'s own functions, imported, not copied: each
 kernel against its plain PyTorch version on the same inputs (K1, K1p, K3,
-K4, K4p bit for bit; K2, PD, G, F, Fc within 1e-5 of the largest value, Fc
-also within 1e-6 rel L2; PD with bf16 duals within 1e-3).  Beside them: the pair's adjointness at
+K4, K4p bit for bit; K2, PD, G, F, Fc, Ff within 1e-5 of the largest value, Fc
+and Ff also within 1e-6 rel L2; PD with bf16 duals within 1e-3; F and Fc bit
+for bit as recorded).  Beside them: the pair's adjointness at
 nz = 8 and nz = 1 (phases 4 and 8's own check), the GPU against the CPU at 256^2 x 4 x 90 (3D FISTA,
 FBP, FOURIER_INV) and on the examples' paths at 64^2 (SWLS/Huber,
 OSEM/MLEM/KL, the padded warm start and ADMM, and plain PWLS and LS on data
@@ -105,8 +106,21 @@ def test_direct_kernels(errs, dev):
 def test_centred_ifft2(errs, dev):
     """Fc against the chain of passes it replaces, rel L2 <= 1e-6 at 2n =
     1280, 2048, 5120 on 1 and 3 z-pairs; two launches a FOURIER_INV z-block
-    and F only in the filter stage."""
+    beside Ff's one, and no F."""
     CS.check_centred_ifft2(torch, errs, dev)
+
+
+def test_filter_stage(errs, dev):
+    """Ff against its plain version (the edge pad, F twice, the crop), rel
+    L2 <= 1e-6, one launch and no F: one z-block of the benchmark's 512-row
+    FOURIER_INV cell (57 x 1801 x 2560, ow 8192) and padded odd widths on
+    the run-time plans."""
+    CS.check_filter_stage(torch, errs, dev)
+
+
+def test_f_and_fc_unchanged(dev):
+    """F's and Fc's outputs on seeded inputs bit for bit as recorded."""
+    CS.check_f_unchanged(torch, dev)
 
 
 @pytest.mark.parametrize("seed,cor", enumerate(COR), ids=list(COR))

@@ -1,5 +1,5 @@
-"""Index arithmetic of the K1, K1p, K3, K4, K4p, PD, G and F CUDA kernels,
-emulated in numpy.
+"""Index arithmetic of the K1, K1p, K3, K4, K4p, PD, G, F, Fc and Ff CUDA
+kernels, emulated in numpy.
 
 The kernels of ``tomobar_tpu_torch/csrc`` run only on a GPU.  What can go
 wrong in them apart from the compiler is their index arithmetic: windows,
@@ -17,10 +17,15 @@ walk the same blocks, bands, batches, stages and thread items as
 * PD must agree with ``pd_tv_plain`` within 1e-6 of the maximum (1e-3 with
   bfloat16 duals), for every launch plan;
 * F must agree with ``numpy.fft`` within 1e-5 of the maximum (float32
-  tables and arithmetic in another order), and its centred variant Fc
+  tables and arithmetic in another order), its centred variant Fc
   (``fft_axis2_centred_kernel``: the factors on its loads and stores, the
   transposed load of its second pass) with the chain of passes it
-  replaces, ``usfft._ifft2_chain``.
+  replaces, ``usfft._ifft2_chain``, and its filter variant Ff
+  (``fft_axis2_filter_kernel``: the clamped load of paired rows, the
+  filter inside the last stage, the transposed inverse, the cropped split
+  store) with the filter stage's definition within 1e-12 in float64 and
+  with its plain version, ``usfft._fbp_filter_plain``, within 1e-5 in
+  float32.
 
 Unstaged or unwritten shared memory is NaN in the emulation, so a tap read
 outside the staged window, or a halo value that reaches an inner tile,
@@ -479,7 +484,16 @@ def test_f_slot_is_a_bijection_on_aligned_pairs():
         assert np.all((slot(pos) ^ slot(pos ^ (1 << bit))) & 1 == 1)
 
 
-def stage_butterflies(s, w, Cn, Ls, R):
+def dft_exact(x):
+    """An R-point DFT of R complex128 arrays, for the float64 emulations."""
+    R = len(x)
+    m = np.exp(-2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R)
+    return [sum(m[p, q] * x[q] for q in range(R)) for p in range(R)]
+
+
+def stage_butterflies(s, w, Cn, Ls, R, transposed=False, dft=dft_regs):
+    """stage_butterflies<R, kTransposed>: the DIF stage, or its transpose
+    (the twiddles on the inputs, before the DFT) at the same places."""
     M, step = Ls // R, Cn // Ls
     b = np.arange(Cn // R * F_COLS)
     col, t = b % F_COLS, b // F_COLS
@@ -487,8 +501,11 @@ def stage_butterflies(s, w, Cn, Ls, R):
     j = t - blk * M
     base = blk * Ls + j
     x = [s[slot(base + M * q), col] for q in range(R)]
-    y = dft_regs(x)
-    if M > 1:
+    if transposed and M > 1:
+        for p in range(1, R):
+            x[p] = x[p] * w[j * p * step]
+    y = dft(x)
+    if not transposed and M > 1:
         for p in range(1, R):
             assert (j * p * step).max() < Cn  # the twiddle index needs no remainder
             y[p] = y[p] * w[j * p * step]
@@ -496,7 +513,7 @@ def stage_butterflies(s, w, Cn, Ls, R):
         s[slot(base + M * p), col] = y[p]
 
 
-def stage_outputs(s, w, Cn, Ls, r):
+def stage_outputs(s, w, Cn, Ls, r, transposed=False):
     M, step, root_step = Ls // r, Cn // Ls, Cn // r
     assert Cn * F_COLS <= F_MAX_ITEMS * F_PLAN_THREADS  # the register array holds them
     it = np.arange(Cn * F_COLS)
@@ -506,11 +523,28 @@ def stage_outputs(s, w, Cn, Ls, r):
     p = rem // M
     j = rem - p * M
     base = blk * Ls + j
-    acc = np.zeros(it.shape, dtype=np.complex64)
+    acc = np.zeros(it.shape, dtype=s.dtype)
     for q in range(r):
-        acc = acc + s[slot(base + M * q), col] * w[((p * q) % r) * root_step]
-    out = acc * w[j * p * step]
+        v = s[slot(base + M * q), col]
+        if transposed:
+            v = v * w[j * q * step]
+        acc = acc + v * w[((p * q) % r) * root_step]
+    out = acc if transposed else acc * w[j * p * step]
     s[slot(pos), col] = out  # after the barrier: every read came first
+
+
+def b_step(slabs, wb, tt, B, Cn):
+    """b_step<B>: block ``rank`` owns the n2 of its chunk, all k1."""
+    chunk = (Cn + B - 1) // B
+    for rank in range(B):
+        mine = rank * chunk + np.arange(chunk)
+        mine = mine[mine < Cn]
+        x = [slabs[n1][slot(mine)].copy() for n1 in range(B)]
+        for k1 in range(B):
+            y = x[0]
+            for n1 in range(1, B):
+                y = y + x[n1] * wb[k1 * B + n1]
+            slabs[k1][slot(mine)] = y if k1 == 0 else y * tt[k1 * Cn + mine][:, None]
 
 
 def k2_of_position(pos, plan, Cn):
@@ -604,17 +638,8 @@ def f_emulated(re, im, sign, B, Cn, plan, mode=0, centre=None, scale=None):
                     v[:, live] = v[:, live] * np.conj(
                         centre[k1 * Cn + n2][:, None] * centre[l0 + cols[live]][None, :])
                 slabs[k1][slot(n2)] = v
-            # 2. the B step: block `rank` owns the n2 of its chunk, all k1
-            chunk = (Cn + B - 1) // B
-            for rank in range(B):
-                mine = rank * chunk + np.arange(chunk)
-                mine = mine[mine < Cn]
-                x = [slabs[n1][slot(mine)].copy() for n1 in range(B)]
-                for k1 in range(B):
-                    y = x[0]
-                    for n1 in range(1, B):
-                        y = y + x[n1] * wb[k1 * B + n1]
-                    slabs[k1][slot(mine)] = y if k1 == 0 else y * tt[k1 * Cn + mine][:, None]
+            # 2. the B step
+            b_step(slabs, wb, tt, B, Cn)
             # 3. the C stages of block k1, in place; 4. the store
             for k1 in range(B):
                 s = slabs[k1]
@@ -737,6 +762,315 @@ def test_f_stage_plan(Cn):
     odd = [r for r in plan if r % 2]
     assert list(plan[: len(odd)]) == sorted(odd)  # odd radices first, ascending
     assert all(r in (16, 8, 4, 2) for r in plan[len(odd):])
+
+
+# ---------------------------------------------------------------------------
+# Ff: csrc/fft_axis2.cu, fft_axis2_filter_kernel
+# ---------------------------------------------------------------------------
+
+FF_COMPILE_TIME = {1024: (16, 8, 8), 640: (5, 16, 8)}  # the plans with their own instances
+
+
+def swap(v):
+    return (v.imag + 1j * v.real).astype(v.dtype)
+
+
+def f_tables(n, B, Cn, exact):
+    """DFT_B, T and the roots w_C: the kernel's float32 tables, or the same
+    in complex128 for the float64 emulation."""
+    if exact:
+        wb = np.exp(-2j * np.pi * np.outer(np.arange(B), np.arange(B)) / B).ravel()
+        tt = np.exp(-2j * np.pi * np.outer(np.arange(B), np.arange(Cn)) / n).ravel()
+        return wb, tt, np.exp(-2j * np.pi * np.arange(Cn) / Cn)
+    tables = FK._device_tables(n, B, Cn, torch.device("cpu")).numpy().reshape(-1, 2)
+    tables = C(tables[:, 0], tables[:, 1])
+    return tables[: B * B], tables[B * B : B * B + B * Cn], tables[B * B + B * Cn :]
+
+
+def ff_vector(Cn, raw, pad_m, unpad_m, width):
+    """The kernel's choice of 16-byte loads and stores (the wrapper's
+    tensors are aligned): every run of 4 of a slab's positions then lies
+    wholly inside the raw row or wholly on one clamped side of it, and
+    wholly inside or outside the crop."""
+    return all(v % 4 == 0 for v in (Cn, raw, pad_m, unpad_m, width))
+
+
+def ff_rows(l, npairs, A):
+    """Pair l's slice, its row 2j, and whether row 2j + 1 exists."""
+    z, j = l // npairs, l % npairs
+    return z, 2 * j, 2 * j + 1 < A
+
+
+def ff_load(data, k1, Cn, l0, L, pad_m, vector, dtype):
+    """load_rows: block k1's slab of positions k1*C + n2 of 8 pairs of rows,
+    each through the clamped index (16-byte runs of 4, 8 columns x 4 runs a
+    warp, or one float a thread item, 8 columns x 4 positions a warp)."""
+    Z, A, raw = data.shape
+    npairs = (A + 1) // 2
+    slab = np.full(((Cn + 1) & ~1, F_COLS), np.nan, dtype=dtype)
+    if vector:
+        it = np.arange(Cn // 4 * F_COLS)
+        col, first = it % F_COLS, it // F_COLS * 4
+        q = k1 * Cn + first - pad_m
+        assert np.all(q % 4 == 0)
+        inside = (q >= 0) & (q < raw)
+        # a run read whole, or one edge value for all four
+        q = np.where(inside[:, None], q[:, None] + np.arange(4), np.where(q < 0, 0, raw - 1)[:, None])
+        n2 = first[:, None] + np.arange(4)
+        col = np.repeat(col[:, None], 4, axis=1)
+    else:
+        it = np.arange((Cn + 3) // 4 * 4 * F_COLS)
+        n2 = it // (4 * F_COLS) * 4 + it % 4
+        col = it // 4 % F_COLS
+        keep = n2 < Cn
+        n2, col = n2[keep], col[keep]
+        q = np.clip(k1 * Cn + n2 - pad_m, 0, raw - 1)
+    l = l0 + col
+    live = l < L
+    z, r0, has_im = ff_rows(np.where(live, l, 0), npairs, A)
+    re = np.where(live, data[z, r0, q], 0)
+    im = np.where(live & has_im, data[z, np.minimum(r0 + 1, A - 1), q], 0)
+    slab[slot(n2), col] = (re + 1j * im).astype(dtype)
+    return slab
+
+
+def ff_store(out, slab, m1, Cn, l0, L, unpad_m, vector):
+    """store_rows: block m1 holds positions m1*C + m2; those in the crop go
+    to column m - unpad_m, the (swapped) im part to row 2j, the re part to
+    row 2j + 1 where it exists (16-byte runs of 4, or one float a thread
+    item)."""
+    Z, A, width = out.shape
+    npairs = (A + 1) // 2
+    if vector:
+        it = np.arange(Cn // 4 * F_COLS)
+        col, first = it % F_COLS, it // F_COLS * 4
+        o = m1 * Cn + first - unpad_m
+        keep = (l0 + col < L) & (o >= 0) & (o < width)
+        assert np.all(o[keep] + 3 < width)  # the run of 4 lies inside the crop
+        col = np.repeat(col[keep], 4)
+        n2 = (first[keep][:, None] + np.arange(4)).ravel()
+    else:
+        it = np.arange((Cn + 3) // 4 * 4 * F_COLS)
+        n2 = it // (4 * F_COLS) * 4 + it % 4
+        col = it // 4 % F_COLS
+        o = m1 * Cn + n2 - unpad_m
+        keep = (n2 < Cn) & (l0 + col < L) & (o >= 0) & (o < width)
+        n2, col = n2[keep], col[keep]
+    o = m1 * Cn + n2 - unpad_m
+    v = slab[slot(n2), col]
+    z, r0, has_im = ff_rows(l0 + col, npairs, A)
+    out[z, r0, o] = v.imag
+    out[z[has_im], r0[has_im] + 1, o[has_im]] = v.real[has_im]
+
+
+def ff_filter_butterflies(s, filt, k1, B, Cn, plan, R, dft):
+    """filter_butterflies<R>: the last forward stage (M = 1), the filter
+    multiply at X[k1 + B*k2] and the swap into the inverse's frame, the
+    first transposed stage, one thread's registers throughout."""
+    b = np.arange(Cn // R * F_COLS)
+    col, base = b % F_COLS, b // F_COLS * R
+    y = dft([s[slot(base + q), col] for q in range(R)])
+    for p in range(R):
+        k2 = k2_of_position(base + p, plan, Cn)
+        if FF_COMPILE_TIME.get(Cn) == plan:
+            assert np.array_equal(k2, k2_of_position_compile_time(base + p, plan, Cn))
+        y[p] = swap(y[p] * filt[k1 + B * k2])
+    y = dft(y)
+    for q in range(R):
+        s[slot(base + q), col] = y[q]
+
+
+def ff_filter_pass(s, filt, k1, B, Cn, plan):
+    """filter_pass: the same multiply and swap on every position, between
+    a last stage without a register butterfly and its transpose."""
+    pos = np.arange(Cn)
+    s[slot(pos)] = swap(s[slot(pos)] * filt[k1 + B * k2_of_position(pos, plan, Cn)][:, None])
+
+
+def ff_stage(s, w, Cn, Ls, r, transposed, dft):
+    if r in BUTTERFLIES:
+        stage_butterflies(s, w, Cn, Ls, r, transposed, dft)
+    else:
+        stage_outputs(s, w, Cn, Ls, r, transposed)
+
+
+def ff_emulated(data, filt, B, Cn, pad_m, unpad_m, width, exact=False):
+    """filter_rows() on a CUDA tensor: one cluster of B blocks per 8 pairs
+    of rows.  ``filt``: the (ow,) filter table with 1/ow folded in;
+    ``exact``: complex128 tables and DFTs (the index arithmetic alone)."""
+    Z, A, raw = data.shape
+    plan = FK.stage_plan(Cn)
+    dtype, dft = (np.complex128, dft_exact) if exact else (np.complex64, dft_regs)
+    wb, tt, w = f_tables(B * Cn, B, Cn, exact)
+    filt = filt.astype(dtype)
+    vector = ff_vector(Cn, raw, pad_m, unpad_m, width)
+    L = Z * ((A + 1) // 2)
+    m_lo, m_hi = unpad_m // Cn, (unpad_m + width - 1) // Cn
+    chunk = (Cn + B - 1) // B
+    out = np.full((Z, A, width), np.nan, dtype=np.float64 if exact else f32)
+    for l0 in range(0, L, F_COLS):
+        # 1. block k1 loads the slab n1 = k1; 2. the B step
+        slabs = np.stack([ff_load(data, k1, Cn, l0, L, pad_m, vector, dtype) for k1 in range(B)])
+        if vector:  # the one-float mapping reads the same slabs
+            scalar = np.stack([ff_load(data, k1, Cn, l0, L, pad_m, False, dtype) for k1 in range(B)])
+            assert np.array_equal(scalar[:, :Cn], slabs[:, :Cn])
+        b_step(slabs, wb, tt, B, Cn)
+        # 3. block k1: the forward stages, the filter inside the last one,
+        # the transposed stages in the other order
+        for k1 in range(B):
+            s, Ls = slabs[k1], Cn
+            for r in plan[:-1]:
+                ff_stage(s, w, Cn, Ls, r, False, dft)
+                Ls //= r
+            r = plan[-1]
+            assert Ls == r
+            if r in BUTTERFLIES:
+                ff_filter_butterflies(s, filt, k1, B, Cn, plan, r, dft)
+            else:
+                stage_outputs(s, w, Cn, r, r)
+                ff_filter_pass(s, filt, k1, B, Cn, plan)
+                stage_outputs(s, w, Cn, r, r, transposed=True)
+            for r in plan[-2::-1]:
+                Ls *= r
+                ff_stage(s, w, Cn, Ls, r, True, dft)
+        # 4. the inverse B step: T on the inputs, DFT_B into the blocks that
+        # hold part of the crop only
+        for rank in range(B):
+            mine = rank * chunk + np.arange(chunk)
+            mine = mine[mine < Cn]
+            x = [slabs[k1][slot(mine)].copy() for k1 in range(B)]
+            x = [x[0]] + [x[k1] * tt[k1 * Cn + mine][:, None] for k1 in range(1, B)]
+            for m1 in range(m_lo, m_hi + 1):
+                y = x[0]
+                for k1 in range(1, B):
+                    y = y + x[k1] * wb[m1 * B + k1]
+                slabs[m1][slot(mine)] = y
+        # 5. the store of the crop
+        for m1 in range(m_lo, m_hi + 1):
+            ff_store(out, slabs[m1], m1, Cn, l0, L, unpad_m, vector)
+            if vector:  # the one-float mapping stores the same
+                again = np.full_like(out, np.nan)
+                ff_store(again, slabs[m1], m1, Cn, l0, L, unpad_m, False)
+                stored = ~np.isnan(again)
+                assert np.array_equal(again[stored], out[stored])
+    return out
+
+
+def ff_reference(data, filt, ow, pad_m, unpad_m, width):
+    """The filter stage by its definition in float64 (numpy's edge pad and
+    FFT): rows paired, transformed, times ``filt`` (1/ow folded in),
+    transformed back, split, cropped."""
+    Z, A, raw = data.shape
+    x = np.pad(data.astype(np.float64), ((0, 0), (0, A % 2), (pad_m, ow - raw - pad_m)), mode="edge")
+    if A % 2:
+        x[:, -1] = 0.0
+    y = np.fft.ifft(np.fft.fft(x[:, 0::2] + 1j * x[:, 1::2], axis=-1) * filt * ow, axis=-1)
+    rows = np.stack([y.real, y.imag], axis=2).reshape(Z, -1, ow)
+    return rows[:, :A, unpad_m : unpad_m + width]
+
+
+def ff_case(B, Cn, A, raw, width, ftype="shepp", cor=0.0, Z=3, seed=0):
+    """Rows, the filter table of ``_fbp_filter_stage`` (``_device_filter``'s
+    values) and the window on a grid of ow = B*C."""
+    from tomobar_tpu_torch.ops import usfft as U
+
+    ow = B * Cn
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((Z, A, raw)).astype(f32)
+    table = U._device_filter(ow, ftype, 0.8, cor + 0.5, torch.device("cpu")).numpy().reshape(-1, 2)
+    pad_m, unpad_m, unpad_p = U._filter_window(ow, raw, width)
+    return data, C(table[:, 0], table[:, 1]), pad_m, unpad_m, unpad_p - unpad_m
+
+
+FF_SPLITS = [(4, 16), (8, 32), (2, 37), (5, 12)]
+FF_GEOMETRIES = {  # (raw, width) from ow; the CoR offset
+    "plain": (lambda ow: (ow // 4, ow // 4), 0.0),
+    "padded-cor": (lambda ow: (ow // 4 - 2, ow // 4 + 3), 3.7),
+}
+
+
+@pytest.mark.parametrize("A", [6, 7], ids=["even-angles", "odd-angles"])
+@pytest.mark.parametrize("geometry", list(FF_GEOMETRIES))
+@pytest.mark.parametrize("B,Cn", FF_SPLITS, ids=lambda v: str(v))
+def test_ff_emulation_against_the_definition(B, Cn, geometry, A):
+    """Ff's index arithmetic in float64 (exact DFTs and tables, so only
+    the indices can differ): the clamped load of paired rows, the
+    digit-reversed filter multiply, the transposed four-step inverse, the
+    crop and the split store give the filter stage's definition to 1e-12,
+    with an even and an odd angle count, with the detector padded (raw <
+    width, an odd width) and a complex filter (the CoR ramp), on plans with
+    a register butterfly last and without (37), by both I/O mappings."""
+    size, cor = FF_GEOMETRIES[geometry]
+    raw, width = size(B * Cn)
+    data, filt, pad_m, unpad_m, width = ff_case(B, Cn, A, raw, width, cor=cor)
+    got = ff_emulated(data, filt, B, Cn, pad_m, unpad_m, width, exact=True)
+    ref = ff_reference(data, filt, B * Cn, pad_m, unpad_m, width)
+    assert not np.isnan(got).any()
+    assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+def test_ff_emulation_takes_both_io_mappings():
+    """The geometries above run the 16-byte and the one-float mapping."""
+    taken = set()
+    for B, Cn in FF_SPLITS:
+        for size, _ in FF_GEOMETRIES.values():
+            raw, width = size(B * Cn)
+            _, _, pad_m, unpad_m, width = ff_case(B, Cn, 6, raw, width)
+            taken.add(ff_vector(Cn, raw, pad_m, unpad_m, width))
+    assert taken == {True, False}
+
+
+@pytest.mark.parametrize(
+    "ftype", ["none", "ramp", "shepp", "cosine", "cosine2", "hamming", "hann", "parzen"])
+def test_ff_emulation_every_filter(ftype):
+    """Every filter type, at the split 8 x 32 with a CoR offset, in float64."""
+    data, filt, pad_m, unpad_m, width = ff_case(8, 32, 7, 60, 64, ftype, cor=-2.3)
+    got = ff_emulated(data, filt, 8, 32, pad_m, unpad_m, width, exact=True)
+    ref = ff_reference(data, filt, 256, pad_m, unpad_m, width)
+    assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("A", [6, 7], ids=["even-angles", "odd-angles"])
+@pytest.mark.parametrize("B,Cn,raw,width", [(2, 32, 16, 20), (8, 1024, 2560, 2560), (4, 640, 640, 644)],
+                         ids=["2x32", "8x1024-cell", "4x640-padded"])
+def test_ff_emulation_against_the_plain_route(B, Cn, raw, width, A):
+    """In float32 with the kernel's tables and register butterflies, Ff
+    against ``usfft._fbp_filter_plain`` (the CPU route of the stage) to
+    1e-5 of the largest value: the wrapper's split at ow = 64, the cell's
+    (ow 8192: the compile-time plan 16 x 8 x 8, 16-byte I/O) on one tile of
+    8 pairs or fewer, and the compile-time plan 5 x 16 x 8 with a padded
+    detector."""
+    from tomobar_tpu_torch.ops import usfft as U
+
+    data, filt, pad_m, unpad_m, width_out = ff_case(B, Cn, A, raw, width, cor=1.3,
+                                                    Z=3 if B * Cn <= 256 else 1)
+    got = ff_emulated(data, filt, B, Cn, pad_m, unpad_m, width_out)
+    ref = U._fbp_filter_plain(torch.from_numpy(data), B * Cn, raw, width, "shepp", 0.8, 1.8).numpy()
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_ff_routes_only_the_filter_stage(monkeypatch):
+    """Ff serves ``_fbp_filter_stage`` on a card's tensor (planned on meta,
+    where a card's call launches it) at the oversampled widths F takes,
+    and nothing else: not the CPU, not ow = 16384 (B = 16), not the FBP
+    filter; FOURIER_INV runs it once a z-block."""
+    from tomobar_tpu_torch import RecToolsDIRCuPy
+    from tomobar_tpu_torch.ops import usfft as U
+
+    calls = []
+    monkeypatch.setattr(U, "filter_rows", lambda *a: (calls.append(a[2]), FK.filter_rows(*a))[1])
+    out = U._fbp_filter_stage(torch.zeros((2, 9, 2560), device="meta"), 2560, 2560, "shepp", 1.0, 0.5)
+    assert calls == [8192] and out.is_meta and out.shape == (2, 9, 2560)
+    calls.clear()
+    U._fbp_filter_stage(torch.zeros((1, 3, 3000), device="meta"), 3000, 3000, "shepp", 1.0, 0.5)
+    U._fbp_filter_stage(torch.zeros((1, 3, 64)), 64, 64, "shepp", 1.0, 0.5)
+    angles = np.linspace(0, np.pi, 30, endpoint=False)
+    rd = RecToolsDIRCuPy(640, 0, 4, 0.0, angles, 640, device="meta")
+    rd.FBP(torch.zeros((30, 4, 640), device="meta"))
+    assert calls == []
+    rec = rd.FOURIER_INV(torch.zeros((4, 30, 640), device="meta"), chunk_count=2)
+    assert rec.shape == (4, 640, 640) and calls == [2048, 2048]
 
 
 # ---------------------------------------------------------------------------

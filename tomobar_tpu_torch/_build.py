@@ -64,6 +64,7 @@ _SIGNATURES = {
     "tt_usfft_grid_tile": [_I],
     "tt_fft_axis2": [_P] * 5 + [_I] * 4 + [_P, _I, _P],
     "tt_fft_axis2_centred": [_P] * 6 + [_F] + [_I] * 5 + [_P, _I, _P],
+    "tt_fft_axis2_filter": [_P] * 4 + [_I] * 8 + [_P, _I, _P],
 }
 
 # launches per kernel since the last reset, the counters of

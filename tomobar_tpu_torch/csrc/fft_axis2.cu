@@ -77,6 +77,48 @@
 //    about 3.6 GB a z-pair.  Prediction before the first run: each pass
 //    within 10% of F's 1.40 ms at 4 x 5120^2, so the stage at ~2.9 ms per
 //    4 pairs against ~9.9 ms for the chain.
+//
+// Ff, the filter variant (fft_axis2_filter_kernel, tt_fft_axis2_filter):
+// FOURIER_INV's whole filter stage in one launch, from the raw sinogram rows
+// (Z, A, raw) to the cropped filtered rows (Z, A, width).  Replaces no TPU
+// kernel: the JAX package's _fbp_filter_stage runs the edge pad, the
+// transposes, the filter multiply, the scale, the pair stack and the crop
+// as XLA passes around its two fused F passes, every one an ow-wide round
+// trip through device memory (3.4 GB a pass at 57 x 1801 x 8192).
+//  * Rows 2j and 2j + 1 of a slice are one (re, im) pair, as
+//    apply_freq_filter_real pairs them (an odd A's last row with zeros);
+//    the cluster's 8 columns are 8 pairs.  Block k1 loads positions
+//    k1*C + n2 of the width-ow grid straight from the raw rows through the
+//    clamped index x[clamp(p - pad_m, 0, raw - 1)] (the edge pad), 16 bytes
+//    a thread where the widths allow, so nothing ow-wide is ever written.
+//  * The forward transform is F's: the B step across the cluster, then the
+//    C-point stages, which leave X[k1 + B*k2] digit-reversed in block k1.
+//  * The inverse is the transpose of that network, run in the frame
+//    swap(a + ib) = b + ia, where the unnormalised inverse is the forward
+//    DFT: with X' = X * filt (1/ow folded into the table),
+//        y[m2 + C*m1] = swap( sum_k1 DFT_B[m1, k1] T[k1, m2]
+//                             sum_k2 swap(X'[k1 + B*k2]) e^(-2i pi k2 m2 / C) ).
+//    The C-point DFT of digit-reversed input to natural output is the
+//    forward stages transposed, in the other order (each reads and writes
+//    the places its forward stage wrote and read, twiddles on the inputs):
+//    F_C = F_C^T = S_1^T .. S_s^T P.  The last forward stage and the first
+//    transposed one touch the same R positions in the same thread, so the
+//    filter multiply and the swap sit between them in registers.  Then T and
+//    DFT_B across the cluster, into the blocks that hold part of the crop
+//    only; block m1 holds positions m1*C + m2 in natural order and stores
+//    those in [unpad_m, unpad_m + width), im to row 2j and re to row 2j + 1.
+//  * Bound: 2 x 5 ow log2 ow flops a pair (0.82 ms at 67 TFLOP/s for 57 x
+//    1801 rows at ow 8192) against the raw rows in and the filtered rows
+//    out once (2.1 GB at width 2560: 0.63 ms at 3.35 TB/s); the chain of
+//    passes it replaces moved ~30 GB.
+//  * Prediction before the first run on the card (FOURIER_INV at 512 x
+//    1801 x 2560, 9 z-blocks): the tomobar::usfft.filter spans 0.539-0.544
+//    s a call -> 0.06-0.15 s (the low end F's one pass a call today, the
+//    high end the two transforms' work in one residency at F's issue
+//    rate); the call 1.258 s -> ~0.78-0.87 s; slices_per_s 407 -> 540-650;
+//    usfft_transform_roofline_pct 6.87 -> 13-18; usfft_roofline_pct 5.75
+//    -> 8-9.5; usfft_grid_roofline_pct unchanged at 3.97; device idle under
+//    2%; peak_mem_gib not above 51.40.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -232,7 +274,9 @@ struct Dft<16> {
 // positions blk*Ls + j + M q, q < R, and writes
 //   y_p = w_C^(j p C/Ls) * sum_q x_q exp(-2i*pi*p*q/R)
 // to position blk*Ls + j + M p.  A thread owns whole butterflies.
-template <int R>
+// kTransposed: the transpose of that stage at the same places, the
+// twiddles on the inputs before the DFT (Ff's inverse, see the head).
+template <int R, bool kTransposed = false>
 __device__ __forceinline__ void stage_butterflies(float2* s, const float2* w,
                                                   int C, int Ls, int threads) {
   const int M = Ls / R;
@@ -247,10 +291,18 @@ __device__ __forceinline__ void stage_butterflies(float2* s, const float2* w,
     float2 x[R];
 #pragma unroll
     for (int q = 0; q < R; ++q) x[q] = s[slot(base + M * q) * kCols + col];
-    Dft<R>::run(x);
-    if (M > 1) {
+    if constexpr (kTransposed) {
+      if (M > 1) {
 #pragma unroll
-      for (int p = 1; p < R; ++p) x[p] = cmul(x[p], w[j * p * step]);
+        for (int p = 1; p < R; ++p) x[p] = cmul(x[p], w[j * p * step]);
+      }
+      Dft<R>::run(x);
+    } else {
+      Dft<R>::run(x);
+      if (M > 1) {
+#pragma unroll
+        for (int p = 1; p < R; ++p) x[p] = cmul(x[p], w[j * p * step]);
+      }
     }
 #pragma unroll
     for (int p = 0; p < R; ++p) s[slot(base + M * p) * kCols + col] = x[p];
@@ -261,6 +313,7 @@ __device__ __forceinline__ void stage_butterflies(float2* s, const float2* w,
 // The same stage for a radix without a register butterfly: one output per
 // thread item, all outputs held in registers across a barrier, then
 // written.  Used by the run-time plan only (kPlanThreads threads).
+template <bool kTransposed = false>
 __device__ __forceinline__ void stage_outputs(float2* s, const float2* w, int C,
                                               int Ls, int r) {
   const int M = Ls / r;
@@ -280,10 +333,11 @@ __device__ __forceinline__ void stage_outputs(float2* s, const float2* w, int C,
     const int base = blk * Ls + j;
     float2 acc = make_float2(0.f, 0.f);
     for (int q = 0; q < r; ++q) {
-      const float2 v = s[slot(base + M * q) * kCols + col];
+      float2 v = s[slot(base + M * q) * kCols + col];
+      if constexpr (kTransposed) v = cmul(v, w[j * q * step]);
       acc = cadd(acc, cmul(v, w[((p * q) % r) * root_step]));
     }
-    out[i] = cmul(acc, w[j * p * step]);
+    out[i] = kTransposed ? acc : cmul(acc, w[j * p * step]);
   }
   __syncthreads();
 #pragma unroll
@@ -295,16 +349,39 @@ __device__ __forceinline__ void stage_outputs(float2* s, const float2* w, int C,
   __syncthreads();
 }
 
+template <bool kTransposed = false>
 __device__ __forceinline__ void run_stage(float2* s, const float2* w, int C,
                                           int Ls, int r, int threads) {
   switch (r) {
-    case 16: stage_butterflies<16>(s, w, C, Ls, threads); break;
-    case 8: stage_butterflies<8>(s, w, C, Ls, threads); break;
-    case 5: stage_butterflies<5>(s, w, C, Ls, threads); break;
-    case 4: stage_butterflies<4>(s, w, C, Ls, threads); break;
-    case 3: stage_butterflies<3>(s, w, C, Ls, threads); break;
-    case 2: stage_butterflies<2>(s, w, C, Ls, threads); break;
-    default: stage_outputs(s, w, C, Ls, r); break;
+    case 16: stage_butterflies<16, kTransposed>(s, w, C, Ls, threads); break;
+    case 8: stage_butterflies<8, kTransposed>(s, w, C, Ls, threads); break;
+    case 5: stage_butterflies<5, kTransposed>(s, w, C, Ls, threads); break;
+    case 4: stage_butterflies<4, kTransposed>(s, w, C, Ls, threads); break;
+    case 3: stage_butterflies<3, kTransposed>(s, w, C, Ls, threads); break;
+    case 2: stage_butterflies<2, kTransposed>(s, w, C, Ls, threads); break;
+    default: stage_outputs<kTransposed>(s, w, C, Ls, r); break;
+  }
+}
+
+// k2 of the C-point stages' output at position pos (they leave it digit-
+// reversed): pos = sum_i p_i M_i  ->  k2 = sum_i p_i R_1 .. R_(i-1)
+template <int C_, int R1, int R2, int R3, int R4>
+__device__ __forceinline__ int digit_reversed(int pos, const StagePlan& plan, int C) {
+  if constexpr (C_ > 0) {
+    constexpr int M1 = C_ / R1, M2 = M1 / R2, M3 = M2 / R3;
+    const int p1 = pos / M1, r1 = pos % M1;
+    const int p2 = r1 / M2, r2 = r1 % M2;
+    const int p3 = r2 / M3, p4 = r2 % M3;
+    return p1 + R1 * (p2 + R2 * (p3 + R3 * p4));
+  } else {
+    int k2 = 0, rem = pos, M = C, weight = 1;
+    for (int i = 0; i < plan.n; ++i) {
+      M /= plan.radix[i];
+      k2 += (rem / M) * weight;
+      rem %= M;
+      weight *= plan.radix[i];
+    }
+    return k2;
   }
 }
 
@@ -447,8 +524,7 @@ __device__ __forceinline__ void fft_axis2_block(
   cluster.sync();  // also keeps every slab alive until its readers are done
 
   // 3. the C-point DFT of row k1, in place; 4. X[k1 + B*k2], with k2 read
-  // off the digits of the position: pos = sum_i p_i M_i  ->  k2 = sum_i p_i
-  // R_1 .. R_(i-1)
+  // off the digits of the position
   if constexpr (C_ > 0) {
     stage_butterflies<R1>(slab, w, C_, C_, THREADS);
     if constexpr (R2 > 1) stage_butterflies<R2>(slab, w, C_, C_ / R1, THREADS);
@@ -466,22 +542,7 @@ __device__ __forceinline__ void fft_axis2_block(
     const int pos = it / kCols;
     const int l = l0 + col;
     if (l >= L) continue;
-    int k2 = 0;
-    if constexpr (C_ > 0) {
-      constexpr int M1 = C_ / R1, M2 = M1 / R2, M3 = M2 / R3;
-      const int p1 = pos / M1, r1 = pos % M1;
-      const int p2 = r1 / M2, r2 = r1 % M2;
-      const int p3 = r2 / M3, p4 = r2 % M3;
-      k2 = p1 + R1 * (p2 + R2 * (p3 + R3 * p4));
-    } else {
-      int rem = pos, M = C, weight = 1;
-      for (int i = 0; i < plan.n; ++i) {
-        M /= plan.radix[i];
-        k2 += (rem / M) * weight;
-        rem %= M;
-        weight *= plan.radix[i];
-      }
-    }
+    const int k2 = digit_reversed<C_, R1, R2, R3, R4>(pos, plan, C);
     const float2 v = slab[slot(pos) * kCols + col];
     const long long off = base + static_cast<long long>(k1 + B * k2) * L + l;
     if constexpr (MODE == kCentredCols) {
@@ -596,6 +657,325 @@ int make_plan(int Z, int B, int C, int L, const int* radices, int n_stages,
   return 0;
 }
 
+// ---- Ff (see the head of this file) ----------------------------------------
+
+// pair l of the launch: its row 2j's index z*A + 2j, and whether row 2j + 1
+// exists (an odd A's last row pairs with zeros)
+__device__ __forceinline__ long long pair_row(int l, int npairs, int A, bool& has_im) {
+  const int z = l / npairs, j = l - z * npairs;
+  has_im = 2 * j + 1 < A;
+  return static_cast<long long>(z) * A + 2 * j;
+}
+
+// Ff's load: the slab n1 = k1 of pairs l0 .. l0 + 7, position k1*C + n2 of
+// the width-ow grid read as x[clamp(k1*C + n2 - pad_m, 0, raw - 1)] from
+// rows 2j (re) and 2j + 1 (im).  vec: runs of 4 positions by 16-byte loads,
+// 8 pairs x 4 runs a warp (each run is wholly inside the row or wholly on
+// one clamped side of it, by the entry's checks); else one float a thread
+// item, 8 pairs x 4 positions a warp.
+__device__ __forceinline__ void load_rows(const float* __restrict__ x, float2* slab,
+                                          int k1, int C, int l0, int L, int npairs,
+                                          int A, int raw, int pad_m, bool vec,
+                                          int threads) {
+  if (vec) {
+    for (int it = threadIdx.x; it < C / 4 * kCols; it += threads) {
+      const int col = it % kCols;
+      const int n2 = it / kCols * 4;
+      const int l = l0 + col;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (l < L) {
+        bool has_im;
+        const float* re = x + pair_row(l, npairs, A, has_im) * raw;
+        const int q = k1 * C + n2 - pad_m;
+        if (q >= 0 && q < raw) {
+          a = *reinterpret_cast<const float4*>(re + q);
+          if (has_im) b = *reinterpret_cast<const float4*>(re + raw + q);
+        } else {
+          const int e = q < 0 ? 0 : raw - 1;
+          a = make_float4(re[e], re[e], re[e], re[e]);
+          if (has_im) b = make_float4(re[raw + e], re[raw + e], re[raw + e], re[raw + e]);
+        }
+      }
+      slab[slot(n2) * kCols + col] = make_float2(a.x, b.x);
+      slab[slot(n2 + 1) * kCols + col] = make_float2(a.y, b.y);
+      slab[slot(n2 + 2) * kCols + col] = make_float2(a.z, b.z);
+      slab[slot(n2 + 3) * kCols + col] = make_float2(a.w, b.w);
+    }
+  } else {
+    const int runs = (C + 3) / 4;
+    for (int it = threadIdx.x; it < runs * 4 * kCols; it += threads) {
+      const int n2 = it / (4 * kCols) * 4 + it % 4;
+      const int col = it / 4 % kCols;
+      if (n2 >= C) continue;
+      const int l = l0 + col;
+      float2 v = make_float2(0.f, 0.f);
+      if (l < L) {
+        bool has_im;
+        const float* re = x + pair_row(l, npairs, A, has_im) * raw;
+        const int q = min(max(k1 * C + n2 - pad_m, 0), raw - 1);
+        v = make_float2(re[q], has_im ? re[raw + q] : 0.f);
+      }
+      slab[slot(n2) * kCols + col] = v;
+    }
+  }
+}
+
+// Ff's store: block m1 holds grid positions m1*C + m2 in natural order, in
+// the inverse's swapped frame; those in the crop go to column
+// m1*C + m2 - unpad_m, the im part to row 2j and the re part to row 2j + 1
+// where it exists.  vec: runs of 4 by 16-byte stores (each run wholly
+// inside or outside the crop), else one float a thread item.
+__device__ __forceinline__ void store_rows(float* __restrict__ out, const float2* slab,
+                                           int m1, int C, int l0, int L, int npairs,
+                                           int A, int unpad_m, int width, bool vec,
+                                           int threads) {
+  if (vec) {
+    for (int it = threadIdx.x; it < C / 4 * kCols; it += threads) {
+      const int col = it % kCols;
+      const int n2 = it / kCols * 4;
+      const int l = l0 + col;
+      const int o = m1 * C + n2 - unpad_m;
+      if (l >= L || o < 0 || o >= width) continue;
+      const float2 v0 = slab[slot(n2) * kCols + col], v1 = slab[slot(n2 + 1) * kCols + col];
+      const float2 v2 = slab[slot(n2 + 2) * kCols + col], v3 = slab[slot(n2 + 3) * kCols + col];
+      bool has_im;
+      float* dst = out + pair_row(l, npairs, A, has_im) * width + o;
+      *reinterpret_cast<float4*>(dst) = make_float4(v0.y, v1.y, v2.y, v3.y);
+      if (has_im) *reinterpret_cast<float4*>(dst + width) = make_float4(v0.x, v1.x, v2.x, v3.x);
+    }
+  } else {
+    const int runs = (C + 3) / 4;
+    for (int it = threadIdx.x; it < runs * 4 * kCols; it += threads) {
+      const int n2 = it / (4 * kCols) * 4 + it % 4;
+      const int col = it / 4 % kCols;
+      const int l = l0 + col;
+      const int o = m1 * C + n2 - unpad_m;
+      if (n2 >= C || l >= L || o < 0 || o >= width) continue;
+      const float2 v = slab[slot(n2) * kCols + col];
+      bool has_im;
+      float* dst = out + pair_row(l, npairs, A, has_im) * width + o;
+      dst[0] = v.y;
+      if (has_im) dst[width] = v.x;
+    }
+  }
+}
+
+// X'[k] = X[k] * filt[k] (the 1/ow folded into the table), stored swapped:
+// the inverse runs as the forward transform in that frame
+__device__ __forceinline__ float2 filter_swap(float2 v, const float2* __restrict__ filt,
+                                              int k) {
+  const float2 y = cmul(v, __ldg(&filt[k]));
+  return make_float2(y.y, y.x);
+}
+
+// Ff's turn from the forward to the inverse transform: the last forward
+// stage (radix R, M = 1, so no twiddle), the filter multiply at
+// X[k1 + B*k2], the swap, and the first stage of the transposed network
+// (again M = 1), all in one thread's registers: the last forward stage and
+// its transpose touch the same R positions, so no barrier and no shared-
+// memory round trip lie between them.
+template <int C_, int R1, int R2, int R3, int R4, int R>
+__device__ __forceinline__ void filter_butterflies(float2* s, const float2* __restrict__ filt,
+                                                   int k1, int B, int C,
+                                                   const StagePlan& plan, int threads) {
+  const int n_butterflies = C / R * kCols;
+  for (int b = threadIdx.x; b < n_butterflies; b += threads) {
+    const int col = b % kCols;
+    const int base = b / kCols * R;
+    float2 x[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) x[q] = s[slot(base + q) * kCols + col];
+    Dft<R>::run(x);
+#pragma unroll
+    for (int p = 0; p < R; ++p)
+      x[p] = filter_swap(x[p], filt,
+                         k1 + B * digit_reversed<C_, R1, R2, R3, R4>(base + p, plan, C));
+    Dft<R>::run(x);
+#pragma unroll
+    for (int q = 0; q < R; ++q) s[slot(base + q) * kCols + col] = x[q];
+  }
+  __syncthreads();
+}
+
+// The same turn for a run-time plan: fused where the last radix has a
+// register butterfly; else the last stage, the multiply as a pass of its
+// own, and the transposed last stage.
+__device__ __forceinline__ void filter_turn(float2* s, const float2* w,
+                                            const float2* __restrict__ filt, int k1, int B,
+                                            int C, const StagePlan& plan, int threads) {
+  const int r = plan.radix[plan.n - 1];
+  switch (r) {
+    case 16: filter_butterflies<0, 1, 1, 1, 1, 16>(s, filt, k1, B, C, plan, threads); return;
+    case 8: filter_butterflies<0, 1, 1, 1, 1, 8>(s, filt, k1, B, C, plan, threads); return;
+    case 5: filter_butterflies<0, 1, 1, 1, 1, 5>(s, filt, k1, B, C, plan, threads); return;
+    case 4: filter_butterflies<0, 1, 1, 1, 1, 4>(s, filt, k1, B, C, plan, threads); return;
+    case 3: filter_butterflies<0, 1, 1, 1, 1, 3>(s, filt, k1, B, C, plan, threads); return;
+    case 2: filter_butterflies<0, 1, 1, 1, 1, 2>(s, filt, k1, B, C, plan, threads); return;
+    default: break;
+  }
+  stage_outputs<false>(s, w, C, r, r);
+  for (int it = threadIdx.x; it < C * kCols; it += threads) {
+    const int pos = it / kCols;
+    float2& v = s[slot(pos) * kCols + it % kCols];
+    v = filter_swap(v, filt, k1 + B * digit_reversed<0, 1, 1, 1, 1>(pos, plan, C));
+  }
+  __syncthreads();
+  stage_outputs<true>(s, w, C, r, r);
+}
+
+// The inverse's B step, the transpose of b_step: block m1 of the cluster
+// gets sum_k1 DFT_B[m1, k1] * T[k1, m2] * slab k1 [m2], for the m1 in
+// [m_lo, m_hi] only (the blocks that hold part of the crop).
+template <int B>
+__device__ __forceinline__ void b_step_inverse(cg::cluster_group& cluster, float2* slab,
+                                               const float2* wb,
+                                               const float2* __restrict__ t_table, int C,
+                                               int threads, int m_lo, int m_hi) {
+  float2* remote[B];
+#pragma unroll
+  for (int n1 = 0; n1 < B; ++n1) remote[n1] = cluster.map_shared_rank(slab, n1);
+  const int chunk = (C + B - 1) / B;
+  const int first = static_cast<int>(cluster.block_rank()) * chunk;
+  for (int it = threadIdx.x; it < chunk * kCols; it += threads) {
+    const int m2 = first + it / kCols;
+    if (m2 >= C) continue;
+    const int idx = slot(m2) * kCols + it % kCols;
+    float2 x[B];
+    x[0] = remote[0][idx];
+#pragma unroll
+    for (int k1 = 1; k1 < B; ++k1) x[k1] = cmul(remote[k1][idx], t_table[k1 * C + m2]);
+#pragma unroll
+    for (int m1 = 0; m1 < B; ++m1) {
+      if (m1 < m_lo || m1 > m_hi) continue;
+      float2 y = x[0];
+#pragma unroll
+      for (int k1 = 1; k1 < B; ++k1) y = cadd(y, cmul(x[k1], wb[m1 * B + k1]));
+      remote[m1][idx] = y;
+    }
+  }
+}
+
+template <int B>
+__device__ __forceinline__ void b_steps(cg::cluster_group& cluster, float2* slab,
+                                        const float2* wb, const float2* __restrict__ t_table,
+                                        int C, int threads, bool inverse, int m_lo,
+                                        int m_hi) {
+  if (inverse)
+    b_step_inverse<B>(cluster, slab, wb, t_table, C, threads, m_lo, m_hi);
+  else
+    b_step<B>(cluster, slab, wb, t_table, C, threads);
+}
+
+__device__ __forceinline__ void b_step_any(cg::cluster_group& cluster, float2* slab,
+                                           const float2* wb, const float2* __restrict__ t_table,
+                                           int B, int C, int threads, bool inverse, int m_lo,
+                                           int m_hi) {
+  switch (B) {
+    case 2: b_steps<2>(cluster, slab, wb, t_table, C, threads, inverse, m_lo, m_hi); break;
+    case 3: b_steps<3>(cluster, slab, wb, t_table, C, threads, inverse, m_lo, m_hi); break;
+    case 4: b_steps<4>(cluster, slab, wb, t_table, C, threads, inverse, m_lo, m_hi); break;
+    case 5: b_steps<5>(cluster, slab, wb, t_table, C, threads, inverse, m_lo, m_hi); break;
+    case 6: b_steps<6>(cluster, slab, wb, t_table, C, threads, inverse, m_lo, m_hi); break;
+    case 7: b_steps<7>(cluster, slab, wb, t_table, C, threads, inverse, m_lo, m_hi); break;
+    default: b_steps<8>(cluster, slab, wb, t_table, C, threads, inverse, m_lo, m_hi); break;
+  }
+}
+
+// Ff's block: C_ > 0 the compile-time plan C_ = R1*R2*R3; C_ == 0: C and the
+// radices come from `plan`.
+template <int C_, int R1, int R2, int R3, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+fft_axis2_filter_kernel(const float* __restrict__ x, float* __restrict__ out,
+                        const float2* __restrict__ tables, const float2* __restrict__ filt,
+                        int A, int raw, int B, int C_arg, StagePlan plan, int pad_m,
+                        int unpad_m, int width, int L, bool vec) {
+  extern __shared__ __align__(16) float2 f_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = C_ > 0 ? C_ : C_arg;
+  float2* w = f_smem;                // roots w_C^j, C of them
+  float2* wb = w + C;                // DFT_B, kMaxB * kMaxB slots
+  float2* slab = wb + kMaxB * kMaxB; // (C rounded up to even) * kCols
+  const float2* g_wb = tables;       // DFT_B (B, B)
+  const float2* g_t = g_wb + B * B;  // T (B, C)
+  const float2* g_w = g_t + B * C;   // roots (C)
+
+  const int k1 = static_cast<int>(cluster.block_rank());  // blockIdx.x % B
+  const int l0 = static_cast<int>(blockIdx.x / B) * kCols;
+  const int npairs = (A + 1) / 2;
+  const int m_lo = unpad_m / C, m_hi = (unpad_m + width - 1) / C;
+  for (int j = threadIdx.x; j < C; j += THREADS) w[j] = g_w[j];
+  for (int j = threadIdx.x; j < B * B; j += THREADS) wb[j] = g_wb[j];
+
+  // 1. the slab n1 = k1 of the padded rows; 2. the B step
+  load_rows(x, slab, k1, C, l0, L, npairs, A, raw, pad_m, vec, THREADS);
+  cluster.sync();
+  b_step_any(cluster, slab, wb, g_t, B, C, THREADS, false, 0, 0);
+  cluster.sync();
+
+  // 3. the forward C-point stages, the filter turn inside the last, the
+  // transposed stages in the other order: slab k1 then holds, at position
+  // m2, sum_k2 swap(X'[k1 + B*k2]) e^(-2i pi k2 m2 / C)
+  if constexpr (C_ > 0) {
+    static_assert(R1 > 1 && R2 > 1 && R3 > 1, "the compile-time plans have three stages");
+    stage_butterflies<R1>(slab, w, C_, C_, THREADS);
+    stage_butterflies<R2>(slab, w, C_, C_ / R1, THREADS);
+    filter_butterflies<C_, R1, R2, R3, 1, R3>(slab, filt, k1, B, C_, plan, THREADS);
+    stage_butterflies<R2, true>(slab, w, C_, C_ / R1, THREADS);
+    stage_butterflies<R1, true>(slab, w, C_, C_, THREADS);
+  } else {
+    int Ls = C;
+    for (int i = 0; i < plan.n - 1; ++i) {
+      run_stage<false>(slab, w, C, Ls, plan.radix[i], THREADS);
+      Ls /= plan.radix[i];
+    }
+    filter_turn(slab, w, filt, k1, B, C, plan, THREADS);
+    for (int i = plan.n - 2; i >= 0; --i) {
+      Ls *= plan.radix[i];
+      run_stage<true>(slab, w, C, Ls, plan.radix[i], THREADS);
+    }
+  }
+  cluster.sync();
+
+  // 4. the inverse B step into the blocks that hold part of the crop;
+  // 5. their store
+  b_step_any(cluster, slab, wb, g_t, B, C, THREADS, true, m_lo, m_hi);
+  cluster.sync();  // also keeps every slab alive until its readers are done
+  if (k1 < m_lo || k1 > m_hi) return;
+  store_rows(out, slab, k1, C, l0, L, npairs, A, unpad_m, width, vec, THREADS);
+}
+
+template <int C_, int R1, int R2, int R3, int THREADS>
+int launch_filter(const float* x, float* out, const float* tables, const float* filt,
+                  int A, int raw, int B, int C, const StagePlan& plan, int pad_m,
+                  int unpad_m, int width, int L, bool vec, cudaStream_t stream) {
+  const long long blocks = static_cast<long long>((L + kCols - 1) / kCols) * B;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      sizeof(float2) * (C + kMaxB * kMaxB + static_cast<size_t>((C + 1) & ~1) * kCols);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(blocks));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;  // the B blocks of a tile
+  attr[0].val.clusterDim.x = B;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  auto kernel = fft_axis2_filter_kernel<C_, R1, R2, R3, THREADS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&cfg, kernel, x, out, reinterpret_cast<const float2*>(tables),
+                           reinterpret_cast<const float2*>(filt), A, raw, B, C, plan, pad_m,
+                           unpad_m, width, L, vec);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // radices: n_stages host ints whose product is C (the wrapper's stage plan)
@@ -628,4 +1008,32 @@ extern "C" int tt_fft_axis2_centred(const float* re, const float* im, float* ore
     return static_cast<int>(cudaErrorMisalignedAddress);
   return dispatch<kCentredCols>(re, im, ore, oim, tables, centre, scale, Z, B, C, plan, L,
                                 stream);
+}
+
+// Ff (see the head of this file): x (Z, A, raw) rows to out (Z, A, width);
+// tables as F's for n = B*C, filt B*C float32 (re, im) pairs.
+extern "C" int tt_fft_axis2_filter(const float* x, float* out, const float* tables,
+                                   const float* filt, int Z, int A, int raw, int B, int C,
+                                   int pad_m, int unpad_m, int width, const int* radices,
+                                   int n_stages, cudaStream_t stream) {
+  StagePlan plan;
+  const int err = make_plan(Z, B, C, A, radices, n_stages, &plan);
+  if (err != 0) return err;
+  const long long L = static_cast<long long>(Z) * ((A + 1) / 2);
+  if (A < 1 || raw < 1 || width < 1 || unpad_m < 0 || unpad_m + width > B * C ||
+      L > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const std::uintptr_t addresses =
+      reinterpret_cast<std::uintptr_t>(x) | reinterpret_cast<std::uintptr_t>(out);
+  const bool vec = C % 4 == 0 && raw % 4 == 0 && pad_m % 4 == 0 && unpad_m % 4 == 0 &&
+                   width % 4 == 0 && addresses % 16 == 0;
+  const int n = static_cast<int>(L);
+  if (C == 1024 && plan_is(plan, 16, 8, 8))
+    return launch_filter<1024, 16, 8, 8, 256>(x, out, tables, filt, A, raw, B, C, plan, pad_m,
+                                              unpad_m, width, n, vec, stream);
+  if (C == 640 && plan_is(plan, 5, 16, 8))
+    return launch_filter<640, 5, 16, 8, 320>(x, out, tables, filt, A, raw, B, C, plan, pad_m,
+                                             unpad_m, width, n, vec, stream);
+  return launch_filter<0, 1, 1, 1, kPlanThreads>(x, out, tables, filt, A, raw, B, C, plan,
+                                                 pad_m, unpad_m, width, n, vec, stream);
 }

@@ -28,6 +28,16 @@ element (i, j) by ``c(i) c(j)``, c from :func:`centred_factors`, the
 second its output (m, k) by ``(-1)^(m+k) / (2n)^2``.  Its plain version is
 the chain of passes ``usfft._ifft2_chain``; ``usfft._ifft2_centered``
 routes CUDA tensors here, and Fc takes CUDA tensors only.
+
+:func:`filter_rows` (Ff) is the filter variant of the same kernel:
+FOURIER_INV's whole filter stage in one launch, from the raw rows to the
+cropped filtered rows.  Rows are paired into (re, im) as
+``apply_freq_filter_real`` pairs them, the edge pad is a clamped index on
+the load, the forward transform, the filter multiply (with the 1/ow
+scale), the inverse transform and the crop all happen inside one cluster,
+and the pair is split on the store.  Its plain version is
+``usfft._fbp_filter_plain``; ``usfft._fbp_filter_stage`` routes CUDA
+tensors here, and Ff takes CUDA tensors only.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ __all__ = [
     "fft_axis2_plain",
     "centred_factors",
     "ifft2_centred",
+    "filter_rows",
 ]
 
 MAX_C = 1024  # largest C-point transform (the JAX package's _MAX_MATMUL_N)
@@ -250,4 +261,44 @@ def ifft2_centred(re: torch.Tensor, im: torch.Tensor, half_pixel_shift: bool = T
     _centred_pass(1, src, mid, half_pixel_shift)
     out = (torch.empty_like(src[0]), torch.empty_like(src[1]))
     _centred_pass(2, mid, out, half_pixel_shift)
+    return out
+
+
+def filter_rows(data: torch.Tensor, table, ow: int, pad_m: int, unpad_m: int, width: int):
+    """Ff: FOURIER_INV's filter stage on (Z, A, raw) rows in one launch,
+    ow = B*C from :func:`best_split` with 1 < B <= 8 and C <= 1024.  Row
+    2j and 2j+1 of a slice are one (re, im) pair (an odd A's last row pairs
+    with zeros); position p of the width-ow grid holds ``data[...,
+    clamp(p - pad_m, 0, raw - 1)]``; the transform along the grid is
+    multiplied by ``table`` (ow float32 (re, im) pairs, the 1/ow of the
+    inverse folded in), transformed back, and positions ``unpad_m ..
+    unpad_m + width - 1`` are returned, (Z, A, width) float32."""
+    if data.device.type not in ("cuda", "meta"):
+        raise ValueError(f"Ff: a tensor on {data.device}; the kernel takes CUDA tensors")
+    if data.dtype != torch.float32 or data.dim() != 3:
+        raise ValueError(f"Ff: expected (Z, A, raw) float32, got {data.dtype} {tuple(data.shape)}")
+    B, C = best_split(ow)
+    if not (1 < B <= MAX_B and C <= MAX_C):
+        raise ValueError(f"Ff: ow = {ow} splits as B={B}, C={C}; the kernel takes 1 < B <= {MAX_B}, C <= {MAX_C}")
+    Z, A, raw = data.shape
+    if raw < 1 or width < 1 or unpad_m < 0 or unpad_m + width > ow:
+        raise ValueError(f"Ff: raw width {raw}, crop [{unpad_m}, {unpad_m + width}) of {ow}")
+    out = torch.empty((Z, A, width), dtype=torch.float32, device=data.device)
+    if out.is_meta:  # a memory plan: the output, no launch
+        return out
+    if table.device != data.device or table.dtype != torch.float32 or table.numel() != 2 * ow:
+        raise ValueError(f"Ff: the filter table must be {2 * ow} float32 on {data.device}")
+    data = data.contiguous()
+    tables = _device_tables(ow, B, C, data.device)
+    plan = stage_plan(C)
+    radices = (ctypes.c_int * len(plan))(*plan)
+    lib = _build.library()
+    with torch.cuda.device(data.device):
+        err = lib.tt_fft_axis2_filter(
+            data.data_ptr(), out.data_ptr(), tables.data_ptr(), table.data_ptr(), Z, A, raw,
+            B, C, pad_m, unpad_m, width, radices, len(plan),
+            torch.cuda.current_stream(data.device).cuda_stream,
+        )
+    _build.check("Ff", err)
+    trace.count("Ff")
     return out

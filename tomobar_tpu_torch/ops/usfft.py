@@ -3,14 +3,15 @@ tensors.
 
 Counterpart of ``tomobar_tpu/ops/usfft.py`` (reference ``FOURIER_INV``,
 Nikitin's method adapted from TomoCuPy): FBP-filter the sinogram on an
-oversampled grid, pack two real z-slices into one (re, im) pair, 1-D FFT
-along detX, spread each polar frequency sample onto a 2n x 2n Cartesian
-grid with a Gaussian kernel (the G kernel), 2-D inverse FFT (the F kernel
-along axis -2, twice), then crop and multiply by the deconvolution factor
-phi.  The pipeline keeps the JAX package's split (re, im) pairs, its
-sign-flip fftshifts and its half-pixel shift, so every stage lines up with
-the JAX one.  What runs where follows the tensor's device: a CUDA tensor
-runs the kernels, a CPU tensor their plain versions.  ``set_usfft_backend``
+oversampled grid (the Ff kernel, F's filter variant), pack two real
+z-slices into one (re, im) pair, 1-D FFT along detX, spread each polar
+frequency sample onto a 2n x 2n Cartesian grid with a Gaussian kernel (the
+G kernel), 2-D inverse FFT (Fc, F's centred variant), then crop and
+multiply by the deconvolution factor phi.  The pipeline keeps the JAX
+package's split (re, im) pairs, its sign-flip fftshifts and its
+half-pixel shift, so every stage lines up with the JAX one.  What runs
+where follows the tensor's device: a CUDA tensor runs the kernels, a CPU
+tensor their plain versions.  ``set_usfft_backend``
 and the ``TOMOBAR_TPU_USFFT`` environment variable take the JAX package's
 names ("auto", "pallas", "xla") so that user code switches packages
 unchanged, but the port grids the same way under each: with the G kernel
@@ -34,8 +35,14 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from tomobar_tpu_torch.ops.fft_kernels import ifft2_centred
-from tomobar_tpu_torch.ops.fft_real import _fft_axis2, apply_freq_filter_real, fft_pairs, runs_f
+from tomobar_tpu_torch.ops.fft_kernels import filter_rows, ifft2_centred
+from tomobar_tpu_torch.ops.fft_real import (
+    _fft_axis2,
+    apply_freq_filter_real,
+    fft_pairs,
+    runs_f,
+    use_fused_axis2,
+)
 from tomobar_tpu_torch.ops.filters import calc_filter_np
 from tomobar_tpu_torch.ops.usfft_kernels import grid
 from tomobar_tpu_torch.trace import span
@@ -95,6 +102,21 @@ def _oversampled_width(
     return max(int(oversampling_level * raw_width), width)
 
 
+def _filter_window(ow: int, raw_width: int, width: int) -> Tuple[int, int, int]:
+    """The edge pad's left width and the crop [unpad_m, unpad_p) of the
+    filter stage on its oversampled grid."""
+    return ow // 2 - raw_width // 2, ow // 2 - width // 2, ow // 2 + width // 2
+
+
+@lru_cache(maxsize=16)
+def _device_filter(ow: int, filter_type: str, cutoff: float, rotation_axis: float, device):
+    """Ff's filter table on ``device``: :func:`_filter_spectrum` times the
+    1/ow scale of the inverse transform, float32 (re, im) pairs."""
+    w_re, w_im = _filter_spectrum(ow, filter_type, cutoff, rotation_axis)
+    pairs = np.stack([w_re, w_im], axis=1).astype(np.float64) / ow
+    return torch.as_tensor(pairs.astype(np.float32).ravel(), device=device)
+
+
 def _fbp_filter_stage(
     data: torch.Tensor,
     raw_width: int,
@@ -108,12 +130,32 @@ def _fbp_filter_stage(
     """STEP0: filter rows on an oversampled grid, return width ``width``
     (``_fbp_filtering``, ``methodsDIR_CuPy.py:449-545``): edge-pad to the
     oversampled width, multiply the spectrum by ``calc_filter`` x the CoR
-    phase ramp, inverse transform and crop the centred ``width`` window."""
+    phase ramp, inverse transform and crop the centred ``width`` window.
+    On a CUDA tensor, where the oversampled width splits as F's transforms
+    do (``use_fused_axis2``), the whole stage is one launch of Ff
+    (``fft_kernels.filter_rows``); elsewhere it is :func:`_fbp_filter_plain`."""
     ow = _oversampled_width(raw_width, width, power_of_2_oversampling, oversampling_level)
-    pad_m = ow // 2 - raw_width // 2
-    unpad_m = ow // 2 - width // 2
-    unpad_p = ow // 2 + width // 2
+    if data.device.type in ("cuda", "meta") and use_fused_axis2(ow):
+        pad_m, unpad_m, unpad_p = _filter_window(ow, raw_width, width)
+        table = None if data.is_meta else _device_filter(
+            ow, filter_type, cutoff, rotation_axis, data.device)
+        return filter_rows(data, table, ow, pad_m, unpad_m, unpad_p - unpad_m)
+    return _fbp_filter_plain(data, ow, raw_width, width, filter_type, cutoff, rotation_axis)
 
+
+def _fbp_filter_plain(
+    data: torch.Tensor,
+    ow: int,
+    raw_width: int,
+    width: int,
+    filter_type: str,
+    cutoff: float,
+    rotation_axis: float,
+) -> torch.Tensor:
+    """:func:`_fbp_filter_stage` on a width-``ow`` grid as a chain of
+    passes, Ff's plain version: the edge pad, ``apply_freq_filter_real``
+    (F twice on a CUDA tensor where ``use_fused_axis2(ow)``), the crop."""
+    pad_m, unpad_m, unpad_p = _filter_window(ow, raw_width, width)
     w_re, w_im = (
         torch.as_tensor(w, device=data.device)
         for w in _filter_spectrum(ow, filter_type, cutoff, rotation_axis)
@@ -258,8 +300,8 @@ def _unpad_mul_phi(
 def fourier_inv_pair_bytes(n: int) -> int:
     """Bytes that the chunk count plans for per z-pair: 4 grid-sized
     float32 (re, im) buffer pairs of (2n)^2.  On a CUDA tensor the ifft2
-    stage (the centred F) holds 3 such pairs at its peak, and with many
-    angles the filter stage peaks instead, within 25% of the plan;
+    stage (the centred F) holds 3 such pairs at its peak, and it peaks at
+    every shape since the filter stage (Ff) holds only its output;
     ``utils/memest.py`` replays both and its tests hold the plan to them."""
     return 4 * 2 * (2 * n) * (2 * n) * 4
 

@@ -69,7 +69,8 @@ MAX_SPANS = 1 << 17
 _API = "tomobar::api."
 
 #: launches by kernel name; each kernel wrapper counts one where it launches
-launches = dict.fromkeys(("K1", "K1p", "K2", "K3", "K4", "K4p", "PD", "PDw", "G", "F", "Fc"), 0)
+launches = dict.fromkeys(
+    ("K1", "K1p", "K2", "K3", "K4", "K4p", "PD", "PDw", "G", "F", "Fc", "Ff"), 0)
 #: misses (builds) and hits of ``_DrivenPlan.group``'s cache of parameters;
 #: block-rows that PDw launches sweep and keep
 counters = {"projector.plan_builds": 0, "projector.plan_hits": 0, "pdw.rows_launched": 0,

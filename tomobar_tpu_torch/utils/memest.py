@@ -247,11 +247,17 @@ def _sign_vector(r: _Replay, n: int) -> int:
 
 
 def _filter_stage(r: _Replay, p, bz: int) -> int:
-    """``_fbp_filter_stage`` with ``apply_freq_filter_real`` on ``bz``
-    slices; returns the storage that ``filtered`` views."""
+    """``_fbp_filter_stage`` on ``bz`` slices; returns the storage that
+    ``filtered`` views.  On a CUDA device where ``use_fused_axis2(ow)``:
+    Ff, its output alone (its tables and filter are cached); elsewhere the
+    plain version, ``apply_freq_filter_real`` between the edge pad and the
+    crop."""
     from tomobar_tpu_torch.ops.fft_real import use_fused_axis2
 
     ow, A = p.ow, p.nproj
+    fused = use_fused_axis2(ow)
+    if r.cuda and fused:
+        return r.new(F32 * bz * A * 2 * (p.n // 2))
     # the filter spectrum: a copy on CUDA, numpy's memory on the CPU
     w = [r.new(F32 * ow) for _ in range(2)] if r.cuda else []
     tmp = r.new(F32 * bz * A * ow)  # the edge pad
@@ -259,12 +265,11 @@ def _filter_stage(r: _Replay, p, bz: int) -> int:
     stacked = F32 * bz * (A + odd) * ow
     half = stacked // 2
     x2 = r.new(stacked) if odd else 0
-    fused = use_fused_axis2(ow)
     # fused: the two transposed copies, both transforms along axis -2
     pair_t = [r.new(half), r.new(half)] if fused else []
-    fre, fim = _fft(r, half, r.cuda and fused, fused)
+    fre, fim = _fft(r, half, False, fused)
     gre, gim = _complex_mul(r, half), _complex_mul(r, half)
-    yre, yim = _fft(r, half, r.cuda and fused, fused)
+    yre, yim = _fft(r, half, False, fused)
     if fused:  # the 1/n scale, each after its transpose view
         s = r.new(half)
         r.free(yre)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the K1, K1p, K2, K3, K4, K4p, PD, F and G kernels of tomobar_tpu_torch at their flagship
+"""Time the K1, K1p, K2, K3, K4, K4p, PD, F, Ff and G kernels of tomobar_tpu_torch at their flagship
 shapes, for several source trees in one call, in turns, on one NVIDIA GPU.
 
 Two versions of a kernel can be compared only inside one call on one card,
@@ -50,7 +50,11 @@ its C entry, a route the wrapper does not take there; F at 4 x 5120 x 5120
 (``torch.fft`` with the complex pack and split) and ``torch.fft`` alone on
 an already complex tensor; ``ifft2``: FOURIER_INV's whole ifft2 stage
 (``usfft._ifft2_centered``) on 4 x 5120 x 5120 grids, the centred F (Fc)
-where the tree has it, the chain of passes around F before.  Times are means of CUDA-event timings in ms;
+where the tree has it, the chain of passes around F before; ``filter``:
+FOURIER_INV's filter stage (``usfft._fbp_filter_stage``) on one z-block of
+the benchmark's 512-row cell, 57 x 1801 x 2560 rows at ow 8192, F's filter
+variant (Ff) where the tree has it, beside its plain version (the edge pad,
+F twice, the crop), the plain version alone before.  Times are means of CUDA-event timings in ms;
 the first line of output is the card's name and power limit.
 """
 
@@ -278,6 +282,18 @@ def worker(repo: str, kernels) -> dict:
         im_ = torch.randn((4, 2 * N, 2 * N), generator=gen, device=dev)
         out[f"ifft2 stage 4x{2 * N}x{2 * N}"] = ms(lambda: US._ifft2_centered(re_, im_, N), 10)
         del re_, im_
+    if "filter" in kernels:  # FOURIER_INV's filter stage, whatever runs it
+        from tomobar_tpu_torch.ops import usfft as US
+
+        block = torch.rand((57, 1801, N), generator=gen, device=dev)
+        tag = f"57x1801x{N}"
+        out[f"filter stage {tag}"] = ms(
+            lambda: US._fbp_filter_stage(block, N, N, "shepp", 1.0, 0.5), 5)
+        if hasattr(US, "_fbp_filter_plain"):  # the trees that have Ff: its plain version
+            ow = US._oversampled_width(N, N, True, 4)
+            out[f"filter plain {tag}"] = ms(
+                lambda: US._fbp_filter_plain(block, ow, N, N, "shepp", 1.0, 0.5), 3)
+        del block
     return out
 
 
@@ -361,7 +377,7 @@ def main() -> int:
     ap.add_argument("--kernels", default="K1,K4,PD,F",
                     help="comma-separated: K1, K1p, K2, K3, K4 (with K4p), PD, PDw (PD on 20, 64 and "
                          "512 slices, 40 iterations on 20 x 2608^2), F, G, Gx (G's C entry with other tile orders, no compensation, "
-                         "fewer angles), ifft2 (FOURIER_INV's ifft2 stage)")
+                         "fewer angles), ifft2 (FOURIER_INV's ifft2 stage), filter (its filter stage)")
     ap.add_argument("--ptxas", metavar="SOURCE.cu",
                     help="first print each tree's register and spill report of csrc/SOURCE.cu")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
