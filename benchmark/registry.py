@@ -13,6 +13,28 @@
 
 So a later cell, configuration, traffic or metric is added by adding files
 and entries, and no file here is edited.
+
+An entry module defines ``call(config, traffic, chunk, device)`` (the
+timed entry point; it returns the call's answers), ``answer_count(out)``,
+``answer(out, j)`` and ``reference(config, traffic, chunk, ids, prec)``
+(plain PyTorch, answers ``ids`` of ``chunk``), and may define ``warmup``
+(set-up on a chunk: the call's shapes for less time) and ``local``.
+
+On a cell whose ``chips`` N is over 1 (``run.py``'s world, one process a
+card) every rank imports the entry and makes the same calls:
+
+* rank r's ``device`` is ``cuda:r`` (the current device), and the default
+  ``torch.distributed`` process group (NCCL) is already up;
+* ``local(config, traffic, chunk)``, where defined, is called once per
+  input chunk in set-up and returns what this rank keeps of it (a copy:
+  the whole chunk is freed), which its ``warmup`` and ``call`` then get;
+  without it every rank keeps the whole chunk;
+* rank 0's answer is the one counted and kept: the entry gathers the whole
+  answer there; the other ranks' answers are not read;
+* ``reference`` runs on every rank after the window, with the group up, on
+  the same whole chunk and ``ids``; rank 0's return is compared.  It may
+  spread its own plain work over the ranks with ``torch.distributed``, and
+  never calls the port.
 """
 
 from __future__ import annotations

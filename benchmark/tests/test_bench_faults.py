@@ -3,8 +3,9 @@
 with the timed path broken underneath, false.  Each
 cell gets the faults it can have: a step that returns its state unchanged,
 half of the batch left out (the mean of the rest in its place), an answer
-altered where it is produced.  (No cell spans chips, so none has an
-exchange between chips to leave out.)"""
+altered where it is produced.  (No cell spans chips yet; the exchange
+between chips left out is ``test_bench_world.py``'s, on a toy cell of 4
+ranks.)"""
 
 import pytest
 import torch
