@@ -6,7 +6,9 @@ Counterpart of ``tomobar_tpu/models/iterative.py`` (reference
 FISTA and ADMM with LS / PWLS / SWLS / KL fidelities, OSEM, ordered subsets,
 every prox that ``prox_regul`` serves, warm start, detector padding (with
 recon-grid enlargement and final crop) and circular masking.  2D data run
-as one slice (detY = 1) and return ``(1, N, N)``.
+as one slice (detY = 1) and return ``(1, N, N)``.  Given a ``mesh`` of
+ranks (:mod:`tomobar_tpu_torch.parallel`), one volume runs as z-slabs, a
+slab a rank.
 """
 
 from __future__ import annotations
@@ -56,6 +58,23 @@ class RecToolsIRTPU:
             ``torch.device("cuda", device_projector)``.  The CPU is used
             only when asked for (``device="cpu"``); asking for CUDA on a
             machine without it raises.
+        mesh: a :class:`~tomobar_tpu_torch.parallel.Mesh` of ranks
+            (``parallel.distributed_init`` and ``parallel.make_mesh``, made
+            once by the caller), or None for one device.  With it every
+            rank of the mesh makes the same reconstructor and the same
+            calls: ``DetectorsDimV`` is the whole volume's rows,
+            ``projection_data`` this rank's z-slab of the canonical
+            ``(detY, angles, detX)`` sinogram (``Mesh.z_slab``), the
+            projector a :class:`~tomobar_tpu_torch.parallel.ShardedProjector`,
+            the prox ``parallel.sharded_regul_fn``, the power method's start
+            this rank's slab of the whole volume's seeded draw, and every
+            method returns this rank's slab (``Atools.gather_vol(x, dst=0)``
+            joins the volume on one rank).  The device is the mesh's.  What
+            the mesh cannot serve (rows that do not split evenly over its z
+            axis, a prox of one slice only, data that is not the rank's
+            slab) raises ``ValueError`` naming the mesh, before any
+            collective.  On a z-only mesh the slabs equal one device's
+            result bit for bit where ``lipschitz_const`` is given.
     """
 
     @spanned("tomobar::api.init")
@@ -70,7 +89,13 @@ class RecToolsIRTPU:
         device_projector: int = 0,
         OS_number: Optional[int] = None,
         device: Union[str, torch.device, None] = None,
+        mesh=None,
     ):
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the device of {mesh!r}")
+            device = mesh.device
         if device is None:
             device = torch.device("cuda", device_projector)
         self.device = torch.device(device)
@@ -102,7 +127,16 @@ class RecToolsIRTPU:
             detectors_x_pad=int(DetectorsDimH_pad),
             os_number=self.OS_number,
         )
-        self.Atools = Projector(self._geometry)
+        if mesh is None:
+            self.Atools = Projector(self._geometry)
+        else:
+            from tomobar_tpu_torch.parallel.sharding import ShardedProjector
+
+            try:
+                self._slab = mesh.z_slab(int(DetectorsDimV))
+            except ValueError as e:
+                raise ValueError(f"DetectorsDimV on {mesh!r}: {e}") from None
+            self.Atools = ShardedProjector(self._geometry, mesh)
         self.data_fidelity = "LS"
         self.nonneg_regul = 0
         # L = ||A^T A|| depends only on the operator (geometry + OS; the
@@ -114,8 +148,11 @@ class RecToolsIRTPU:
 
     @property
     def vol_shape(self):
+        """The reconstruction's shape: ``(detY, N, N)``, on a mesh this
+        rank's slab of it."""
         g = self._geometry
-        return (g.detectors_y, g.recon_size, g.recon_size)
+        nz = g.detectors_y if self.mesh is None else self._slab[1] - self._slab[0]
+        return (nz, g.recon_size, g.recon_size)
 
     # -------------------------------------------------------------- helpers
 
@@ -127,11 +164,28 @@ class RecToolsIRTPU:
 
     def _prep_data(self, _data_, _algorithm_, _regularisation_, method_run):
         d, a, r = dicts_check(self, _data_, _algorithm_, _regularisation_, method_run)
+        if self.mesh is not None:
+            self._check_mesh(d, r, method_run)
         d["projection_data"] = apply_horiz_detector_padding(
             _to_device(d["projection_data"], self.device),
             self._geometry.detectors_x_pad,
         )
         return d, a, r
+
+    def _check_mesh(self, d: dict, r: Optional[dict], method_run: str) -> None:
+        """Raise, before any collective, what the mesh cannot serve: data
+        that is not this rank's slab, a prox of one slice only."""
+        rows = int(d["projection_data"].shape[0])
+        if rows != self.vol_shape[0]:
+            z0, z1 = self._slab
+            raise ValueError(
+                f"{method_run} on {self.mesh!r}: projection_data has {rows} rows, not this "
+                f"rank's slab [{z0}, {z1}) of the {self._geometry.detectors_y} rows")
+        if r is not None and r.get("method") is not None:
+            try:
+                self._regul_fn(r)
+            except ValueError as e:
+                raise ValueError(f"{method_run} on {self.mesh!r}: {e}") from None
 
     def _finalise(self, x, _algorithm_):
         if self.objsize_user_given is not None:
@@ -174,6 +228,10 @@ class RecToolsIRTPU:
     def _regul_fn(self, _regularisation_):
         if _regularisation_.get("method") is None:
             return None
+        if self.mesh is not None:
+            from tomobar_tpu_torch.parallel.sharding import sharded_regul_fn
+
+            return sharded_regul_fn(self.mesh, _regularisation_, bool(self.nonneg_regul))
         return lambda x: prox_regul(self, x, _regularisation_)
 
     # -------------------------------------------------------------- solvers

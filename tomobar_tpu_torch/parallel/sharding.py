@@ -49,6 +49,7 @@ from tomobar_tpu_torch.geometry import Geometry
 from tomobar_tpu_torch.ops.projector import _DrivenPlan, _Plan, _vshift_sino
 from tomobar_tpu_torch.ops.projector_kernels import _partition
 from tomobar_tpu_torch.parallel import comm
+from tomobar_tpu_torch.trace import count, span
 
 __all__ = [
     "Mesh",
@@ -210,7 +211,8 @@ def make_mesh(n_z: Optional[int] = None, n_angles: Optional[int] = None,
             f"{n_z} % {n_proc} != 0")
     if device is None and _STATE["device"] is not None:
         device = _STATE["device"]
-    return Mesh(n_z, n_angles, _rank_device(device))
+    with span("tomobar::parallel.mesh", n_z=n_z, n_angles=n_angles):
+        return Mesh(n_z, n_angles, _rank_device(device))
 
 
 class _GroupPlan:
@@ -368,7 +370,8 @@ class ShardedProjector:
         """The vertical-CoR shift of the whole sinogram, on this rank's slab
         widened by the shift's reach."""
         reach = int(math.ceil(float(np.max(np.abs(dz))))) + 1
-        return sharded_prox(self.mesh, lambda wide: _vshift_sino(wide, dz), reach)(sino)
+        wide, before = comm.z_halo(sino, self.mesh, reach, reach)
+        return _vshift_sino(wide, dz)[before : before + sino.shape[0]]
 
     def _post_fp(self, sino, plan: _ShardPlan):
         if plan.cor_vertical is None:
@@ -438,10 +441,15 @@ class ShardedProjector:
         sinogram, every angle, on the mesh's device."""
         return _slab(sino, self.mesh)
 
-    def gather_vol(self, x: torch.Tensor) -> torch.Tensor:
-        """The whole volume (or sinogram) from every rank's z-slab, on every
-        rank of the z group (for tests and checks)."""
-        return comm.all_gather(x, 0, self.mesh.z_group)
+    def gather_vol(self, x: torch.Tensor, dst: Optional[int] = None) -> Optional[torch.Tensor]:
+        """The whole volume (or sinogram) from every rank's z-slab: on every
+        rank of the z group (one ``all_gather``) where ``dst`` is None, else
+        on the z group's rank at z index ``dst`` only (one ``gather``; each
+        angle group's ranks gather their own copy), the others returning
+        None, so that only one rank holds the whole volume."""
+        if dst is None:
+            return comm.all_gather(x, 0, self.mesh.z_group)
+        return comm.gather(x, self.mesh.z_group, self.mesh.z_ranks[dst])
 
 
 def _slab(a, mesh: Mesh) -> torch.Tensor:
@@ -457,18 +465,33 @@ def _slab(a, mesh: Mesh) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def sharded_prox(mesh: Mesh, prox: Callable, halo: int) -> Callable:
+def sharded_prox(mesh: Mesh, prox: Callable, halo: int, method: Optional[str] = None,
+                 iterations: Optional[int] = None) -> Callable:
     """``x`` (this rank's slab) -> the slab of ``prox`` of the whole volume:
     ``prox`` runs on the slab widened by ``halo`` slices of its neighbours
     on each side (fewer at the volume's ends) and the widening is cropped.
     Exact where ``halo`` covers the prox's reach: a prox whose one
     iteration reads one slice each way needs its iteration count.  A slab
     thinner than the halo takes slices from as many slabs as the window
-    spans."""
+    spans.
+
+    Each call is the span ``tomobar::regul.sharded_prox`` (the exchange,
+    the prox and the crop; attrs ``method`` and ``iterations`` as given,
+    for the trace only) and counts the widened slab's slices and the slab's,
+    times ``iterations`` (1 where not given), as ``halo.rows_computed`` and
+    ``halo.rows_kept``."""
 
     def fn(x: torch.Tensor) -> torch.Tensor:
-        wide, before = comm.z_halo(x, mesh, halo, halo)
-        return prox(wide)[before : before + x.shape[0]]
+        nz = x.shape[0]
+        w0, w1 = comm.halo_window(mesh.z_index, nz, nz * mesh.shape["z"], halo, halo)
+        before, after = mesh.z_index * nz - w0, w1 - (mesh.z_index + 1) * nz
+        wide_nz, its = w1 - w0, iterations or 1
+        count("halo.rows_computed", wide_nz * its)
+        count("halo.rows_kept", nz * its)
+        with span("tomobar::regul.sharded_prox", nz=nz, n=x.shape[-1], before=before,
+                  after=after, wide_nz=wide_nz, method=method, iterations=iterations):
+            wide, before = comm.z_halo(x, mesh, halo, halo)
+            return prox(wide)[before : before + nz]
 
     return fn
 
@@ -568,7 +591,8 @@ def sharded_regul_fn(mesh: Mesh, regularisation: dict, nonneg: bool = False) -> 
         def prox(x):
             return prox_regul(owner, x, alone)
 
-        steps.append(sharded_prox(mesh, prox, reach * int(r["iterations"])))
+        steps.append(sharded_prox(mesh, prox, reach * int(r["iterations"]), name,
+                                  int(r["iterations"])))
     if "WAVELET" in method:
         steps.append(sharded_wavelet(mesh, wavelet_threshold(r), r.get("wavelet_levels", 3)))
 

@@ -60,7 +60,10 @@ def power_method(
     default the projector's device where it has one (a
     :class:`~tomobar_tpu_torch.parallel.sharding.ShardedProjector`'s
     mesh), else the current CUDA device; without CUDA that raises, and
-    ``device="cpu"`` runs on the host."""
+    ``device="cpu"`` runs on the host.  Under a ``ShardedProjector``
+    ``vol_shape`` is this rank's slab and the start is that slab of the
+    whole volume's draw (the whole drawn, the rest freed), so a mesh
+    starts where one device starts."""
     del use_pwls  # weights are ones in the reference's power method
     use_os = len(projector.subset_indices) > 1
 
@@ -80,9 +83,14 @@ def power_method(
             device = torch.device("cuda", torch.cuda.current_device())
         device = torch.device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        x0 = torch.randn(
-            tuple(vol_shape), generator=gen, dtype=torch.float32, device=device
-        )
+        mesh = getattr(projector, "mesh", None)
+        shape = tuple(vol_shape)
+        if mesh is not None:
+            z0, z1 = mesh.z_slab(projector.geom.detectors_y)
+            shape = (projector.geom.detectors_y, *shape[1:])
+        x0 = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        if mesh is not None:
+            x0 = x0[z0:z1].clone()
     y = Ax(x0.to(torch.float32))
     s = torch.ones((), dtype=torch.float32, device=y.device)
     for _ in range(iterations):

@@ -18,9 +18,10 @@ on or off.  While it is off a span costs one check of that flag.
   synchronisation.
 * :func:`count` adds to one of the counters: the kernels' launches by
   kernel name (:data:`launches`, which ``_build.launch_counts`` is) and
-  the projector's plan cache and the wavefront PD-TV kernel's block-rows
-  (:data:`counters`).  The counters always
-  count; while a profiler records, the record keeps each one's increase.
+  the projector's plan cache, the wavefront PD-TV kernel's block-rows and
+  the sharded layer's bytes and halo slices (:data:`counters`).  The
+  counters always count; while a profiler records, the record keeps each
+  one's increase.
 * :func:`snapshot` returns the record: every finished span with its host
   and device seconds and its self time (its time less that of its child
   spans), each counter's increase over the recording, and the spans
@@ -40,6 +41,9 @@ The spans:
 | ``tomobar::regul.prox`` | ``regularisers.prox_regul`` |
 | ``tomobar::usfft.<stage>`` | the five stages of ``ops/usfft.py``'s ``fourier_inv``: ``filter``, ``fft1d``, ``grid``, ``ifft2``, ``unpad`` |
 | ``tomobar::prep.normalise`` | ``utils.tools.normaliser`` on a tensor ("mean" or "median") |
+| ``tomobar::parallel.mesh`` | ``parallel.make_mesh`` (the mesh's process groups) |
+| ``tomobar::regul.sharded_prox`` | ``parallel.sharded_prox``'s function: the halo exchange, the prox on the widened slab and the crop (``nz`` and ``n`` of the slab, ``before``, ``after``, ``wide_nz``, ``method``, ``iterations``) |
+| ``tomobar::comm.<op>`` | the collectives of ``parallel/comm.py``: ``all_reduce``, ``all_gather``, ``gather``, ``z_halo`` (``bytes`` reduced or received, ``peers``; the halo's holds its exchange only) |
 
 The counters beside the launches:
 
@@ -48,6 +52,8 @@ The counters beside the launches:
 | ``projector.plan_builds`` / ``.plan_hits`` | ``_DrivenPlan.group``: misses (builds) and hits of its cache |
 | ``pdw.rows_launched`` | ``ops/pd_tv.py`` at each ``PDw`` launch: the launch's waves x slots x slab slices x (segment rows + 2K), the block-rows its blocks sweep (``wave_rows``) |
 | ``pdw.rows_kept`` | the same launch's strips x nz x ny, the block-rows it keeps; over ``pdw.rows_launched``, the plan's share of useful block-rows |
+| ``comm.reduce_bytes`` / ``.gather_bytes`` / ``.halo_bytes`` | ``parallel/comm.py``: the bytes all-reduced, received in a gather (``all_gather`` or ``gather``) and received in a halo exchange |
+| ``halo.rows_computed`` / ``.rows_kept`` | ``parallel.sharded_prox``: the widened slab's slices x the prox's iterations, and the slab's; their ratio is the halo's extra prox work |
 
 The record is one per process and assumes the spans of one thread.
 """
@@ -72,9 +78,11 @@ _API = "tomobar::api."
 launches = dict.fromkeys(
     ("K1", "K1p", "K2", "K3", "K4", "K4p", "PD", "PDw", "G", "F", "Fc", "Ff"), 0)
 #: misses (builds) and hits of ``_DrivenPlan.group``'s cache of parameters;
-#: block-rows that PDw launches sweep and keep
+#: block-rows that PDw launches sweep and keep; the sharded layer's bytes
+#: and the slices its halo prox computes and keeps
 counters = {"projector.plan_builds": 0, "projector.plan_hits": 0, "pdw.rows_launched": 0,
-            "pdw.rows_kept": 0}
+            "pdw.rows_kept": 0, "comm.reduce_bytes": 0, "comm.gather_bytes": 0,
+            "comm.halo_bytes": 0, "halo.rows_computed": 0, "halo.rows_kept": 0}
 
 
 class _Record:
